@@ -1,0 +1,111 @@
+"""Carry weights into the port: from the JAX package's variable tree, or from
+a reference ``.pth``.
+
+``state_dict_from_flax`` is the port's own copy of the key and layout
+mapping of ``das_tpu.checkpoint.torch_bridge.export_torch_state_dict``:
+flax auto-names ``<attr>_<i>`` become ``<attr>.<i>``, kernels go HWIO ->
+OIHW (conv) and IO -> OI (dense), norm ``scale`` -> ``weight``, batch-stat
+``mean``/``var`` -> ``running_mean``/``running_var``, plus the structural
+renames of the MSPN stages, the stem, the bottleneck norms, the
+recursive-update layers and the RealNVP sequential indices. The result
+loads into the port's model with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _flatten(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict) or hasattr(v, 'items'):
+            out.update(_flatten(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = v
+    return out
+
+
+def _torch_key(path) -> str:
+    name = '.'.join(path)
+    # flax auto-names: '<attr>_<i>' -> '<attr>.<i>', to fixpoint so nested
+    # list indices ('conv_reg_prevs_0_0') all convert
+    prev = None
+    while prev != name:
+        prev = name
+        name = re.sub(r'_(\d+)(?=[._]|$)', r'.\1', name, count=1)
+    name = re.sub(r'^backbone\.stage(\d+)\.',
+                  r'backbone.multi_stage_mspn.\1.', name)
+    name = name.replace('.top.top_conv.', '.top.top.0.')
+    name = re.sub(r'recursive_update_branch\.layer\.(\d+)\.',
+                  r'recursive_update_branch.layer_\1.', name)
+    # bottleneck convK.conv/bn -> convK/bnK (not the ConvModule convs)
+    name = re.sub(r'\.conv([123])\.bn\.', r'.bn\1.', name)
+    name = re.sub(r'\.conv([123])\.conv\.', r'.conv\1.', name)
+    # flow sequential indices j -> 2j (Linear, LeakyReLU, Linear, ...)
+    m = re.match(r'^(bbox_head\.flow(?:3d|2d)(?:_update)?)'
+                 r'\.([st])\.(\d+)\.(\d+)\.(.*)$', name)
+    if m:
+        base, st, i, j, rest = m.groups()
+        name = f'{base}.{st}.{i}.{int(j) * 2}.{rest}'
+    return name
+
+
+def state_dict_from_flax(params: Dict[str, Any],
+                         batch_stats: Dict[str, Any] = None
+                         ) -> Dict[str, torch.Tensor]:
+    """The JAX tree (nested dicts of numpy arrays) -> the port's
+    ``state_dict`` (CPU tensors, the reference's keys and layouts)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params).items():
+        name = _torch_key(path)
+        arr = np.asarray(leaf)
+        if path[-1] == 'kernel':
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)       # HWIO -> OIHW
+            elif arr.ndim == 2:
+                arr = arr.transpose(1, 0)             # IO -> OI
+            name = name[:-len('kernel')] + 'weight'
+        elif path[-1] == 'scale' and arr.ndim == 1:
+            name = name[:-len('scale')] + 'weight'    # norm gamma
+        out[name] = torch.from_numpy(np.ascontiguousarray(arr)) \
+            .reshape(arr.shape)
+    for path, leaf in _flatten(batch_stats or {}).items():
+        name = _torch_key(path)
+        if path[-1] == 'mean':
+            name = name[:-len('mean')] + 'running_mean'
+        elif path[-1] == 'var':
+            name = name[:-len('var')] + 'running_var'
+        out[name] = torch.from_numpy(np.ascontiguousarray(np.asarray(leaf)))
+    return out
+
+
+def strip_prefixes(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """mmcv get_state_dict prefix stripping (ref mspn_mmpose.py:161-193)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith('module.backbone.'):
+            out[k[len('module.backbone.'):]] = v
+        elif k.startswith('module.'):
+            out[k[len('module.'):]] = v
+        else:
+            out[k] = v
+    return out
+
+
+def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """Load a reference ``.pth`` (or one this port saved) with
+    ``strict=True``. ``num_batches_tracked`` and the RealNVP ``mask``
+    buffers are constants the model does not keep as state, so they are
+    dropped first, as the JAX bridge drops them."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+    sd = {k: v for k, v in strip_prefixes(sd).items()
+          if not (k.endswith('num_batches_tracked') or k.endswith('.mask'))}
+    model.load_state_dict(sd, strict=True)
+    return model
