@@ -41,9 +41,12 @@ def decode_single_image(cls_scores: Sequence[torch.Tensor],
     return {k: v[0] for k, v in out.items()}
 
 
-def _decode(cls_scores, pose_preds, centernesses, points, scale_factors,
-            num_joints, nms_pre, nms_post, nms_thr, score_thr, nms_type):
-    """Batched decode: level tensors (N, H, W, C), scale_factors (N, 2)."""
+def _candidates(cls_scores, pose_preds, centernesses, points,
+                scale_factors, num_joints, nms_pre, score_thr):
+    """The candidate set the NMS sees: per image, up to ``nms_pre`` per
+    level, levels concatenated. Returns ``nms_scores`` (N, M), ``valid``
+    (N, M), ``xy`` (N, M, J, 2), ``areas`` (N, M), ``poses`` (N, M, J, 3)
+    and ``centers`` (N, M, 3)."""
     J = num_joints
     N = cls_scores[0].shape[0]
     dev = cls_scores[0].device
@@ -89,19 +92,32 @@ def _decode(cls_scores, pose_preds, centernesses, points, scale_factors,
     centers = torch.cat(mlvl_centers, dim=1)
 
     nms_scores = scores * ctrness
-    valid = nms_scores > score_thr
     # every above-threshold candidate of every level enters NMS (up to
     # nms_pre per level, ref das_head.py:763-783)
     xy = poses[..., :2]
     areas = (xy[..., 0].amax(-1) - xy[..., 0].amin(-1)) * \
         (xy[..., 1].amax(-1) - xy[..., 1].amin(-1))
+    return dict(nms_scores=nms_scores, valid=nms_scores > score_thr, xy=xy,
+                areas=areas, poses=poses, centers=centers)
+
+
+def _decode(cls_scores, pose_preds, centernesses, points, scale_factors,
+            num_joints, nms_pre, nms_post, nms_thr, score_thr, nms_type):
+    """Batched decode: level tensors (N, H, W, C), scale_factors (N, 2)."""
+    J = num_joints
+    c = _candidates(cls_scores, pose_preds, centernesses, points,
+                    scale_factors, J, nms_pre, score_thr)
+    nms_scores = c['nms_scores']
+    N, dev = nms_scores.shape[0], nms_scores.device
     sig = default_sigmas(J)
     if nms_type == 'soft':
         gather, out_valid = soft_oks_nms_fixed(
-            xy, nms_scores, areas, valid, nms_thr, nms_post, sig)
+            c['xy'], nms_scores, c['areas'], c['valid'], nms_thr, nms_post,
+            sig)
     elif nms_type == 'hard':
         gather, out_valid = oks_nms_fixed(
-            xy, nms_scores, areas, valid, nms_thr, sig, max_dets=nms_post)
+            c['xy'], nms_scores, c['areas'], c['valid'], nms_thr, sig,
+            max_dets=nms_post)
     else:
         raise ValueError(f'unsupported nms_type {nms_type!r} '
                          "(expected 'hard' or 'soft')")
@@ -109,23 +125,39 @@ def _decode(cls_scores, pose_preds, centernesses, points, scale_factors,
     return dict(
         scores=torch.where(out_valid, nms_scores[nidx, gather],
                            torch.zeros_like(nms_scores[nidx, gather])),
-        poses=poses[nidx, gather],
-        centers=centers[nidx, gather],
+        poses=c['poses'][nidx, gather],
+        centers=c['centers'][nidx, gather],
         vis=torch.ones((N, nms_post, J), dtype=torch.float32, device=dev),
         valid=out_valid)
 
 
-def decode_batch(cls_scores, pose_preds, centernesses, strides,
-                 scale_factors, num_joints, test_cfg):
-    """Decode a batch: level tensors are (N, H, W, C)."""
+def _level_points(cls_scores, strides):
     featmap_sizes = [tuple(c.shape[1:3]) for c in cls_scores]
     pts_np, _, _ = make_points(featmap_sizes, strides)
     points, begin = [], 0
     for (h, w) in featmap_sizes:
         points.append(torch.from_numpy(pts_np[begin:begin + h * w]))
         begin += h * w
+    return points
+
+
+def decode_candidates(cls_scores, pose_preds, centernesses, strides,
+                      scale_factors, num_joints, test_cfg):
+    """The candidate set that ``decode_batch`` hands to its NMS (see
+    ``_candidates``), from the same arguments."""
+    return _candidates(
+        cls_scores, pose_preds, centernesses,
+        _level_points(cls_scores, strides), torch.as_tensor(scale_factors),
+        num_joints, nms_pre=int(test_cfg.get('nms_pre', 1000)),
+        score_thr=float(test_cfg.get('score_thr', 0.07)))
+
+
+def decode_batch(cls_scores, pose_preds, centernesses, strides,
+                 scale_factors, num_joints, test_cfg):
+    """Decode a batch: level tensors are (N, H, W, C)."""
     return _decode(
-        cls_scores, pose_preds, centernesses, points,
+        cls_scores, pose_preds, centernesses,
+        _level_points(cls_scores, strides),
         torch.as_tensor(scale_factors), num_joints,
         nms_pre=int(test_cfg.get('nms_pre', 1000)),
         nms_post=int(test_cfg.get('nms_post', 100)),

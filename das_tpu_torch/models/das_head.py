@@ -37,9 +37,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 @HEADS.register_module()
 class DASHead(nn.Module):
-    """Eval-mode DAS head. Training-only options (regress ranges, center
-    sampling, losses, train gather mode, remat, fused_gn) are accepted so
-    the configs build unchanged."""
+    """Eval-mode DAS head. ``fused_gn`` with a bias-free head
+    (``conv_bias='auto'``) runs each 3x3 conv+GN+relu module as one fused
+    kernel call. Training-only options (regress ranges, center sampling,
+    losses, train gather mode, remat) are accepted so the configs build
+    unchanged."""
 
     def __init__(self, num_classes: int = 1, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 2,
@@ -81,7 +83,7 @@ class DASHead(nn.Module):
         kw = dict(norm_cfg=norm_cfg, bias=conv_bias,
                   dcn_gather_mode=dcn_gather_mode,
                   dcn_shift_radius=dcn_shift_radius,
-                  dcn_shift_budget=dcn_shift_budget)
+                  dcn_shift_budget=dcn_shift_budget, fused_gn=fused_gn)
 
         def tower():
             return nn.ModuleList([

@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import conv_gn
 from ..ops.deform_conv import modulated_deform_conv
 
 
@@ -140,6 +141,10 @@ class ConvModule(nn.Module):
 
     ``bias='auto'`` means bias iff there is no norm (mmcv behaviour).
     ``dcn=True`` makes the conv a ``DeformConv2d`` (3x3, stride 1).
+    ``fused_gn=True`` runs an eval 3x3/s1/p1 bias-free conv+GN+relu as one
+    ``ops.conv_gn.conv_gn_relu`` call (the JAX module's ``_use_fused_gn``
+    gate, condition for condition); the parameters, and so the state dict,
+    are those of the unfused module.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -147,12 +152,14 @@ class ConvModule(nn.Module):
                  bias: Union[str, bool] = 'auto',
                  norm_cfg: Optional[dict] = None, act: Optional[str] = 'relu',
                  dcn: bool = False, dcn_gather_mode: str = 'patch',
-                 dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048):
+                 dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048,
+                 fused_gn: bool = False):
         super().__init__()
         use_bias = (norm_cfg is None) if bias == 'auto' else bool(bias)
         if act not in (None, 'relu'):
             raise ValueError(f'unsupported act {act}')
         self.act = act
+        self.fused_gn = fused_gn
         if dcn:
             assert stride == 1
             self.conv = DeformConv2d(in_channels, out_channels, kernel_size,
@@ -166,7 +173,24 @@ class ConvModule(nn.Module):
         if norm is not None:
             self.add_module(name, norm)
 
+    def use_fused_gn(self) -> bool:
+        """The JAX module's ``_use_fused_gn`` gate: eval, not DCN, no bias,
+        3x3, stride 1, padding 1, relu, GN."""
+        conv = self.conv
+        return (self.fused_gn and not self.training
+                and not isinstance(conv, DeformConv2d) and conv.bias is None
+                and conv.kernel_size == (3, 3) and conv.stride == (1, 1)
+                and conv.padding == (1, 1) and self.act == 'relu'
+                and self.norm_name == 'gn')
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_fused_gn():
+            w = self.conv.weight
+            out = conv_gn.conv_gn_relu(
+                x.to(w.dtype).permute(0, 2, 3, 1).contiguous(),
+                w.permute(2, 3, 1, 0), self.gn.weight, self.gn.bias,
+                groups=self.gn.num_groups)
+            return out.permute(0, 3, 1, 2)
         if isinstance(self.conv, DeformConv2d):
             x = self.conv(x)
         else:

@@ -12,84 +12,22 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 (``das_tpu_torch/csrc/dcn_shift.cu``) or raises. On a CPU tensor it runs
 the plain PyTorch version, ``deform_conv_shift_plain``. The kernel is built
 with ``nvcc`` at first use into ``build/das_tpu_torch/`` and loaded with
-``ctypes``.
+``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
-SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'dcn_shift.cu'
-BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'das_tpu_torch'
-NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
+from .cuda_build import INT, PTR, CudaLibrary, check_launch, check_tensor
+
+LIB = CudaLibrary('dcn_shift.cu', {
+    'dcn_shift_forward': [PTR] * 6 + [INT] * 7 + [PTR]})
 
 # Kernel launches since the last reset; the main path's run reads it.
 launches = 0
-
-_lib = None
-_lib_lock = threading.Lock()
-build_log = ''
-
-
-def _nvcc() -> str:
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    cand = '/usr/local/cuda/bin/nvcc'
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError('nvcc not found: the DCN shift kernel is built from '
-                       f'{SOURCE} with the CUDA toolkit')
-
-
-def build() -> Path:
-    """Compile the kernel (once per source content) and return the .so."""
-    global build_log
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f'libdcn_shift_{tag}.so'
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{build_log}')
-    os.replace(tmp, so)
-    return so
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.dcn_shift_forward
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-                + [ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
-
-
-def load_seconds() -> float:
-    """Build (if needed) and load the kernel; return the seconds taken."""
-    t = time.perf_counter()
-    _load()
-    return time.perf_counter() - t
 
 
 def deform_conv_shift_plain(x: torch.Tensor, offset: torch.Tensor,
@@ -134,18 +72,6 @@ def deform_conv_shift_plain(x: torch.Tensor, offset: torch.Tensor,
     return out
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f'{name} is on {t.device}, x on {device}')
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f'{name} has shape {tuple(t.shape)}, '
-                         f'expected {tuple(shape)}')
-    if t.dtype != dtype:
-        raise TypeError(f'{name} is {t.dtype}, expected {dtype}')
-    if not t.is_contiguous():
-        raise ValueError(f'{name} must be contiguous')
-
-
 def deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
                       mask: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor], K: int = 3,
@@ -179,25 +105,24 @@ def deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
     N, H, W, Cin = x.shape
     Cout = weight.shape[-1]
     dev, dt = x.device, x.dtype
-    _check('x', x, (N, H, W, Cin), dt, dev)
+    check_tensor('x', x, (N, H, W, Cin), dt, dev)
     offset = offset.to(torch.float32).contiguous()
     mask = mask.to(dt).contiguous()
     w = weight.to(dt).contiguous()
-    _check('offset', offset, (N, H, W, 18), torch.float32, dev)
-    _check('mask', mask, (N, H, W, 9), dt, dev)
-    _check('weight', w, (3, 3, Cin, Cout), dt, dev)
+    check_tensor('offset', offset, (N, H, W, 18), torch.float32, dev)
+    check_tensor('mask', mask, (N, H, W, 9), dt, dev)
+    check_tensor('weight', w, (3, 3, Cin, Cout), dt, dev)
     if bias is not None:
         bias = bias.to(dt).contiguous()
-        _check('bias', bias, (Cout,), dt, dev)
+        check_tensor('bias', bias, (Cout,), dt, dev)
     out = torch.empty((N, H, W, Cout), dtype=dt, device=dev)
-    lib = _load()
+    lib = LIB.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dcn_shift_forward(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             N, H, W, Cin, Cout, radius, int(dt == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f'dcn_shift kernel launch failed: CUDA error {err}')
+    check_launch('dcn_shift', err)
     launches += 1
     return out

@@ -1,4 +1,5 @@
-"""OKS (object-keypoint-similarity) NMS, port of ``das_tpu/ops/oks_nms.py``.
+"""OKS (object-keypoint-similarity) NMS, port of ``das_tpu/ops/oks_nms.py``
+and of ``das_tpu/ops/pallas_nms.py``.
 
 Fixed-shape greedy NMS for the fused decode: each of ``max_dets`` rounds is
 one argmax over the live candidates and one OKS row against the pick, run
@@ -6,12 +7,30 @@ for exactly ``max_dets`` rounds with no host sync (a round after every
 candidate is gone only writes -1, so the result is that of the JAX
 ``while_loop``, which stops early). The functions take one image's
 candidates, or a batch of images along a leading dimension.
+
+``oks_nms_keep`` is the counterpart of the Pallas kernel
+``oks_nms_pallas``: the keep mask of greedy hard OKS-NMS over candidates
+already sorted by score. On a CUDA tensor it launches the hand-written
+kernel (``das_tpu_torch/csrc/oks_nms.cu``) or raises; on a CPU tensor it
+runs the plain version, ``oks_nms_keep_plain``. The decode keeps
+``oks_nms_fixed``, as the JAX decode does.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .cuda_build import (FLOAT, INT, PTR, CudaLibrary, check_launch,
+                         check_tensor)
+
+LIB = CudaLibrary('oks_nms.cu', {
+    'oks_nms_scan_rows': [INT],
+    'oks_nms_keep_forward': [PTR] * 6 + [INT] * 3 + [FLOAT, FLOAT, PTR]})
+
+# Kernel launches since the last reset; a run on served candidates reads it.
+launches = 0
+EPS = float(np.spacing(1))
 
 COCO17_SIGMAS = np.array([
     .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
@@ -35,8 +54,7 @@ def oks_row(kpt: torch.Tensor, kpts: torch.Tensor, area, areas: torch.Tensor,
     """
     variances = (2.0 * sigmas) ** 2
     d2 = ((kpts - kpt.unsqueeze(-3)) ** 2).sum(-1)             # (..., M, J)
-    scale = (torch.as_tensor(area).unsqueeze(-1) + areas) / 2.0 \
-        + float(np.spacing(1))
+    scale = (torch.as_tensor(area).unsqueeze(-1) + areas) / 2.0 + EPS
     e = d2 / variances / scale.unsqueeze(-1) / 2.0
     return torch.exp(-e).mean(-1)
 
@@ -116,3 +134,95 @@ def soft_oks_nms_fixed(kpts: torch.Tensor, scores: torch.Tensor,
         s[bidx, i] = -torch.inf
     out_valid = order >= 0
     return torch.where(out_valid, order, 0), out_valid
+
+
+def _nms_var2(sigmas: np.ndarray, device) -> torch.Tensor:
+    """2 * (2 sigma)^2 per joint, formed in double and stored in f32, as
+    the Pallas kernel's ``float(variances[k]) * 2.0`` constants."""
+    var2 = ((np.asarray(sigmas, np.float64) * 2.0) ** 2) * 2.0
+    return torch.tensor(var2, dtype=torch.float32, device=device)
+
+
+def oks_nms_keep_plain(kpts: torch.Tensor, areas: torch.Tensor,
+                       valid: torch.Tensor, thr: float,
+                       sigmas: np.ndarray) -> torch.Tensor:
+    """Plain PyTorch version of ``oks_nms_keep`` (the Pallas kernel's
+    semantics and expression order).
+
+    sim(i, j) = sum_k exp(-d2_k / (2 var_k) / scale), summed over the joints
+    in order and divided by J, with scale = (a_i + a_j) * 0.5 + eps; then
+    the greedy scan in order: i is kept iff ``valid[i]`` and no kept j < i
+    has sim(i, j) > thr. Every divisor is a tensor, so the division is a
+    true division on the card too (a Python scalar divisor may become a
+    multiply by its reciprocal there). Shapes as ``oks_nms_keep``.
+    """
+    if kpts.dim() == 3:
+        return oks_nms_keep_plain(kpts[None], areas[None], valid[None], thr,
+                                  sigmas)[0]
+    B, M, J, _ = kpts.shape
+    dev = kpts.device
+    var2 = _nms_var2(sigmas, dev)
+    x, y = kpts[..., 0].float(), kpts[..., 1].float()          # (B, M, J)
+    a = areas.float()
+    scale = (a[:, :, None] + a[:, None, :]) * 0.5 + EPS          # (B, M, M)
+    acc = torch.zeros((B, M, M), dtype=torch.float32, device=dev)
+    for k in range(J):
+        dx = x[:, :, None, k] - x[:, None, :, k]
+        dy = y[:, :, None, k] - y[:, None, :, k]
+        d2 = dx * dx + dy * dy
+        acc = acc + torch.exp(-d2 / var2[k] / scale)
+    sim = acc / torch.tensor(float(J), device=dev)
+    supp = (sim > thr).tril(-1)                   # (i, j): j < i suppresses
+    keep = torch.zeros((B, M), dtype=torch.bool, device=dev)
+    for i in range(M):
+        keep[:, i] = valid[:, i] & ~(supp[:, i] & keep).any(-1)
+    return keep
+
+
+def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
+                 valid: torch.Tensor, thr: float,
+                 sigmas: np.ndarray) -> torch.Tensor:
+    """Greedy hard OKS-NMS keep mask over score-sorted candidates.
+
+    Args: kpts (M, J, 2) xy, sorted by score, descending; areas (M,); valid
+    (M,) bool; or a batch of images along a leading dimension. Returns the
+    keep mask (M,) (or (B, M)) bool, in the input order.
+
+    CPU tensors run ``oks_nms_keep_plain``; CUDA tensors launch the kernel,
+    which takes f32 kpts and areas, a bool valid and J <= 32.
+    """
+    global launches
+    if kpts.device.type == 'cpu':
+        return oks_nms_keep_plain(kpts, areas, valid, thr, sigmas)
+    if kpts.device.type != 'cuda':
+        raise ValueError(f'no OKS-NMS kernel for device {kpts.device}')
+    if kpts.dim() == 3:
+        return oks_nms_keep(kpts[None], areas[None], valid[None], thr,
+                            sigmas)[0]
+    if kpts.dim() != 4 or kpts.shape[-1] != 2:
+        raise ValueError(f'kpts must be (B,M,J,2), got {tuple(kpts.shape)}')
+    B, M, J, _ = kpts.shape
+    dev = kpts.device
+    kpts, areas, valid = (t.contiguous() for t in (kpts, areas, valid))
+    check_tensor('kpts', kpts, (B, M, J, 2), torch.float32, dev)
+    check_tensor('areas', areas, (B, M), torch.float32, dev)
+    check_tensor('valid', valid, (B, M), torch.bool, dev)
+    if len(sigmas) != J or not 1 <= J <= 32:
+        raise ValueError(f'the kernel takes 1..32 joints with one sigma '
+                         f'each (got J={J}, {len(sigmas)} sigmas)')
+    lib = LIB.load()
+    if M and lib.oks_nms_scan_rows(M) == 0:
+        raise ValueError(f'{M} candidates exceed the scan\'s shared memory')
+    var2 = _nms_var2(sigmas, dev)
+    nw = (M + 63) // 64
+    mask = torch.empty((B, M, nw), dtype=torch.int64, device=dev)
+    keep = torch.empty((B, M), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.oks_nms_keep_forward(
+            kpts.data_ptr(), areas.data_ptr(), var2.data_ptr(),
+            valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), B, M, J,
+            float(thr), EPS, stream)
+    check_launch('oks_nms_keep', err)
+    launches += 1
+    return keep

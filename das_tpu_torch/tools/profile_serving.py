@@ -1,9 +1,12 @@
 """Where a serving request's time goes, on the card.
 
-    python -m das_tpu_torch.tools.profile_serving [--requests 3] [--out DIR]
+    python -m das_tpu_torch.tools.profile_serving [--config PATH]
+        [--requests 3] [--out DIR]
 
-Builds ``configs/das/exp_panoptic_tpu.py`` in bf16 on the card (random
-weights from a seed, conv_offset zero as at init), serves B=4 640x1152
+Builds ``--config`` (default ``configs/das/exp_panoptic_tpu.py``; e.g.
+``configs/das/exp_panoptic_tpu_fused_gn.py`` for the fused conv+GN head) in
+bf16 on the card (random weights from a seed, conv_offset zero as at
+init), serves B=4 640x1152
 requests and prints one JSON line: per-stage device times from CUDA events
 (backbone, neck, head, decode), the request time on the host clock, and,
 for one request under ``torch.profiler``, its host time, the sum of its
@@ -77,11 +80,12 @@ def stage_busy_ms(trace_path, names):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument('--config', default=CFG)
     ap.add_argument('--requests', type=int, default=3)
     ap.add_argument('--out',
                     default=os.path.join('build', 'profile_serving'))
     args = ap.parse_args()
-    model, cfg = init_model(CFG, dtype=torch.bfloat16, device='cuda')
+    model, cfg = init_model(args.config, dtype=torch.bfloat16, device='cuda')
     rng = np.random.RandomState(0)
     img = torch.from_numpy(rng.randn(4, 640, 1152, 3).astype(np.float32)) \
         .cuda()
@@ -117,6 +121,7 @@ def main():
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
     busy = sum(dev_us(e) for e in kernels) / 1e3
     print(json.dumps(dict(
+        config=os.path.relpath(args.config),
         device=torch.cuda.get_device_name(0),
         stages_ms={k: float(np.median([s[k] for s in stages]))
                    for k in stages[0]},
