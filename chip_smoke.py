@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the das_tpu_torch serving path on one NVIDIA H100 and check it.
+"""Drive the das_tpu_torch serving and training paths on one NVIDIA H100
+and check them.
 
 Run from the repository root, on a machine with one card:
 
@@ -14,17 +15,25 @@ nonzero and prints no result:
    ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card, and timed at
    the serving shapes against its bound: ``dcn_shift`` (K1), ``conv_gn``
-   (K2, also against the unfused cuDNN conv + GroupNorm + relu), and
-   ``oks_nms`` (K3);
+   (K2, also against the unfused cuDNN conv + GroupNorm + relu),
+   ``oks_nms`` (K3), and ``gather_rows`` (K4, the row gather of every
+   bilinear sample and of the RU ``take_at``, forward and backward, also
+   against plain indexing and ``index_add_``);
 4. the main paths at full width, B=4 640x1152 bf16 requests through
    ``make_predict_fn``, each with the kernels' launch counts set to 0 just
    before and read just after: ``configs/das/exp_panoptic_tpu.py`` (16
-   ``dcn_shift`` launches per request), then
-   ``configs/das/exp_panoptic_tpu_fused_gn.py`` (16 ``dcn_shift`` and 36
-   ``conv_gn``); then K3 on the NMS candidates of one fused-GN request,
-   against ``oks_nms_fixed`` and the plain version;
+   ``dcn_shift`` launches per request and some ``gather_rows``), then
+   ``configs/das/exp_panoptic_tpu_fused_gn.py`` (16 ``dcn_shift``, 36
+   ``conv_gn`` and some ``gather_rows``); then K3 on the NMS candidates of
+   one fused-GN request, against ``oks_nms_fixed`` and the plain version;
 5. for each config, the kernel path on the card against the plain path on
-   the CPU, fp32, on one small image, same weights.
+   the CPU, fp32, on one small image, same weights;
+6. training at full width: 5 steps of ``make_train_step`` on
+   ``configs/das/exp_panoptic_tpu.py`` at B=4 640x1344 (its train bucket),
+   bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
+   with the counts set to 0 just before and read just after; then one fp32
+   step at B=2 128x160 on the card (K4 live) against the same step on the
+   CPU (plain).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -45,6 +54,7 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12        # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3 bytes/s
 LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]   # B=4 640x1152 maps
+BF16_STEP = 2.0 ** -7         # bf16's spacing relative to a value in [1, 2)
 
 
 def phase(name, msg):
@@ -147,8 +157,9 @@ def environment():
 
 
 def build():
-    from das_tpu_torch.ops import conv_gn, cuda_build, dcn_shift, oks_nms
-    libs = [dcn_shift.LIB, conv_gn.LIB, oks_nms.LIB]
+    from das_tpu_torch.ops import (conv_gn, cuda_build, dcn_shift, gather,
+                                   oks_nms)
+    libs = [dcn_shift.LIB, conv_gn.LIB, oks_nms.LIB, gather.LIB]
     secs = cuda_build.build_all(libs)
     phase('build', ', '.join(lib.source.name for lib in libs)
           + f' built (one nvcc each, in parallel) and loaded in {secs:.2f} s')
@@ -358,6 +369,115 @@ def oks_nms_vs_plain():
           'J=15, near-duplicate candidates ok')
 
 
+def gather_bound_ms(N, R, P, C, elt, idx_bytes, backward=False):
+    """Least time for one row gather (K4) or its adjoint: no arithmetic in
+    the forward, so the bytes, each output row read once and written once
+    and each index read once; the adjoint reads the output gradient and the
+    indices and writes the table gradient once, with N*P*C f32 additions
+    on the CUDA cores."""
+    if not backward:
+        return bound_ms(0.0, PEAK_F32_FLOPS,
+                        2 * N * P * C * elt + N * P * idx_bytes)
+    return bound_ms(N * P * C, PEAK_F32_FLOPS,
+                    N * P * C * elt + N * P * idx_bytes + N * R * C * elt)
+
+
+# (N, R, C, P, index type, what): the probe's shape
+# (tools/analysis_tools/pallas_gather_probe.py:26-28); the RU's gathers at
+# the sparse serving levels 0 and 1 of a B=4 640x1152 request (60 = B x J
+# tables of H*W rows: take_at of uvd C=3 and of the sampling offsets C=8 at
+# K=1000 points, the offsets' bilinear corners C=8 at 1000, the [uvd, conf]
+# corners C=6 at 8000); the hybrid repair's corners at budget 2048 on
+# 256-channel maps; and indices past both ends, which must clamp
+GATHER_SHAPES = [
+    (1, 11520, 128, 11520, 'int32', 'probe'),
+    (60, 46080, 3, 1000, 'int64', 'RU level 0 take_at uvd'),
+    (60, 46080, 8, 1000, 'int64', 'RU level 0 take_at / corners, offsets'),
+    (60, 46080, 6, 8000, 'int64', 'RU level 0 corners, [uvd, conf]'),
+    (60, 11520, 3, 1000, 'int64', 'RU level 1 take_at uvd'),
+    (60, 11520, 8, 1000, 'int64', 'RU level 1 take_at / corners, offsets'),
+    (60, 11520, 6, 8000, 'int64', 'RU level 1 corners, [uvd, conf]'),
+    (4, 46080, 256, 2048, 'int64', 'hybrid repair corners, level 0'),
+    (4, 11520, 256, 2048, 'int64', 'hybrid repair corners, level 1'),
+    (2, 1000, 8, 3000, 'int32', 'clamp, int32'),
+    (2, 1000, 6, 3000, 'int64', 'clamp, int64'),
+]
+
+
+def gather_vs_plain():
+    """K4 forward bit for bit against its plain version, its backward
+    against the plain scatter-add, and both timed, at GATHER_SHAPES.
+    Returns the table entries of the forward and the backward kernel (at
+    the probe's shape, bf16)."""
+    import torch
+    from das_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(13)
+    entries = {}
+    for N, R, C, P, itype, what in GATHER_SHAPES:
+        lo, hi = (-R // 2, R + R // 2) if what.startswith('clamp') else (0, R)
+        idx = torch.randint(lo, hi, (N, P), generator=gen) \
+            .to(getattr(torch, itype)).cuda()
+        base = torch.randn(N, R, C, generator=gen).cuda()
+        ct = torch.randn(N, P, C, generator=gen).cuda()
+        errs = []
+        for dt in (torch.float32, torch.bfloat16):
+            table = base.to(dt)
+            got = gather.gather_rows(table, idx)
+            want = gather.gather_rows_plain(table, idx)
+            check(torch.equal(got, want), ('gather_rows', what, dt))
+            fwd_err = (got.float() - want.float()).abs().max().item()
+            g = ct.to(dt)
+            gb = gather.scatter_rows_cuda(g, idx, R, dt).float()
+            wb = gather.scatter_rows_plain(g, idx, R, dt).float()
+            scale = wb.abs().max().item()
+            berr = (gb - wb).abs().max().item()
+            tol = 1e-5 if dt == torch.float32 else BF16_STEP
+            check(berr <= tol * scale, ('gather_rows backward', what, dt,
+                                         berr, scale))
+            errs.append((berr / scale, berr))
+        # the model's type at serving and in training: bf16
+        table, g = base.to(torch.bfloat16), ct.to(torch.bfloat16)
+        nidx = torch.arange(N, device='cuda')[:, None]
+        clamped = idx.long().clamp(0, R - 1)
+        flat = (clamped + nidx * R).reshape(-1)
+        acc = torch.zeros(N * R, C, device='cuda')
+        g2 = g.reshape(-1, C).float()
+        ms = cuda_ms(lambda: gather.gather_rows(table, idx), 50)
+        plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, idx), 20)
+        lib_ms = cuda_ms(lambda: table[nidx, clamped], 50)
+        bms = cuda_ms(lambda: gather.scatter_rows_cuda(
+            g, idx, R, torch.bfloat16), 50)
+        bplain_ms = cuda_ms(lambda: gather.scatter_rows_plain(
+            g, idx, R, torch.bfloat16), 20)
+        blib_ms = cuda_ms(lambda: acc.index_add_(0, flat, g2), 50)
+        ib = idx.element_size()
+        bound, by = gather_bound_ms(N, R, P, C, 2, ib)
+        bbound, bby = gather_bound_ms(N, R, P, C, 2, ib, backward=True)
+        phase('kernel', f'gather_rows {what} ({N}x{R}x{C}, P={P}, {itype}):'
+              f' forward == plain bit for bit in f32 and bf16; backward '
+              f'max err / max|ref| {errs[0][0]:.3g} f32 (<= 1e-5), {errs[1][0]:.3g}'
+              f' bf16 (<= 2^-7); bf16 forward kernel {ms:.4f} ms, plain '
+              f'{plain_ms:.4f} ms, indexing {lib_ms:.4f} ms, bound '
+              f'{bound:.4f} ms ({by}); backward kernel {bms:.4f} ms, plain '
+              f'{bplain_ms:.4f} ms, index_add_ {blib_ms:.4f} ms, bound '
+              f'{bbound:.4f} ms ({bby})')
+        if what == 'probe':
+            src = 'das_tpu_torch/csrc/gather_rows.cu'
+            rep = 'tools/analysis_tools/pallas_gather_probe.py:36'
+            shape = f'{N}x{R}x{C} bf16, P={P} {itype}'
+            entries['fwd'] = dict(
+                name='gather_rows', route='cuda', source=src, replaces=rep,
+                launches=0, max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=lib_ms, shape=shape)
+            entries['bwd'] = dict(
+                name='gather_rows_backward', route='cuda', source=src,
+                replaces=rep + ' (its adjoint: XLA scatter-add)', launches=0,
+                max_abs_err=errs[1][1], ms=bms, plain_ms=bplain_ms,
+                bound_ms=bbound, bound_by=bby, library_ms=blib_ms,
+                shape=shape)
+    return entries['fwd'], entries['bwd']
+
+
 def pose_template(model, radius=12.0):
     """Every candidate's joints on a circle of ``radius`` grid steps around
     its point (the uvd prediction conv's bias), so that candidates at
@@ -498,7 +618,8 @@ def main_path(cfg_path, requests, expect):
     """Serve ``requests`` B=4 640x1152 bf16 requests of ``cfg_path``. Every
     count of ``expect`` ({kernel module: launches per request}) is set to 0
     just before the requests and read just after; each request must launch
-    exactly its share. Returns (model, cfg, {name: launches}, last image,
+    exactly its share, or at least one where the share is None (K4, whose
+    count follows the repairs the request needs). Returns (model, cfg, {name: launches}, last image,
     scale factors)."""
     import numpy as np
     import torch
@@ -552,7 +673,8 @@ def main_path(cfg_path, requests, expect):
         phase('main', f'{name} request {i}: B=4 640x1152 in '
               f'{times[-1]:.2f} ms, {int(out["valid"].sum())} valid poses, '
               f'launches: {counts}')
-        check(all(got[mod] == n for mod, n in expect.items()),
+        check(all(got[mod] > 0 if n is None else got[mod] == n
+                  for mod, n in expect.items()),
               (name, 'launches per request', counts))
     totals = {mod.__name__.rsplit('.', 1)[-1]: mod.launches
               for mod in expect}
@@ -564,11 +686,12 @@ def main_path(cfg_path, requests, expect):
 
 def kernel_path_vs_plain_path(cfg_path, expect):
     """Same fp32 weights on the card (kernel) and on the CPU (plain); the
-    card's forward launches ``expect`` = (dcn_shift, conv_gn) kernels."""
+    card's forward launches ``expect`` = (dcn_shift, conv_gn) kernels and
+    some gather_rows."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import init_model, make_predict_fn
-    from das_tpu_torch.ops import conv_gn, dcn_shift
+    from das_tpu_torch.ops import conv_gn, dcn_shift, gather
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg_name = os.path.basename(cfg_path)[:-3]
@@ -592,12 +715,14 @@ def kernel_path_vs_plain_path(cfg_path, expect):
             sel.append(torch.topk(r, nms_pre, dim=1).indices
                        if r.shape[1] > nms_pre else None)
         outs_c = cpu(img, sel)
-        before = (dcn_shift.launches, conv_gn.launches)
+        before = (dcn_shift.launches, conv_gn.launches, gather.launches)
         outs_g = gpu(img.cuda(), [None if s is None else s.cuda()
                                   for s in sel])
         ran = (dcn_shift.launches - before[0], conv_gn.launches - before[1])
-    check(ran == expect,
-          (cfg_name, 'fp32 launches (dcn_shift, conv_gn)', ran))
+        gathers = gather.launches - before[2]
+    check(ran == expect and gathers > 0,
+          (cfg_name, 'fp32 launches (dcn_shift, conv_gn, gather_rows)', ran,
+           gathers))
     worst = 0.0
     for name, lc, lg in zip(('cls', 'pose', 'ctr', 'ref_uvd'), outs_c,
                             outs_g):
@@ -630,34 +755,225 @@ def kernel_path_vs_plain_path(cfg_path, expect):
         pose_err = max(pose_err, d / max(1.0, pg[i].abs().max().item()))
     check(pose_err <= 1e-3, pose_err)
     phase('plain', f'{cfg_name} B=1 128x160 fp32 kernel path (card: '
-          f'{ran[0]} dcn_shift, {ran[1]} conv_gn launches) vs plain path '
+          f'{ran[0]} dcn_shift, {ran[1]} conv_gn, {gathers} gather_rows '
+          f'launches) vs plain path '
           f'(CPU): head outputs max err / max|ref| {worst:.3g} (<= 1e-3); '
           f'decode: {nv} valid on both, scores within 1e-4, poses max err '
           f'/ max|pose| {pose_err:.3g} (<= 1e-3) ok')
 
 
+def train_full_width(steps=5):
+    """``steps`` train steps of exp_panoptic_tpu at its train bucket, B=4,
+    bf16 compute on f32 master weights, on a synthetic TrainLoader batch
+    (8 people per image, one per regress range in turn). The K4 counts are
+    set to 0 just before the steps and read just after. Returns
+    (forward, backward) K4 launches."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.ops import gather
+    from das_tpu_torch.parallel import frozen_mask, mspn_frozen_prefixes
+    from das_tpu_torch.tools.profile_train import (make_trainer,
+                                                   synthetic_batch,
+                                                   train_pad_hw)
+    cfg = Config.fromfile(SERVING_CFG)
+    head = cfg.model.bbox_head
+    H, W = train_pad_hw(cfg.train_pipeline)
+    B = 4
+    t0 = time.perf_counter()
+    state, step, _, max_pos = make_trainer(cfg, torch.bfloat16, 'cuda', B,
+                                           (H, W))
+    model = state.model
+    trainable = frozen_mask(model, mspn_frozen_prefixes(
+        int(cfg.model.backbone.frozen_stages)))
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        B, H, W, int(head.num_joints), int(head.root_idx)).items()}
+    torch.cuda.synchronize()
+    phase('train', f"exp_panoptic_tpu trainable (dcn_train_gather_mode="
+          f"{head.dcn_train_gather_mode!r}, r={head.dcn_shift_radius}, "
+          f"sparse_refine={cfg.model.train_cfg.sparse_refine}, "
+          f"frozen_stages={cfg.model.backbone.frozen_stages}) built in "
+          f'{time.perf_counter() - t0:.1f} s: B={B} {H}x{W}, bf16 compute, '
+          f'f32 master weights, max_pos={max_pos}, '
+          f'{sum(v == 0.0 for v in trainable.values())} of {len(trainable)}'
+          f' parameter tensors frozen')
+    torch.cuda.reset_peak_memory_stats()
+    gather.launches = gather.backward_launches = 0
+    times = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(steps):
+        f0, b0 = gather.launches, gather.backward_launches
+        torch.cuda.synchronize()
+        ev[0].record()
+        state, metrics = step(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+        m = {k: float(v) for k, v in metrics.items()}
+        fwd, bwd = gather.launches - f0, gather.backward_launches - b0
+        check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
+        check(fwd > 0 and bwd > 0, ('train K4 launches', i, fwd, bwd))
+        phase('train', f'step {i}: ' + ', '.join(
+            f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} ms '
+            f'(CUDA events); K4 launches {fwd} forward + {bwd} backward')
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    frozen_same = all(torch.equal(p, before[k])
+                      for k, p in model.named_parameters()
+                      if trainable[k] == 0.0)
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in model.named_parameters() if trainable[k] == 1.0)
+    check(frozen_same, 'a frozen parameter moved')
+    check(moved > 0.5 * sum(trainable.values()),
+          ('trainable parameters that moved', moved))
+    phase('train', f'{steps} steps ok: median {np.median(times):.2f} ms, '
+          f'steps 2-{steps} median {np.median(times[1:]):.2f} ms, peak '
+          f'memory {peak:.2f} GiB; losses finite; frozen parameters '
+          f'unchanged bit for bit; {moved} of {int(sum(trainable.values()))}'
+          f' trainable tensors moved; K4 launches {gather.launches} forward'
+          f' + {gather.backward_launches} backward')
+    return gather.launches, gather.backward_launches
+
+
+def train_kernel_vs_plain():
+    """One fp32 step of exp_panoptic_tpu at B=2 128x160 on the card (K4
+    live) and on the CPU (plain), same weights and batch, TF32 off: first
+    the loss's gradients, then the step. Loss terms rtol 1e-4, grad_norm
+    rtol 1e-3; each gradient and each update (-lr * lr_mult * trainable *
+    momentum) within 1e-3 x its leaf's largest CPU value or 1e-4 x the
+    largest of all leaves where that is more (a conv bias before a norm has
+    a zero gradient up to rounding noise, which scales with the whole
+    gradient); the parameters then within that plus one f32 rounding.
+
+    Widths are the config's; the backbone is cut to one stage of one block
+    per unit. At its full depth (2 stages of 3, 4, 6, 3 blocks) the
+    random-init train-mode forward amplifies the f32 rounding differences
+    of the card's and the CPU's convs by up to 2x per BatchNorm layer, to
+    ~1e-2 of the FPN outputs, past any tolerance that would still catch a
+    fault; in eval mode the same full-depth model agrees to ~1e-5
+    (``kernel_path_vs_plain_path``)."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.core.targets import get_targets
+    from das_tpu_torch.ops import gather
+    from das_tpu_torch.parallel import (frozen_mask, mspn_frozen_prefixes,
+                                        param_groups)
+    from das_tpu_torch.tools.profile_train import (make_trainer,
+                                                   synthetic_batch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = Config.fromfile(SERVING_CFG)
+    cfg.model.backbone.update(num_stages=1, num_blocks=[1, 1, 1, 1])
+    head = cfg.model.bbox_head
+    B, H, W = 2, 128, 160
+    cpu, cpu_step, lr_fn, max_pos = make_trainer(cfg, torch.float32, 'cpu',
+                                                 B, (H, W), seed=3)
+    gpu, gpu_step, _, _ = make_trainer(cfg, torch.float32, 'cuda', B,
+                                       (H, W), seed=3)
+    gpu.model.load_state_dict(cpu.model.state_dict(), strict=True)
+    batch = synthetic_batch(B, H, W, int(head.num_joints),
+                            int(head.root_idx), seed=1)
+    featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
+
+    def grads(model, dev):
+        t = {k: torch.from_numpy(batch[k]).to(dev) for k in (
+            'gt_poses_3d', 'gt_centers2d', 'gt_depths', 'gt_valid')}
+        targets = get_targets(featmaps, tuple(head.strides),
+                              tuple(tuple(r) for r in head.regress_ranges),
+                              *t.values(), int(head.num_joints))
+        mean = torch.tensor(cfg.img_norm_cfg['mean'], device=dev)
+        std = torch.tensor(cfg.img_norm_cfg['std'], device=dev)
+        img = (torch.from_numpy(batch['img']).to(dev).flip(-1) - mean) / std
+        losses = model.loss(img, targets, max_pos)
+        sum(v for k, v in losses.items() if 'loss' in k).backward()
+        out = {k: p.grad.detach().cpu().clone()
+               for k, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad(set_to_none=True)
+        return out
+
+    def close(got, want, what):
+        floor = 1e-4 * max(float(w.abs().max()) for w in want.values())
+        worst = 0.0
+        for k, w in want.items():
+            tol = max(1e-3 * float(w.abs().max()), floor)
+            err = float((got[k] - w).abs().max())
+            check(err <= tol, (what, k, err, tol))
+            worst = max(worst, err / max(tol, 1e-30))
+        return worst
+
+    f0, b0 = gather.launches, gather.backward_launches
+    gg = grads(gpu.model, 'cuda')
+    gathers = (gather.launches - f0, gather.backward_launches - b0)
+    gc = grads(cpu.model, 'cpu')
+    check(sorted(gg) == sorted(gc) and min(gathers) > 0,
+          ('gradient keys or K4 launches', gathers))
+    g_worst = close(gg, gc, 'gradient')
+    p0 = {k: v.clone() for k, v in cpu.model.state_dict().items()}
+    cpu, mc = cpu_step(cpu, batch)
+    gpu, mg = gpu_step(gpu, {k: torch.from_numpy(v).cuda()
+                             for k, v in batch.items()})
+    mc = {k: float(v) for k, v in mc.items()}
+    mg = {k: float(v) for k, v in mg.items()}
+    for k, v in mc.items():
+        rtol = 1e-3 if k == 'grad_norm' else 1e-4
+        check(abs(mg[k] - v) <= rtol * abs(v) + 1e-7, ('metric', k, mg[k], v))
+    lr_mult, _ = param_groups(cpu.model)
+    trainable = frozen_mask(cpu.model, mspn_frozen_prefixes(
+        int(cfg.model.backbone.frozen_stages)))
+    f = {k: -lr_fn(0) * lr_mult[k] * trainable[k] for k in trainable}
+    uc = {k: f[k] * m for k, m in cpu.opt_state['momentum'].items()}
+    ug = {k: f[k] * m.cpu() for k, m in gpu.opt_state['momentum'].items()}
+    u_worst = close(ug, uc, 'update')
+    floor = 1e-4 * max(float(u.abs().max()) for u in uc.values())
+    sc, sg = cpu.model.state_dict(), gpu.model.state_dict()
+    for k, u in uc.items():
+        tol = max(1e-3 * float(u.abs().max()), floor)
+        p = sc[k]
+        check(bool(((sg[k].cpu() - p).abs()
+                    <= tol + torch.finfo(torch.float32).eps * p.abs()).all()),
+              ('parameter after the step', k))
+        if trainable[k] == 0.0:
+            check(torch.equal(p, p0[k]) and torch.equal(sg[k].cpu(), p0[k]),
+                  ('frozen parameter moved', k))
+    phase('plain', f'train step B={B} {H}x{W} fp32 (backbone 1 stage of 1 '
+          f'block per unit), card (K4 {gathers[0]} '
+          f'forward + {gathers[1]} backward launches in the gradient pass) '
+          f'vs CPU: ' + ', '.join(f'{k} {mg[k]:.6g}/{mc[k]:.6g}'
+                                  for k in mc)
+          + f'; gradients within {g_worst:.3g} and updates within '
+          f'{u_worst:.3g} of their tolerance; parameters agree; frozen '
+          f'unchanged ok')
+
+
 def main():
     import torch
     name, smi = environment()
-    from das_tpu_torch.ops import conv_gn, dcn_shift
+    from das_tpu_torch.ops import conv_gn, dcn_shift, gather
     build()
     k1 = dcn_vs_plain()
     k2 = conv_gn_vs_plain()
     oks_nms_vs_plain()
+    k4, k4b = gather_vs_plain()
     model, _, n1, _, _ = main_path(SERVING_CFG, 2,
-                                   {dcn_shift: 16, conv_gn: 0})
+                                   {dcn_shift: 16, conv_gn: 0, gather: None})
     del model
-    model, cfg, n2, img, sf = main_path(FUSED_CFG, 3,
-                                        {dcn_shift: 16, conv_gn: 36})
+    model, cfg, n2, img, sf = main_path(
+        FUSED_CFG, 3, {dcn_shift: 16, conv_gn: 36, gather: None})
     k3 = nms_on_served_request(model, cfg, img, sf)
     del model
+    torch.cuda.empty_cache()
+    fwd, bwd = train_full_width()
     k1['launches'] = n1['dcn_shift'] + n2['dcn_shift']
     k2['launches'] = n2['conv_gn']
-    for k in (k1, k2, k3):
+    k4['launches'] = n1['gather'] + n2['gather'] + fwd
+    k4b['launches'] = bwd
+    for k in (k1, k2, k3, k4, k4b):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
-    print(json.dumps({'kernels': [k1, k2, k3]}), flush=True)
+    train_kernel_vs_plain()
+    print(json.dumps({'kernels': [k1, k2, k3, k4, k4b]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,5 @@
 from .das_head import DASHead
-from .detector import DAS, build_model
+from .detector import DAS, build_model, build_trainable_model
 from .fpn import FPN
 from .layers import ConvModule, DeformConv2d, Scale
 from .mspn import MSPN2
@@ -8,5 +8,6 @@ from .recursive_update import RecursiveUpdateBranch
 
 __all__ = [
     'DAS', 'DASHead', 'FPN', 'MSPN2', 'RealNVP', 'RecursiveUpdateBranch',
-    'ConvModule', 'DeformConv2d', 'Scale', 'build_model'
+    'ConvModule', 'DeformConv2d', 'Scale', 'build_model',
+    'build_trainable_model'
 ]

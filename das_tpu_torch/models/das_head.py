@@ -1,5 +1,5 @@
 """Distribution-aware single-stage pose head, port of
-``das_tpu/models/das_head.py`` (eval forward; the loss waits).
+``das_tpu/models/das_head.py``: the eval and train forwards and the loss.
 
 An FCOS-style anchor-free multi-level head predicting, per location, cls
 score (1), centerness (1), root xy-offset (2), root depth (1), per-joint
@@ -12,19 +12,22 @@ centerness (N,H,W,1), ref_uvd (N,H,W,3J); pose_pred channels are
 [dx, dy, depth, uvd..., sigma...]. The root joint's dz is pinned to 0 and
 its sigma to 1; at eval the refined uvd replaces the raw one, depth is
 divided by ``depth_factor``, uv are scaled by the level stride and z by
-``z_norm``. The strides are the config's (8..64) although the feature maps
-are at 4..32: the reference's convention, kept.
+``z_norm``; in training pose_pred carries the raw uvd and the loss reads
+the refined one. The strides are the config's (8..64) although the feature
+maps are at 4..32: the reference's convention, kept.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..config.registry import HEADS
+from ..losses import (binary_cross_entropy, rle_loss, sigmoid_focal_loss,
+                      smooth_l1_loss)
 from .layers import ConvModule, DeformConv2d, Scale, conv2d, he_normal_, \
     normal_
 from .real_nvp import RealNVP
@@ -37,10 +40,11 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 @HEADS.register_module()
 class DASHead(nn.Module):
-    """Eval-mode DAS head. ``fused_gn`` with a bias-free head
-    (``conv_bias='auto'``) runs each 3x3 conv+GN+relu module as one fused
-    kernel call. Training-only options (regress ranges, center sampling,
-    losses, train gather mode, remat) are accepted so the configs build
+    """DAS head. ``fused_gn`` with a bias-free head (``conv_bias='auto'``)
+    runs each eval 3x3 conv+GN+relu module as one fused kernel call.
+    ``dcn_train_gather_mode`` picks the DCN lowering under training. The
+    regress ranges, center sampling and loss configs are the train step's
+    (``parallel/train_step.py``); ``remat`` is accepted so the configs build
     unchanged."""
 
     def __init__(self, num_classes: int = 1, in_channels: int = 256,
@@ -76,12 +80,16 @@ class DASHead(nn.Module):
         self.z_norm = z_norm
         self.strides = list(strides)
         self.centerness_on_reg = centerness_on_reg
+        self.bg_label = num_classes if background_label is None \
+            else background_label
+        self.train_cfg = dict(train_cfg or {})
         self.test_cfg = dict(test_cfg or {})
         J = num_joints
         group_reg_dims = (2, 1, J * 3, J * 3)
         norm_cfg = norm_cfg or dict(type='GN', num_groups=32)
         kw = dict(norm_cfg=norm_cfg, bias=conv_bias,
                   dcn_gather_mode=dcn_gather_mode,
+                  dcn_train_gather_mode=dcn_train_gather_mode,
                   dcn_shift_radius=dcn_shift_radius,
                   dcn_shift_budget=dcn_shift_budget, fused_gn=fused_gn)
 
@@ -127,9 +135,12 @@ class DASHead(nn.Module):
         ru = dict(recursive_update or {})
         ru.setdefault('num_joints', num_joints)
         ru.setdefault('dcn_gather_mode', dcn_gather_mode)
+        ru.setdefault('dcn_train_gather_mode', dcn_train_gather_mode)
         ru.setdefault('dcn_shift_radius', dcn_shift_radius)
         ru.setdefault('dcn_shift_budget', dcn_shift_budget)
         self.recursive_update_branch = RecursiveUpdateBranch(**ru)
+        # read from the RU config itself, as JAX das_head.py:173 does
+        self.prev_loss = bool(ru.get('prev_loss', False))
 
         self.flow3d = RealNVP(dim=3)
         self.flow2d = RealNVP(dim=2)
@@ -171,7 +182,9 @@ class DASHead(nn.Module):
     def forward_single(self, x: torch.Tensor, lvl: int,
                        select_idx: Optional[torch.Tensor] = None):
         """One level. x (N,C,H,W); returns NHWC cls, pose_pred, centerness,
-        ref_uvd, all f32."""
+        ref_uvd, all f32. ``select_idx`` (N, K) restricts the RU
+        re-sampling to those flat points (training: the assigned positives
+        from ``DAS.loss``)."""
         J = self.num_joints
         stride = self.strides[lvl]
 
@@ -210,13 +223,14 @@ class DASHead(nn.Module):
         # Sparse eval refinement (test_cfg.sparse_refine): the decode keeps
         # at most nms_pre candidates per level, ranked by score*centerness,
         # which this branch does not change; so the re-sampling runs only
-        # at those points, selected with the decode's own key and k.
+        # at those points, selected with the decode's own key and k. Never
+        # under training, where DAS.loss passes the positives or None.
         N, Hf, Wf = cls_score.shape[:3]
         nms_pre = int(self.test_cfg.get('nms_pre', 1000))
         ru = self.recursive_update_branch
         if ru.num_layers == 0:
             select_idx = None
-        elif select_idx is None \
+        elif select_idx is None and not self.training \
                 and bool(self.test_cfg.get('sparse_refine', False)) \
                 and Hf * Wf > nms_pre:
             ranked = torch.sigmoid(cls_score.float()) \
@@ -237,14 +251,17 @@ class DASHead(nn.Module):
         ref_uvd = ref_uvd.reshape(*ref_uvd.shape[:3], J, 3).clone()
         ref_uvd[..., self.root_idx, 2] = 0.0
 
-        # eval path: fold the refined uvd in and rescale (ref :256-262)
-        out_uvd = ref_uvd * torch.tensor(
-            [stride, stride, self.z_norm], dtype=torch.float32,
-            device=x.device)
-        depth = depth / self.depth_factor
-        pose_pred = torch.cat(
-            [offset, depth, out_uvd.reshape(*out_uvd.shape[:3], J * 3),
-             sigma], dim=-1)
+        if self.training:
+            pose_pred = torch.cat([offset, depth, uvd_flat, sigma], dim=-1)
+        else:
+            # eval path: fold the refined uvd in and rescale (ref :256-262)
+            out_uvd = ref_uvd * torch.tensor(
+                [stride, stride, self.z_norm], dtype=torch.float32,
+                device=x.device)
+            depth = depth / self.depth_factor
+            pose_pred = torch.cat(
+                [offset, depth, out_uvd.reshape(*out_uvd.shape[:3], J * 3),
+                 sigma], dim=-1)
         ref_flat = ref_uvd.reshape(*ref_uvd.shape[:3], J * 3)
         return cls_score.float(), pose_pred, centerness.float(), ref_flat
 
@@ -255,3 +272,130 @@ class DASHead(nn.Module):
         cls_scores, pose_preds, centernesses, ref_uvds = zip(*outs)
         return list(cls_scores), list(pose_preds), list(centernesses), \
             list(ref_uvds)
+
+    def loss(self, cls_scores, pose_preds, centernesses, aux_pose_preds,
+             targets: Dict[str, torch.Tensor], max_pos: int = 1024
+             ) -> Dict[str, torch.Tensor]:
+        """Training loss (JAX das_head.py:296-432, ref das_head.py:283-486),
+        fixed-shape, in f32.
+
+        ``targets`` comes from ``core.targets.get_targets``: flat per-point
+        labels, pose targets, centerness targets and strides over all levels
+        and images. The positives are gathered into a fixed ``max_pos`` set,
+        first by flat index (a stable sort, as ``jax.lax.top_k`` orders
+        ties); ``pos_overflow`` counts those the budget drops.
+        """
+        J = self.num_joints
+        num_imgs = cls_scores[0].shape[0]
+        flat_cls = torch.cat([c.reshape(-1, self.num_classes)
+                              for c in cls_scores])
+        flat_pose = torch.cat([p.reshape(-1, 3 + 6 * J) for p in pose_preds])
+        flat_ctr = torch.cat([c.reshape(-1) for c in centernesses])
+        flat_aux = torch.cat([a.reshape(-1, 3 * J) for a in aux_pose_preds])
+
+        labels = targets['labels']
+        pose_t = targets['pose_targets']
+        ctr_t = targets['centerness_targets']
+        strides_t = targets['strides']
+
+        pos_mask = labels < self.bg_label
+        num_pos = pos_mask.sum()
+        loss_cls = sigmoid_focal_loss(flat_cls, labels,
+                                      avg_factor=num_pos + num_imgs)
+
+        # a fixed-size positive set: positives first, by flat index
+        k = min(max_pos, labels.shape[0])
+        pos_idx = positives_first(pos_mask, k)
+        sel = pos_mask[pos_idx]
+        selF = sel.float()
+        p_pose = flat_pose[pos_idx]
+        p_aux = flat_aux[pos_idx].reshape(k, J, 3)
+        p_ctr = flat_ctr[pos_idx]
+        p_t = pose_t[pos_idx]
+        p_ctr_t = ctr_t[pos_idx]
+        p_strides = strides_t[pos_idx]
+
+        cw = self.train_cfg.get('code_weight')
+        cw_depth = float(cw[2]) if cw else 1.0
+        cw_pose = float(cw[3]) if cw else 1.0
+
+        gt_uvd_full = p_t[:, 3:3 + 3 * J]
+        is_2d = (gt_uvd_full[:, 2::3] == 0).all(dim=1)
+        is_3d = ~is_2d & sel
+
+        # depth loss, 3D positives only (ref :366-381)
+        depth_w = is_3d.float()
+        loss_depth = smooth_l1_loss(
+            p_pose[:, 2], p_t[:, 2] * self.depth_factor,
+            weight=depth_w * cw_depth,
+            avg_factor=depth_w.sum().clamp_min(1.0))
+        loss_depth = torch.where(is_3d.sum() > 0, loss_depth,
+                                 torch.zeros_like(loss_depth))
+
+        # RLE pose loss; 2D samples carry no depth (ref :387-390) and their
+        # RAW sigma-z is pinned to 1 before the sigmoid (ref :390, :409)
+        uvd = p_pose[:, 3:3 + 3 * J].reshape(k, J, 3)
+        sigma = p_pose[:, 3 + 3 * J:].reshape(k, J, 3)
+        flat2d = is_2d[:, None, None]
+
+        def set_z(t, value):
+            return torch.where(flat2d, torch.cat(
+                [t[..., :2], torch.full_like(t[..., 2:], value)], -1), t)
+
+        uvd = set_z(uvd, 0.0)
+        uvd_update = set_z(p_aux, 0.0)
+        sigma = torch.sigmoid(set_z(sigma, 1.0)) + 1e-9
+
+        # root-to-joint -> point-to-joint targets (ref :392-406)
+        diff = p_t[:, :3] * p_strides[:, None]
+        diff = torch.cat([diff[:, :2], torch.zeros_like(diff[:, 2:])], -1)
+        real_gt = gt_uvd_full.reshape(k, J, 3) - diff[:, None, :]
+        real_gt = torch.cat(
+            [real_gt[..., :2] * (1.0 / p_strides)[:, None, None],
+             real_gt[..., 2:] * (1.0 / self.z_norm)], -1)
+        gt_w = (p_t[:, 3 + 3 * J:].reshape(k, J, 1)
+                * selF[:, None, None]).expand(k, J, 3)
+
+        def flow_logphi(bar_mu, f3d, f2d):
+            lp3 = f3d(bar_mu.reshape(-1, 3)).reshape(k, J)
+            lp2 = f2d(bar_mu[..., :2].reshape(-1, 2)).reshape(k, J)
+            return torch.where(is_2d[:, None], lp2, lp3)
+
+        if self.prev_loss:
+            lp_upd = flow_logphi((uvd_update - real_gt) / sigma,
+                                 self.flow3d_update, self.flow2d_update)
+            lp_raw = flow_logphi((uvd - real_gt) / sigma, self.flow3d,
+                                 self.flow2d)
+            uvd_all = torch.cat([uvd_update, uvd], dim=1)
+            real_gt_all = real_gt.repeat(1, 2, 1)
+            sigma_all = sigma.repeat(1, 2, 1)
+            gt_w_all = gt_w.repeat(1, 2, 1)
+            log_phi = torch.cat([lp_upd, lp_raw], dim=1)[..., None]
+        else:
+            log_phi = flow_logphi((uvd_update - real_gt) / sigma,
+                                  self.flow3d, self.flow2d)[..., None]
+            uvd_all, real_gt_all, sigma_all, gt_w_all = \
+                uvd_update, real_gt, sigma, gt_w
+        nf_loss = torch.log(sigma_all) - log_phi
+        loss_pose = rle_loss(nf_loss, uvd_all, sigma_all, real_gt_all,
+                             gt_w_all, weight=cw_pose)
+
+        # centerness (ref :470)
+        loss_ctr = binary_cross_entropy(p_ctr, p_ctr_t, weight=selF)
+
+        has_pos = (num_pos > 0).float()
+        return dict(loss_cls=loss_cls,
+                    loss_depth=loss_depth * has_pos,
+                    loss_pose=loss_pose * has_pos,
+                    loss_centerness=loss_ctr * has_pos,
+                    # positives dropped by the fixed max_pos gather
+                    pos_overflow=(num_pos - k).clamp_min(0).float())
+
+
+def positives_first(pos: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the first ``k`` entries along the last axis of the 0/1
+    mask ``pos`` when positives come first, each group by index: what
+    ``jax.lax.top_k`` returns on 0/1 scores. ``torch.topk`` promises no
+    order among ties, so this is a stable sort."""
+    return torch.sort(pos.to(torch.uint8), dim=-1, descending=True,
+                      stable=True).indices[..., :k]

@@ -1,14 +1,15 @@
 """DAS detector: backbone + FPN + DASHead, port of
-``das_tpu/models/detector.py`` (eval forward).
+``das_tpu/models/detector.py``: the forward and the training loss.
 
-Built from an mmdet3d-style model config by ``build_model``, so the repo's
-configs build it unchanged. Takes NHWC images like the JAX model and
-returns the head's per-level NHWC outputs.
+Built from an mmdet3d-style model config by ``build_model`` (serving) or
+``build_trainable_model`` (training), so the repo's configs build it
+unchanged. Takes NHWC images like the JAX model and returns the head's
+per-level NHWC outputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -17,18 +18,21 @@ from ..config import wrap_cfg
 from ..config.registry import BACKBONES, HEADS, MODELS, NECKS, \
     build_from_cfg
 from ..utils.device import resolve_device
-from .layers import DeformConv2d, cast_compute, lecun_normal_
+from .das_head import positives_first
+from .layers import DeformConv2d, cast_compute, keep_master_weights, \
+    lecun_normal_
 
 
 @MODELS.register_module()
 class DAS(nn.Module):
-    """Single-stage multi-person 3D pose detector (eval)."""
+    """Single-stage multi-person 3D pose detector."""
 
     def __init__(self, backbone: dict, neck: dict, bbox_head: dict,
                  train_cfg: Optional[dict] = None,
                  test_cfg: Optional[dict] = None,
                  pretrained: Optional[str] = None):
         super().__init__()
+        self.train_cfg = dict(train_cfg or {})
         self.backbone = build_from_cfg(_clean(backbone), BACKBONES)
         self.neck = build_from_cfg(_clean(neck), NECKS)
         head_cfg = _clean(bbox_head)
@@ -47,6 +51,32 @@ class DAS(nn.Module):
         """Per-level head outputs (cls_scores, pose_preds, centernesses,
         ref_uvds), each a list over levels of NHWC tensors."""
         return self.bbox_head(self.extract_feat(img), select_idx)
+
+    def loss(self, img: torch.Tensor, targets: Dict[str, torch.Tensor],
+             max_pos: int = 1024) -> Dict[str, torch.Tensor]:
+        """Training forward + loss (JAX detector.py:66-100).
+
+        With ``train_cfg.sparse_refine`` the RU re-sampling runs only at
+        each level's first ``max_pos`` positives per image (by flat index);
+        a level with at most ``max_pos`` points stays dense. The loss reads
+        the refined field only at its own first ``max_pos`` positives, a
+        subset of those, so losses and gradients are the dense ones.
+        """
+        select = None
+        if self.train_cfg.get('sparse_refine'):
+            head = self.bbox_head
+            labels = targets['labels']
+            N, H, W = img.shape[:3]
+            select, begin = [], 0
+            for i in range(len(head.strides)):
+                n = (H // (4 * 2 ** i)) * (W // (4 * 2 ** i))
+                lab = labels[begin:begin + N * n].reshape(N, n)
+                begin += N * n
+                select.append(None if n <= max_pos else positives_first(
+                    lab < head.bg_label, max_pos))
+        cls_scores, pose_preds, centernesses, ref_uvds = self(img, select)
+        return self.bbox_head.loss(cls_scores, pose_preds, centernesses,
+                                   ref_uvds, targets, max_pos=max_pos)
 
     def init_weights(self, seed: int = 0):
         """Seeded init: flax's defaults (LeCun-normal kernels, zero biases,
@@ -76,7 +106,23 @@ def build_model(cfg: dict, dtype: torch.dtype = torch.float32,
     model = build_from_cfg(dict(wrap_cfg(cfg)), MODELS)
     model.init_weights(seed)
     cast_compute(model, dtype)
-    model = model.to(dev).eval()
+    return _place(model, dev).eval()
+
+
+def build_trainable_model(cfg: dict, dtype: torch.dtype = torch.float32,
+                          device=None, seed: int = 0) -> DAS:
+    """A model to train, in train mode on ``device`` (the card unless the
+    caller names another), initialised from ``seed``: f32 master weights,
+    each conv computing in ``dtype``."""
+    dev = resolve_device(device)
+    model = build_from_cfg(dict(wrap_cfg(cfg)), MODELS)
+    model.init_weights(seed)
+    keep_master_weights(model, dtype)
+    return _place(model, dev).train()
+
+
+def _place(model: DAS, dev: torch.device) -> DAS:
+    model = model.to(dev)
     if dev.type == 'cuda':
         model = model.to(memory_format=torch.channels_last)
     return model

@@ -2,7 +2,7 @@
 
 The DAS configuration of mmdet's FPN: 4 inputs, 4 outputs, lateral 1x1
 convs, nearest top-down summation and 3x3 output convs, with norm and no
-activation. Eval only.
+activation. Its BN/SyncBN norms train as ``layers.BatchNorm`` does.
 """
 
 from __future__ import annotations

@@ -7,8 +7,11 @@ parameter names are the reference's torch key names: a ``ConvModule`` holds
 ``bias`` and ``conv_offset``.
 
 Types follow the JAX modules, which compute in the model dtype with f32
-parameters: convolutions run in the dtype of their (cast) weights; norms
-take their statistics and affine in f32 and return the input's dtype.
+parameters. A serving model casts its conv weights to the compute dtype
+(``cast_compute``); a trainable one keeps f32 master weights and casts them
+at each call (``keep_master_weights``). Either way a conv computes in
+``compute_dtype(conv)``; norms take their statistics and affine in f32 and
+return the input's dtype.
 """
 
 from __future__ import annotations
@@ -43,9 +46,12 @@ def he_normal_(t: torch.Tensor, gen: torch.Generator):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm (BN and SyncBN alike): running statistics, eps
-    1e-5, f32 math. Its keys are those the reference checkpoints carry,
-    less ``num_batches_tracked``."""
+    """BatchNorm (BN and SyncBN alike; one card, so SyncBN is BN), eps
+    1e-5, f32 math. Eval normalises with the running statistics. Training
+    normalises with the batch's and updates the running ones as flax does
+    (``momentum=0.9``): ``running = 0.9 running + 0.1 batch``, with the
+    biased batch variance. Its keys are those the reference checkpoints
+    carry, less ``num_batches_tracked``."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -55,9 +61,20 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_var', torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0,
-                            1e-5).to(x.dtype)
+        xf = x.float()
+        if not self.training:
+            return F.batch_norm(xf, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                1e-5).to(x.dtype)
+        # no running buffers here: F.batch_norm would update them with the
+        # unbiased variance
+        y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
+                         1e-5)
+        with torch.no_grad():
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        return y.to(x.dtype)
 
 
 class GroupNorm(nn.Module):
@@ -89,27 +106,43 @@ def make_norm(norm_cfg: Optional[dict], channels: int):
     raise ValueError(f'unsupported norm type {kind}')
 
 
+def compute_dtype(conv: nn.Module) -> torch.dtype:
+    """The dtype a conv (or deform conv) computes in: the one
+    ``keep_master_weights`` set, else its weights'."""
+    return getattr(conv, 'compute_dtype', conv.weight.dtype)
+
+
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Run ``conv`` in the dtype of its weights, as flax casts its input."""
-    return conv(x.to(conv.weight.dtype))
+    """Run ``conv`` in its compute dtype, as flax casts its input and its
+    f32 parameters."""
+    dt = compute_dtype(conv)
+    if conv.weight.dtype == dt:
+        return conv(x.to(dt))
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return conv._conv_forward(x.to(dt), conv.weight.to(dt), bias)
 
 
 class DeformConv2d(nn.Module):
     """DCNv2 pack layer: zero-init offset conv + modulated deform conv.
 
     ``weight`` is (Cout, Cin, K, K) like the reference's; the deform conv
-    itself runs in NHWC with the (K, K, Cin, Cout) kernel.
+    itself runs in NHWC with the (K, K, Cin, Cout) kernel. Under training
+    the lowering is the JAX module's: an explicit ``train_gather_mode``
+    wins, else ``'patch'`` -> ``'clip'``, ``'shift_pallas'`` -> ``'shift'``,
+    ``'hybrid_pallas'`` -> ``'hybrid'`` (the kernel K1 has no backward).
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, padding: int = 1,
                  use_bias: bool = True, gather_mode: str = 'patch',
-                 shift_radius: int = 2, shift_budget: int = 2048):
+                 shift_radius: int = 2, shift_budget: int = 2048,
+                 train_gather_mode: str = 'auto'):
         super().__init__()
         k = kernel_size
         self.kernel_size = k
         self.padding = padding
         self.gather_mode = gather_mode
+        self.train_gather_mode = train_gather_mode
         self.shift_radius = shift_radius
         self.shift_budget = shift_budget
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
@@ -120,18 +153,29 @@ class DeformConv2d(nn.Module):
         nn.init.zeros_(self.conv_offset.weight)
         nn.init.zeros_(self.conv_offset.bias)
 
+    def lowering(self) -> str:
+        """The gather mode this call runs (JAX layers.py:111-119)."""
+        if not self.training:
+            return self.gather_mode
+        if self.train_gather_mode != 'auto':
+            return self.train_gather_mode
+        return {'patch': 'clip', 'shift_pallas': 'shift',
+                'hybrid_pallas': 'hybrid'}.get(self.gather_mode,
+                                               self.gather_mode)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kk = self.kernel_size ** 2
-        dt = self.weight.dtype
+        dt = compute_dtype(self)
         x = x.to(dt)
         raw = conv2d(self.conv_offset, x).permute(0, 2, 3, 1)   # NHWC
         offset = raw[..., :2 * kk]
         mask = torch.sigmoid(raw[..., 2 * kk:])
         out = modulated_deform_conv(
             x.permute(0, 2, 3, 1).contiguous(), offset, mask,
-            self.weight.permute(2, 3, 1, 0), self.bias,
+            self.weight.to(dt).permute(2, 3, 1, 0),
+            None if self.bias is None else self.bias.to(dt),
             kernel_size=self.kernel_size, padding=self.padding,
-            gather_mode=self.gather_mode, shift_radius=self.shift_radius,
+            gather_mode=self.lowering(), shift_radius=self.shift_radius,
             shift_budget=self.shift_budget)
         return out.permute(0, 3, 1, 2)
 
@@ -153,7 +197,7 @@ class ConvModule(nn.Module):
                  norm_cfg: Optional[dict] = None, act: Optional[str] = 'relu',
                  dcn: bool = False, dcn_gather_mode: str = 'patch',
                  dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048,
-                 fused_gn: bool = False):
+                 fused_gn: bool = False, dcn_train_gather_mode: str = 'auto'):
         super().__init__()
         use_bias = (norm_cfg is None) if bias == 'auto' else bool(bias)
         if act not in (None, 'relu'):
@@ -164,7 +208,8 @@ class ConvModule(nn.Module):
             assert stride == 1
             self.conv = DeformConv2d(in_channels, out_channels, kernel_size,
                                      padding, use_bias, dcn_gather_mode,
-                                     dcn_shift_radius, dcn_shift_budget)
+                                     dcn_shift_radius, dcn_shift_budget,
+                                     dcn_train_gather_mode)
         else:
             self.conv = nn.Conv2d(in_channels, out_channels, kernel_size,
                                   stride, padding, bias=use_bias)
@@ -185,10 +230,11 @@ class ConvModule(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_fused_gn():
-            w = self.conv.weight
+            dt = compute_dtype(self.conv)
             out = conv_gn.conv_gn_relu(
-                x.to(w.dtype).permute(0, 2, 3, 1).contiguous(),
-                w.permute(2, 3, 1, 0), self.gn.weight, self.gn.bias,
+                x.to(dt).permute(0, 2, 3, 1).contiguous(),
+                self.conv.weight.to(dt).permute(2, 3, 1, 0), self.gn.weight,
+                self.gn.bias,
                 groups=self.gn.num_groups)
             return out.permute(0, 3, 1, 2)
         if isinstance(self.conv, DeformConv2d):
@@ -220,11 +266,23 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
 
 
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Set the compute dtype: every conv's (and deform conv's) weight and
-    bias take ``dtype``; norms, ``Scale`` and the flows stay f32, as the
-    JAX modules keep f32 parameters and compute norms in f32."""
+    """Set the compute dtype of a serving model: every conv's (and deform
+    conv's) weight and bias take ``dtype``; norms, ``Scale`` and the flows
+    stay f32, as the JAX modules keep f32 parameters and compute norms in
+    f32."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, DeformConv2d)):
             for name, p in m.named_parameters(recurse=False):
                 p.data = p.data.to(dtype)
+    return model
+
+
+def keep_master_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Set the compute dtype of a trainable model: every parameter stays
+    f32 (SGD on bf16 weights would lose the updates) and each conv casts its
+    weight and bias to ``dtype`` at the call, as flax's ``dtype`` against
+    ``param_dtype``."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, DeformConv2d)):
+            m.compute_dtype = dtype
     return model

@@ -5,7 +5,12 @@ ResNet-50-style downsample tower plus a top-down upsample module with
 cross-stage skips. The last stage gives 4 maps (``unit_channels``) at
 strides 4/8/16/32, lowest stride first. Module names are the reference's
 (mspn_mmpose.py): ``top.top.0``, ``multi_stage_mspn.{s}``,
-``downsample.layer{u}.{b}``, ``upsample.up{i}``. Eval only.
+``downsample.layer{u}.{b}``, ``upsample.up{i}``.
+
+Under training, ``frozen_stages`` K >= 0 keeps the stem and the first K
+units of the first stage's downsample tower in eval mode (running-average
+norms whose statistics do not move), as the JAX module runs them; the
+optimizer masks their updates (``parallel/train_step.mspn_frozen_prefixes``).
 """
 
 from __future__ import annotations
@@ -185,9 +190,10 @@ class ResNetTop(nn.Module):
 class MSPN2(nn.Module):
     """Multi-stage MSPN backbone (ref: mspn_mmpose.py:560-667).
 
-    NCHW image in; 4 maps out at strides 4/8/16/32. ``frozen_stages``,
-    ``norm_eval`` and ``remat`` are training options, accepted so the
-    configs build unchanged.
+    NCHW image in; 4 maps out at strides 4/8/16/32. ``norm_eval`` is
+    recorded and does nothing, as in the JAX module; ``remat`` trades memory
+    for recompute there and is a no-op here while the full-width train step
+    fits on the card.
     """
 
     def __init__(self, unit_channels: int = 256, num_stages: int = 4,
@@ -197,6 +203,8 @@ class MSPN2(nn.Module):
                  remat: bool = False):
         super().__init__()
         norm_cfg = norm_cfg or dict(type='BN')
+        self.frozen_stages = frozen_stages
+        self.norm_eval = norm_eval
         self.top = ResNetTop(norm_cfg, res_top_channels)
         self.multi_stage_mspn = nn.ModuleList([
             SingleStageNetwork(
@@ -206,6 +214,21 @@ class MSPN2(nn.Module):
                 num_blocks=list(num_blocks), norm_cfg=norm_cfg,
                 in_channels=res_top_channels)
             for i in range(num_stages)])
+
+    def frozen_modules(self) -> List[nn.Module]:
+        """The stem and layer1..layerK of stage 0 for ``frozen_stages`` K
+        (JAX mspn.py:244, :264)."""
+        if self.frozen_stages < 0:
+            return []
+        down = self.multi_stage_mspn[0].downsample
+        return [self.top] + [getattr(down, f'layer{u + 1}') for u in range(
+            min(self.frozen_stages, down.num_units))]
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        for m in self.frozen_modules():
+            m.eval()
+        return self
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.top(x)

@@ -6,7 +6,9 @@ features with a DCNv2 conv and gates the joint-offset field
 (``NextLevelOffset``), then re-samples the field at head-proposed
 locations and fuses the 2*num_heads candidates with a per-dim online
 softmax over their sampled confidences. Features are NCHW; the offset
-fields are NHWC, as in the JAX functions. Eval only.
+fields are NHWC, as in the JAX functions. Every row fetch, the bilinear
+corners and the sparse ``take_at``, is the row gather ``gather_rows`` (K4),
+in the forward and, under training, in the backward.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..ops.gather import gather_rows
 from ..ops.interp import sample_bilinear_abs
 from .layers import ConvModule, conv2d
 
@@ -110,10 +113,9 @@ def _offset_sample_sparse(uvd: torch.Tensor, sampling_offset: torch.Tensor,
     idxj = select_idx[:, None, :].expand(N, J, K).reshape(N * J, K)
     xk = (idxj % W).float() + 0.5
     yk = torch.div(idxj, W, rounding_mode='floor').float() + 0.5
-    rows = torch.arange(N * J, device=uvd.device)[:, None]
 
-    def take_at(field, c):
-        return field.reshape(N * J, H * W, c)[rows, idxj]     # (NJ, K, c)
+    def take_at(field, c):                                  # (NJ, K, c)
+        return gather_rows(field.reshape(N * J, H * W, c).contiguous(), idxj)
 
     uvd_sel = take_at(uvd_j, D)
     samp_sel = take_at(samp_j, Hd * 2)
@@ -146,6 +148,7 @@ class NextLevelOffset(nn.Module):
 
     def __init__(self, channels: int, num_joints: int, num_heads: int,
                  dim: int = 3, dcn_gather_mode: str = 'patch',
+                 dcn_train_gather_mode: str = 'auto',
                  dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048):
         super().__init__()
         J, Hd, D = num_joints, num_heads, dim
@@ -153,6 +156,7 @@ class NextLevelOffset(nn.Module):
             channels, channels, 3, 1, 1, dcn=True,
             norm_cfg=dict(type='GN', num_groups=32),
             dcn_gather_mode=dcn_gather_mode,
+            dcn_train_gather_mode=dcn_train_gather_mode,
             dcn_shift_radius=dcn_shift_radius,
             dcn_shift_budget=dcn_shift_budget)
         self.sampling_offset = nn.Conv2d(channels, J * Hd * 2, 1)
@@ -186,8 +190,9 @@ class RecursiveUpdateLayer(nn.Module):
             return feat, _offset_sample(offset, samp_off, samp_conf,
                                         self.num_joints, self.num_heads,
                                         self.dim)
-        # sparse eval path: refine only the selected points; the dense
-        # gated field is returned as the scatter base for the rest
+        # sparse path (eval: the decode's candidates; training: the assigned
+        # positives): refine only the selected points; the dense gated field
+        # is returned as the scatter base for the rest
         refined = _offset_sample_sparse(offset, samp_off, samp_conf,
                                         select_idx, self.num_joints,
                                         self.num_heads, self.dim)
@@ -199,10 +204,9 @@ class RecursiveUpdateBranch(nn.Module):
 
     ``select_idx`` (N, K) restricts the LAST layer's re-sampling to those
     flat spatial points; the return value is then
-    ``(dense_base_field, (N, K, J*dim) refined)``. ``prev_loss``, ``remat``,
-    ``gather_mode`` and ``dcn_train_gather_mode`` are accepted so the
-    configs build unchanged (``gather_mode`` picks a TPU lowering of the
-    one bilinear sampler).
+    ``(dense_base_field, (N, K, J*dim) refined)``. ``prev_loss`` is read by
+    the head's loss; ``remat`` and ``gather_mode`` (a TPU lowering of the one
+    bilinear sampler) are accepted so the configs build unchanged.
     """
 
     def __init__(self, num_joints: int, num_heads: int = 4,
@@ -220,6 +224,7 @@ class RecursiveUpdateBranch(nn.Module):
             self.add_module(f'layer_{i}', RecursiveUpdateLayer(
                 feat_channels, num_joints, num_heads, dim,
                 dcn_gather_mode=dcn_gather_mode,
+                dcn_train_gather_mode=dcn_train_gather_mode,
                 dcn_shift_radius=dcn_shift_radius,
                 dcn_shift_budget=dcn_shift_budget))
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 PTR = ctypes.c_void_p      # a tensor's data_ptr() or the CUDA stream
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 

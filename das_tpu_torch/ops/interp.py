@@ -8,8 +8,10 @@
 * ``interpolate_bilinear_ac`` — torch ``F.interpolate(align_corners=True)``.
 * ``upsample_nearest``        — mmdet FPN top-down ``mode='nearest'``.
 
-The public functions take NHWC tensors. Every op here only indexes along
-the named axes, so an NCHW tensor permuted to NHWC works without a copy.
+The public functions take NHWC tensors. The resizes only index along the
+named axes, so an NCHW tensor permuted to NHWC works without a copy; the
+sampler gathers rows of the contiguous (N, H*W, C) image, which a
+channels_last map permuted to NHWC already is.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .gather import gather_rows
 
 
 def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
@@ -29,7 +33,9 @@ def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
     type: in bf16 a coordinate >= 128 has no fractional part left. Corner
     weights are computed in f32 and cast to ``img.dtype`` before they
     multiply, and the four corners are summed in ``img.dtype`` in the order
-    (x0,y0), (x1,y0), (x0,y1), (x1,y1), as the JAX function does.
+    (x0,y0), (x1,y0), (x0,y1), (x1,y1), as the JAX function does. Each
+    corner is one ``gather_rows`` (K4) of the flat (N, H*W, C) image, as the
+    JAX function's ``'clip'`` row gathers.
 
     Returns (N, *x.shape[1:], C).
     """
@@ -47,14 +53,13 @@ def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
 
-    flat = img.reshape(N, H * W, C)
-    nidx = torch.arange(N, device=img.device)[:, None]
+    flat = img.reshape(N, H * W, C).contiguous()
 
     def corner(xi, yi, wgt):
         inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
         xi_c = xi.clamp(0, W - 1).long()
         yi_c = yi.clamp(0, H - 1).long()
-        vals = flat[nidx, yi_c * W + xi_c]                   # (N, P, C)
+        vals = gather_rows(flat, yi_c * W + xi_c)             # (N, P, C)
         w = (wgt * inb).to(img.dtype)
         return vals * w[..., None]
 

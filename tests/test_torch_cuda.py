@@ -1,4 +1,5 @@
-"""The port's hand kernels against their plain versions, on the card.
+"""The port's hand kernels against their plain versions, and a train step
+against the CPU's, on the card.
 
 These tests need an NVIDIA GPU (sm_90) and nvcc; without them they skip.
 They import neither JAX nor ``das_tpu``, so they also run where JAX is not
@@ -11,8 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from das_tpu_torch.ops import conv_gn, dcn_shift, oks_nms
+from das_tpu_torch.models import build_trainable_model
+from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
+from das_tpu_torch.parallel import (TrainState, frozen_mask, make_lr_fn,
+                                    make_optimizer, make_train_step,
+                                    mspn_frozen_prefixes, param_groups)
+from das_tpu_torch.tools.profile_train import synthetic_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -189,3 +195,126 @@ def test_oks_nms_kernel_refuses_what_it_does_not_take(cuda):
         oks_nms.oks_nms_keep(kpts, areas[:, :5], valid, 0.9, sig)
     with pytest.raises(ValueError):
         oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig[:3])
+
+
+# (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's and the
+# RU's and the repair's at level 1, and indices past both ends
+GATHER_SHAPES = [(1, 11520, 128, 11520, torch.int32),
+                 (60, 11520, 3, 1000, torch.int64),
+                 (60, 11520, 8, 1000, torch.int64),
+                 (60, 11520, 6, 8000, torch.int64),
+                 (4, 11520, 256, 2048, torch.int64),
+                 (2, 1000, 8, 3000, torch.int32),
+                 (2, 1000, 6, 3000, torch.int64)]
+
+
+@pytest.mark.parametrize('shape', GATHER_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_gather_rows_kernel_matches_plain(cuda, shape, dt):
+    """The forward equals the plain version bit for bit (a copy); the
+    backward matches the plain scatter-add within 1e-5 x max|ref| in f32
+    and 2^-7 x max|ref| (one bf16 step) in bf16 (f32 atomics in another
+    order)."""
+    N, R, C, P, itype = shape
+    g = torch.Generator().manual_seed(0)
+    lo, hi = (-R // 2, R + R // 2) if R == 1000 else (0, R)
+    idx = torch.randint(lo, hi, (N, P), generator=g).to(itype).to(cuda)
+    table = torch.randn(N, R, C, generator=g).to(cuda, dt)
+    ct = torch.randn(N, P, C, generator=g).to(cuda, dt)
+    before = gather.launches, gather.backward_launches
+    t = table.clone().requires_grad_()
+    got = gather.gather_rows(t, idx)
+    got.backward(ct)
+    torch.cuda.synchronize()
+    assert (gather.launches, gather.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, gather.gather_rows_plain(table, idx))
+    want = gather.scatter_rows_plain(ct, idx, R, dt).float()
+    tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    assert t.grad.dtype == dt
+    assert (t.grad.float() - want).abs().max() <= tol * want.abs().max()
+
+
+def test_gather_rows_kernel_refuses_what_it_does_not_take(cuda):
+    table = torch.randn(2, 10, 4, device=cuda)
+    idx = torch.zeros(2, 3, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        gather.gather_rows(table.half(), idx)
+    with pytest.raises(TypeError):
+        gather.gather_rows(table, idx.float())
+    with pytest.raises(ValueError):
+        gather.gather_rows(table.transpose(1, 2), idx)
+    with pytest.raises(ValueError):
+        gather.gather_rows(table, idx[:1])
+
+
+J = 4
+TRAIN_MODEL = dict(
+    type='DAS',
+    backbone=dict(
+        type='MSPN2', unit_channels=32, num_stages=1, num_units=4,
+        num_blocks=[1, 1, 1, 1], norm_cfg=dict(type='BN'),
+        res_top_channels=8, frozen_stages=1),
+    neck=dict(type='FPN', in_channels=[32, 32, 32, 32], out_channels=32,
+              norm_cfg=dict(type='BN'), num_outs=4),
+    bbox_head=dict(
+        type='DASHead', num_classes=1, in_channels=32, stacked_convs=2,
+        feat_channels=32, strides=[8, 16, 32, 64],
+        regress_ranges=((-1, 80), (80, 160), (160, 320), (320, 1e8)),
+        num_joints=J, depth_factor=20, z_norm=50, root_idx=2,
+        cls_branch=(32,), reg_branch=((32,), (32,), (32,), (32,)),
+        centerness_branch=(32,), conv_bias=True, dcn_on_last_conv=True,
+        recursive_update=dict(prev_loss=True, num_heads=2, in_channels=32,
+                              feat_channels=32, num_layers=1, dim=3,
+                              num_joints=J)),
+    train_cfg=dict(code_weight=[1.0, 1.0, 1] + [2] * J * 6,
+                   sparse_refine=True))
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One fp32 step of the tiny model ('patch' DCN, so K4 runs in the exact
+    DCN's corners and in the RU) on the card and on the CPU, same weights
+    and batch: loss terms rtol 1e-4, grad_norm rtol 1e-3, each update
+    -lr * lr_mult * trainable * momentum within 1e-3 x its leaf's largest
+    CPU update or 1e-4 x the largest of all (zero-gradient biases before a
+    norm), frozen parameters unchanged."""
+    H, W = 64, 96
+    featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
+    head = TRAIN_MODEL['bbox_head']
+    batch = synthetic_batch(2, H, W, J, seed=2)
+    out = {}
+    for dev in ('cpu', cuda):
+        model = build_trainable_model(TRAIN_MODEL, device=dev, seed=1)
+        tx_init, tx_update = make_optimizer(
+            model, make_lr_fn(2e-3), frozen_prefixes=mspn_frozen_prefixes(1))
+        state = TrainState(0, model, tx_init(dict(model.named_parameters())))
+        step = make_train_step(tx_update, featmaps, head['strides'],
+                               head['regress_ranges'], J, max_pos=64)
+        first = {k: v.clone() for k, v in model.state_dict().items()}
+        before = gather.launches
+        state, metrics = step(state, batch)
+        ran = gather.launches - before
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         {k: m.cpu() for k, m in
+                          state.opt_state['momentum'].items()},
+                         {k: v.cpu() for k, v in model.state_dict().items()},
+                         first, ran)
+    (mc, momc, sdc, first, _), (mg, momg, sdg, _, ran) = \
+        out['cpu'], out[str(cuda)]
+    assert ran > 0
+    for k, v in mc.items():
+        rtol = 1e-3 if k == 'grad_norm' else 1e-4
+        assert abs(mg[k] - v) <= rtol * abs(v) + 1e-7, (k, mg[k], v)
+    model = build_trainable_model(TRAIN_MODEL, device='cpu')
+    lr_mult, _ = param_groups(model)
+    trainable = frozen_mask(model, mspn_frozen_prefixes(1))
+    f = {k: -make_lr_fn(2e-3)(0) * lr_mult[k] * trainable[k]
+         for k in trainable}
+    floor = 1e-4 * max(float((f[k] * m).abs().max()) for k, m in momc.items())
+    for k, m in momc.items():
+        want, got = f[k] * m, f[k] * momg[k]
+        tol = max(1e-3 * float(want.abs().max()), floor)
+        assert float((got - want).abs().max()) <= tol, k
+        if trainable[k] == 0.0:
+            assert torch.equal(sdc[k], first[k]) and \
+                torch.equal(sdg[k], first[k].cpu()), k
