@@ -48,7 +48,11 @@ REACH = (40.0, 120.0, 240.0, 480.0)
 def train_pad_hw(pipeline) -> Tuple[int, int]:
     """The fixed train bucket of a train pipeline: the largest short side
     and long side of its resize scales, each padded to a multiple of 32
-    (as the JAX loader's ``train_pad_hw_from_cfg``)."""
+    (as the JAX loader's ``train_pad_hw_from_cfg``). A pipeline without a
+    ``Resize``/``ResizePose`` step with ``img_scale`` raises ``ValueError``
+    where the loader falls back to 640x1344: a profile at a guessed size
+    would report the shipped config's numbers under another config's
+    name."""
     for t in pipeline:
         if t.get('type') in ('ResizePose', 'Resize') and 'img_scale' in t:
             scales = t['img_scale']
@@ -57,7 +61,8 @@ def train_pad_hw(pipeline) -> Tuple[int, int]:
             h = max(min(s) for s in scales)
             w = max(max(s) for s in scales)
             return 32 * math.ceil(h / 32), 32 * math.ceil(w / 32)
-    return 640, 1344
+    raise ValueError('the train pipeline has no Resize/ResizePose step with '
+                     'img_scale, so no train bucket')
 
 
 def synthetic_batch(B: int, H: int, W: int, num_joints: int,

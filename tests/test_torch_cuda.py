@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.models import build_trainable_model
 from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
@@ -197,12 +198,16 @@ def test_oks_nms_kernel_refuses_what_it_does_not_take(cuda):
         oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig[:3])
 
 
-# (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's and the
-# RU's and the repair's at level 1, and indices past both ends
+# (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's, the
+# RU's at level 1 of a served request and of a train step, the repair's at
+# level 1, and indices past both ends
 GATHER_SHAPES = [(1, 11520, 128, 11520, torch.int32),
                  (60, 11520, 3, 1000, torch.int64),
                  (60, 11520, 8, 1000, torch.int64),
                  (60, 11520, 6, 8000, torch.int64),
+                 (60, 13440, 3, 512, torch.int64),
+                 (60, 13440, 8, 512, torch.int64),
+                 (60, 13440, 6, 4096, torch.int64),
                  (4, 11520, 256, 2048, torch.int64),
                  (2, 1000, 8, 3000, torch.int32),
                  (2, 1000, 6, 3000, torch.int64)]
@@ -275,9 +280,11 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     """One fp32 step of the tiny model ('patch' DCN, so K4 runs in the exact
     DCN's corners and in the RU) on the card and on the CPU, same weights
     and batch: loss terms rtol 1e-4, grad_norm rtol 1e-3, each update
-    -lr * lr_mult * trainable * momentum within 1e-3 x its leaf's largest
-    CPU update or 1e-4 x the largest of all (zero-gradient biases before a
-    norm), frozen parameters unchanged."""
+    -lr * lr_mult * trainable * momentum within 2e-2 of its leaf's largest
+    CPU update (a random-init train-mode step is ill-conditioned; see
+    chip_smoke.py's train_kernel_vs_plain), a leaf whose CPU update is zero
+    to rounding (below 1e-6 of the largest of all: a conv bias before a
+    norm) within 1e-5 of that largest, frozen parameters unchanged."""
     H, W = 64, 96
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
     head = TRAIN_MODEL['bbox_head']
@@ -310,11 +317,57 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     trainable = frozen_mask(model, mspn_frozen_prefixes(1))
     f = {k: -make_lr_fn(2e-3)(0) * lr_mult[k] * trainable[k]
          for k in trainable}
-    floor = 1e-4 * max(float((f[k] * m).abs().max()) for k, m in momc.items())
+    top = max(float((f[k] * m).abs().max()) for k, m in momc.items())
     for k, m in momc.items():
         want, got = f[k] * m, f[k] * momg[k]
-        tol = max(1e-3 * float(want.abs().max()), floor)
+        own = float(want.abs().max())
+        tol = 2e-2 * own if own >= 1e-6 * top else 1e-5 * top
         assert float((got - want).abs().max()) <= tol, k
         if trainable[k] == 0.0:
             assert torch.equal(sdc[k], first[k]) and \
                 torch.equal(sdg[k], first[k].cpu()), k
+
+
+def test_train_gradients_k4_vs_plain_on_the_card(cuda, monkeypatch):
+    """The tiny model's gradient pass on the card, fp32, with K4 and then
+    with its plain pair in K4's place. The forward is the same bit for bit,
+    so the loss terms are equal; each gradient leaf agrees within 1e-3 of
+    its largest plain value, or within 10x the difference of two plain
+    passes (atomics in another order) where that is more; a leaf that is
+    zero to rounding (below 1e-6 of the largest of all) within that 1e-6."""
+    H, W = 64, 96
+    featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
+    head = TRAIN_MODEL['bbox_head']
+    b = synthetic_batch(2, H, W, J, seed=2)
+    model = build_trainable_model(TRAIN_MODEL, device=cuda, seed=1)
+    targets = get_targets(featmaps, head['strides'], head['regress_ranges'],
+                          *[torch.from_numpy(b[k]).to(cuda) for k in (
+                              'gt_poses_3d', 'gt_centers2d', 'gt_depths',
+                              'gt_valid')], J)
+    img = torch.from_numpy(b['img']).to(cuda)
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        losses = model.loss(img, targets, 64)
+        sum(v for k, v in losses.items() if 'loss' in k).backward()
+        return ({k: v.item() for k, v in losses.items()},
+                {k: p.grad.clone() for k, p in model.named_parameters()
+                 if p.grad is not None})
+
+    before = gather.launches, gather.backward_launches
+    lk, gk = grads()
+    assert gather.launches > before[0] and gather.backward_launches > before[1]
+    monkeypatch.setattr(gather, 'gather_rows_cuda', gather.gather_rows_plain)
+    monkeypatch.setattr(gather, 'scatter_rows_cuda',
+                        gather.scatter_rows_plain)
+    lp, gp = grads()
+    _, gq = grads()
+    assert lk == lp
+    assert sorted(gk) == sorted(gp)
+    top = max(float(v.abs().max()) for v in gp.values())
+    for k, want in gp.items():
+        own = float(want.abs().max())
+        tol = max(1e-3 * own, 10 * float((gq[k] - want).abs().max()))
+        if own < 1e-6 * top:
+            tol = max(tol, 1e-6 * top)
+        assert float((gk[k] - want).abs().max()) <= tol, k
