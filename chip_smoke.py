@@ -16,22 +16,28 @@ nonzero and prints no result:
 3. each kernel against its plain PyTorch version on the card, and timed at
    the serving shapes against its bound: ``dcn_shift`` (K1), ``conv_gn``
    (K2, also against the unfused cuDNN conv + GroupNorm + relu),
-   ``oks_nms`` (K3), and ``gather_rows`` (K4, the row gather of every
-   bilinear sample and of the RU ``take_at``, forward and backward, also
-   against plain indexing and ``index_add_``);
+   ``oks_nms`` (K3), and K4: ``gather_rows`` (the row gather of every
+   bilinear sample that takes a gradient and of the RU ``take_at``, forward
+   and backward, also against plain indexing and ``index_add_``), the
+   grouped gather (several gathers, and all their gradients, in one launch
+   each) and ``sample_rows_bilinear`` (a whole bilinear sample in one
+   launch where no gradient is asked for, bit for bit against the plain
+   composition and timed against ``F.grid_sample``);
 4. the main paths at full width, B=4 640x1152 bf16 requests through
    ``make_predict_fn``, each with the kernels' launch counts set to 0 just
-   before and read just after: ``configs/das/exp_panoptic_tpu.py`` (16
-   ``dcn_shift`` launches per request and some ``gather_rows``), then
-   ``configs/das/exp_panoptic_tpu_fused_gn.py`` (16 ``dcn_shift``, 36
-   ``conv_gn`` and some ``gather_rows``); then K3 on the NMS candidates of
+   before and read just after: ``configs/das/exp_panoptic_tpu.py`` (per
+   request 16 ``dcn_shift`` launches, 3 grouped row gathers, 8 fused
+   samples and one more per DCN call that repairs), then
+   ``configs/das/exp_panoptic_tpu_fused_gn.py`` (the same and 36
+   ``conv_gn``); then K3 on the NMS candidates of
    one fused-GN request, against ``oks_nms_fixed`` and the plain version;
 5. for each config, the kernel path on the card against the plain path on
    the CPU, fp32, on one small image, same weights;
 6. training at full width: 5 steps of ``make_train_step`` on
    ``configs/das/exp_panoptic_tpu.py`` at B=4 640x1344 (its train bucket),
    bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
-   with the counts set to 0 just before and read just after; then that
+   with the counts set to 0 just before and read just after (12 row
+   gathers and 12 adjoint launches per step); then that
    step's gradient pass, full depth, in bf16 and in f32, with K4 (each
    launch also held against the plain version on its own inputs) and with
    the plain pair in its place on the card, gradients compared leaf by
@@ -67,6 +73,18 @@ GRAD_NOISE = 10.0
 # a gradient leaf of the card's train step against the CPU's, relative to
 # its largest CPU value (see train_kernel_vs_plain)
 CARD_CPU_RTOL = 2e-2
+# K4 launches (row gathers and fused samples) that a served request may
+# make: a quarter of the 210 it made with one launch per corner. A request
+# makes 3 grouped gathers (take_at at the sparse levels 0-2), 8 fused
+# samples (two per level) and one fused sample per DCN call that repairs,
+# of 16 DCN calls
+K4_PER_REQUEST = 52
+K4_SAMPLES = (9, 24)
+# ... and per train step, forward and backward each (40 with one launch per
+# corner): each of the 4 sparse levels makes three launches that depend on
+# one another, the grouped take_at, the sample of the offsets at the points
+# it gives, and the sample of [uvd, conf] at the candidates that gives
+K4_PER_STEP = 12
 
 
 def phase(name, msg):
@@ -295,6 +313,30 @@ def conv_gn_vs_plain():
     phase('kernel', f'conv_gn fp32 at the test_ops shapes and element-path '
           f'shapes: max abs err {worst:.3g} (atol 2e-5) ok')
 
+    # bf16 at small shapes: the wgmma pass with ragged patches (H, W no
+    # multiples of 8, 16), Cin below and across a 64-channel slice, Cout
+    # below a column block, and the element-wise tiles (Cin, Cout no
+    # multiples of 8); one bf16 step of max|ref|
+    worst = 0.0
+    for (h, w, cin, cout, g) in [(8, 16, 8, 8, 4), (10, 18, 32, 64, 8),
+                                 (20, 36, 64, 64, 32), (13, 21, 72, 136, 17),
+                                 (7, 40, 128, 256, 32), (9, 7, 3, 6, 3),
+                                 (5, 11, 12, 130, 13)]:
+        a = inputs(2, h, w, cin, cout, torch.bfloat16)
+        got = conv_gn.conv_gn_relu(*a, groups=g)
+        again = conv_gn.conv_gn_relu(*a, groups=g)
+        want = conv_gn.conv_gn_relu_plain(*a, groups=g).float()
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), ('conv_gn bf16 repeats', h, w, cin,
+                                        cout))
+        rel = ((got.float() - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, rel)
+        check(rel <= 1e-2, ('conv_gn bf16', h, w, cin, cout, g, rel))
+    phase('kernel', f'conv_gn bf16 at small shapes (ragged patches, Cin 8 to '
+          f'128, Cout 8 to 256; element-wise tiles for Cin 3 and 12): max '
+          f'err / max|ref| {worst:.3g} (<= 1e-2), two runs equal bit for '
+          f'bit ok')
+
     def library(x, wt, gamma, beta):
         """The unfused module: cuDNN conv2d in x's type on the NCHW
         (channels_last) view, the port's GroupNorm, relu."""
@@ -311,7 +353,10 @@ def conv_gn_vs_plain():
     for lvl, (h, w) in enumerate(LEVELS):
         for cout in (256, 64):
             a = inputs(4, h, w, 256, cout, torch.bfloat16)
-            got = conv_gn.conv_gn_relu(*a, groups=32).float()
+            got = conv_gn.conv_gn_relu(*a, groups=32)
+            check(torch.equal(got, conv_gn.conv_gn_relu(*a, groups=32)),
+                  ('conv_gn bf16 repeats', lvl, cout))
+            got = got.float()
             want = conv_gn.conv_gn_relu_plain(*a, groups=32).float()
             err = (got - want).abs().max().item()
             rel = err / want.abs().max().item()
@@ -329,7 +374,7 @@ def conv_gn_vs_plain():
                   f' G=32: kernel {ms:.4f} ms, unfused cuDNN conv+GN+relu '
                   f'{lib_ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
                   f'{bound:.4f} ms ({by}); max err / max|ref| {rel:.3g} '
-                  f'(<= 1e-2), unfused vs plain max abs '
+                  f'(<= 1e-2), two runs equal; unfused vs plain max abs '
                   f'{lib_err.item():.4g}')
             if lvl == 0 and cout == 256:
                 entry = dict(
@@ -415,6 +460,10 @@ GATHER_SHAPES = [
     (60, 53760, 8, 512, 'int64', 'train RU level 0 take_at / corners, '
      'offsets'),
     (60, 53760, 6, 4096, 'int64', 'train RU level 0 corners, [uvd, conf]'),
+    (60, 53760, 8, 4 * 512, 'int64', 'train RU level 0, all four corners, '
+     'offsets'),
+    (60, 53760, 6, 4 * 4096, 'int64', 'train RU level 0, all four corners, '
+     '[uvd, conf]'),
     (60, 13440, 3, 512, 'int64', 'train RU level 1 take_at uvd'),
     (60, 13440, 8, 512, 'int64', 'train RU level 1 take_at / corners, '
      'offsets'),
@@ -472,6 +521,8 @@ def gather_vs_plain():
         bplain_ms = cuda_ms(lambda: gather.scatter_rows_plain(
             g, idx, R, torch.bfloat16), 20)
         blib_ms = cuda_ms(lambda: acc.index_add_(0, flat, g2), 50)
+        zero_ms = cuda_ms(lambda: torch.zeros(N, R, C, device='cuda'), 50)
+        cast_ms = cuda_ms(lambda: acc.to(torch.bfloat16), 50)
         ib = idx.element_size()
         bound, by = gather_bound_ms(N, R, P, C, 2, ib)
         bbound, bby = gather_bound_ms(N, R, P, C, 2, ib, backward=True)
@@ -481,8 +532,9 @@ def gather_vs_plain():
               f' bf16 (<= 2^-7); bf16 forward kernel {ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, indexing {lib_ms:.4f} ms, bound '
               f'{bound:.4f} ms ({by}); backward kernel {bms:.4f} ms, plain '
-              f'{bplain_ms:.4f} ms, index_add_ {blib_ms:.4f} ms, bound '
-              f'{bbound:.4f} ms ({bby})')
+              f'{bplain_ms:.4f} ms, index_add_ {blib_ms:.4f} ms (the '
+              f"table's f32 zero-fill {zero_ms:.4f} ms, its cast "
+              f'{cast_ms:.4f} ms), bound {bbound:.4f} ms ({bby})')
         if what == 'probe':
             src = 'das_tpu_torch/csrc/gather_rows.cu'
             rep = 'tools/analysis_tools/pallas_gather_probe.py:36'
@@ -498,6 +550,187 @@ def gather_vs_plain():
                 bound_ms=bbound, bound_by=bby, library_ms=blib_ms,
                 shape=shape)
     return entries['fwd'], entries['bwd']
+
+
+# (N, [(R, C, P)], what): the segments of one grouped launch. The RU's
+# take_at of a served request and of a train step at levels 0 and 1 (uvd
+# C=3 and the sampling offsets C=8 at the same points); four segments of
+# different R, C and P of which two name one table (their gradients add
+# into one buffer); and indices past both ends, which must clamp
+GROUPED_SHAPES = [
+    (60, [(46080, 3, 1000), (46080, 8, 1000)], 'RU level 0 take_at'),
+    (60, [(11520, 3, 1000), (11520, 8, 1000)], 'RU level 1 take_at'),
+    (60, [(53760, 3, 512), (53760, 8, 512)], 'train RU level 0 take_at'),
+    (60, [(13440, 3, 512), (13440, 8, 512)], 'train RU level 1 take_at'),
+    (4, [(11520, 256, 2048), (2880, 6, 300), (11520, 256, 700),
+         (720, 7, 5000)], 'four segments, the first and third one table'),
+    (2, [(1000, 8, 3000), (1000, 6, 3000)], 'clamp'),
+]
+
+
+def grouped_gather_vs_plain():
+    """The grouped row gather bit for bit against its plain version and its
+    adjoint against the plain one (the tolerances of gather_vs_plain), in
+    f32 and bf16, and both timed in bf16 against one launch per segment."""
+    import torch
+    from das_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(17)
+    for N, segs, what in GROUPED_SHAPES:
+        shared = what.startswith('four')
+        for dt in (torch.float32, torch.bfloat16):
+            tables, idxs, cts, which = [], [], [], []
+            for s, (R, C, P) in enumerate(segs):
+                lo, hi = (-R // 2, R + R // 2) if what == 'clamp' else (0, R)
+                if shared and s == 2:
+                    tables.append(tables[0])
+                    which.append(0)
+                else:
+                    which.append(len(set(which)))
+                    tables.append(torch.randn(N, R, C, generator=gen).cuda()
+                                  .to(dt))
+                idxs.append(torch.randint(lo, hi, (N, P), generator=gen)
+                            .to(torch.int32 if s % 2 and shared
+                                else torch.int64).cuda())
+                cts.append(torch.randn(N, P, C, generator=gen).cuda().to(dt))
+            before = gather.launches, gather.backward_launches
+            got = gather.gather_grouped_cuda(tables, idxs)
+            want = gather.gather_grouped_plain(tables, idxs)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  ('grouped gather', what, dt))
+            uniq = sorted(set(which))
+            rows = [segs[which.index(u)][0] for u in uniq]
+            gb = gather.scatter_grouped_cuda(cts, idxs, which, rows,
+                                             [dt] * len(uniq))
+            wb = gather.scatter_grouped_plain(cts, idxs, which, rows,
+                                              [dt] * len(uniq))
+            torch.cuda.synchronize()
+            check((gather.launches, gather.backward_launches) ==
+                  (before[0] + 1, before[1] + 1),
+                  ('grouped gather: one launch each way', what))
+            tol = 1e-5 if dt == torch.float32 else BF16_STEP
+            rel = 0.0
+            for g, w in zip(gb, wb):
+                scale = w.float().abs().max().item()
+                err = (g.float() - w.float()).abs().max().item()
+                check(err <= tol * scale, ('grouped gather backward', what,
+                                           dt, err, scale))
+                rel = max(rel, err / scale)
+        ms = cuda_ms(lambda: gather.gather_grouped_cuda(tables, idxs), 50)
+        each = cuda_ms(lambda: [gather.gather_rows_cuda(t, i)
+                                for t, i in zip(tables, idxs)], 50)
+        plain_ms = cuda_ms(lambda: gather.gather_grouped_plain(tables, idxs),
+                           20)
+        bms = cuda_ms(lambda: gather.scatter_grouped_cuda(
+            cts, idxs, which, rows, [dt] * len(uniq)), 50)
+        bplain_ms = cuda_ms(lambda: gather.scatter_grouped_plain(
+            cts, idxs, which, rows, [dt] * len(uniq)), 20)
+        bound = sum(gather_bound_ms(N, R, P, C, 2, i.element_size())[0]
+                    for (R, C, P), i in zip(segs, idxs))
+        phase('kernel', f'gather_rows_grouped {what} (N={N}, (R, C, P) = '
+              f'{segs}): forward == plain bit for bit in f32 and bf16, '
+              f'backward max err / max|ref| {rel:.3g} bf16 (<= 2^-7; f32 <= '
+              f'1e-5); bf16 forward one launch {ms:.4f} ms, one launch per '
+              f'segment {each:.4f} ms, plain {plain_ms:.4f} ms, bound '
+              f'{bound:.4f} ms (bytes); backward one launch {bms:.4f} ms, '
+              f'plain {bplain_ms:.4f} ms')
+
+
+# (N, H, W, C, P, what): the samples of a B=4 640x1152 request: the RU's
+# sparse levels 0 and 1 (the sampling offsets C=8 at the K=1000 selected
+# points, [uvd, conf] C=6 at 1000 x 8 candidates) and its dense level 3
+# (20x36: 720 points, then 720 x 8), the uvd field alone (C=3), and the
+# hybrid repair's nine taps of 2048 pixels on the 256-channel maps
+SAMPLER_SHAPES = [
+    (60, 160, 288, 8, 1000, 'RU level 0, offsets'),
+    (60, 160, 288, 6, 8000, 'RU level 0, [uvd, conf]'),
+    (60, 80, 144, 8, 1000, 'RU level 1, offsets'),
+    (60, 80, 144, 6, 8000, 'RU level 1, [uvd, conf]'),
+    (60, 20, 36, 8, 720, 'RU level 3 (dense), offsets'),
+    (60, 20, 36, 6, 5760, 'RU level 3 (dense), [uvd, conf]'),
+    (60, 80, 144, 3, 1000, 'uvd field'),
+    (4, 160, 288, 256, 9 * 2048, 'hybrid repair, level 0'),
+    (4, 80, 144, 256, 9 * 2048, 'hybrid repair, level 1'),
+]
+
+
+def sampler_bound_ms(N, R, P, C, elt):
+    """Least time for one fused bilinear sample: four rows read per point,
+    or the whole table once where that is less (points share corners), two
+    f32 coordinates read and one row written per point; 11 f32 operations
+    per channel (4 products, 3 sums and their share of the weights)."""
+    return bound_ms(11.0 * N * P * C, PEAK_F32_FLOPS,
+                    (min(4 * P, R) + P) * N * C * elt + 8 * N * P)
+
+
+def sampler_vs_plain():
+    """The fused sampler bit for bit against the plain composition (torch
+    elementwise weights around the plain row gather) in f32 and bf16, with
+    points outside the image and on its border, and timed in bf16 against
+    its bound and F.grid_sample. Returns its entry of the kernel table (at
+    the level-0 repair shape)."""
+    import torch
+    import torch.nn.functional as F
+    from das_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(19)
+    entry = None
+    for N, H, W, C, P, what in SAMPLER_SHAPES:
+        x = torch.rand(N, P, generator=gen) * (W + 3) - 2
+        y = torch.rand(N, P, generator=gen) * (H + 3) - 2
+        # whole coordinates on and just past every border
+        edge = torch.tensor([-1.0, 0.0, W - 1.0, float(W), -0.5, W - 0.5])
+        x[:, :36] = edge.repeat_interleave(6)
+        y[:, :36] = torch.tensor([-1.0, 0.0, H - 1.0, float(H), -0.5,
+                                  H - 0.5]).repeat(6)
+        x, y = x.cuda(), y.cuda()
+        base = torch.randn(N, H * W, C, generator=gen).cuda()
+        err = 0.0
+        for dt in (torch.float32, torch.bfloat16):
+            flat = base.to(dt)
+            before = gather.sampler_launches
+            got = gather.sample_rows_bilinear(flat, x, y, H, W)
+            check(gather.sampler_launches == before + 1,
+                  ('sampler: one launch', what))
+            want = gather.sample_rows_bilinear_plain(
+                flat, x, y, H, W, gather=gather.gather_rows_plain)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), ('sample_rows_bilinear', what, dt,
+                                           (got.float() - want.float())
+                                           .abs().max().item()))
+            err = (got.float() - want.float()).abs().max().item()
+        grid = torch.stack([2 * x / (W - 1) - 1, 2 * y / (H - 1) - 1],
+                           dim=-1)[:, None].to(dt)
+        nchw = flat.reshape(N, H, W, C).permute(0, 3, 1, 2)
+        lib = F.grid_sample(nchw, grid, mode='bilinear',
+                            padding_mode='zeros', align_corners=True)
+        lib_err = (lib[:, :, 0].permute(0, 2, 1).float() - want.float()) \
+            .abs().max().item()
+        ms = cuda_ms(lambda: gather.sample_rows_bilinear(flat, x, y, H, W),
+                     50)
+        plain_ms = cuda_ms(lambda: gather.sample_rows_bilinear_plain(
+            flat, x, y, H, W, gather=gather.gather_rows_plain), 10)
+        gathered_ms = cuda_ms(lambda: gather.sample_rows_bilinear_plain(
+            flat, x, y, H, W), 10)
+        lib_ms = cuda_ms(lambda: F.grid_sample(
+            nchw, grid, mode='bilinear', padding_mode='zeros',
+            align_corners=True), 50)
+        bound, by = sampler_bound_ms(N, H * W, P, C, 2)
+        phase('kernel', f'sample_rows_bilinear {what} ({N}x{H}x{W}x{C}, '
+              f'P={P}): == plain composition bit for bit in f32 and bf16; '
+              f'bf16 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch '
+              f'weights around the K4 gather {gathered_ms:.4f} ms, '
+              f'F.grid_sample {lib_ms:.4f} ms (its grid is bf16 as its '
+              f'input, so coordinates keep 8 bits: max abs diff from plain '
+              f'{lib_err:.3g}), bound {bound:.4f} ms ({by})')
+        if what == 'hybrid repair, level 0':
+            entry = dict(
+                name='sample_rows_bilinear', route='cuda',
+                source='das_tpu_torch/csrc/gather_rows.cu',
+                replaces='tools/analysis_tools/pallas_gather_probe.py:36 '
+                '(the four row gathers of das_tpu/ops/interp.py:68-79 and '
+                'the weights around them)', launches=0, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, shape=f'{N}x{H}x{W}x{C} bf16, P={P}')
+    return entry
 
 
 def pose_template(model, radius=12.0):
@@ -638,11 +871,13 @@ def flagged_per_layer(model, img):
 
 def main_path(cfg_path, requests, expect):
     """Serve ``requests`` B=4 640x1152 bf16 requests of ``cfg_path``. Every
-    count of ``expect`` ({kernel module: launches per request}) is set to 0
-    just before the requests and read just after; each request must launch
-    exactly its share, or at least one where the share is None (K4, whose
-    count follows the repairs the request needs). Returns (model, cfg, {name: launches}, last image,
-    scale factors)."""
+    count of ``expect`` ({(kernel module, name of its count): launches per
+    request}) is set to 0 just before the requests and read just after;
+    each request must launch exactly its share, or a number within (lo, hi)
+    where the share is such a pair (the fused sampler, whose count follows
+    the DCN calls that repair). K4's launches together (row gathers and
+    fused samples) must stay within K4_PER_REQUEST. Returns (model, cfg,
+    {module.count: launches}, last image, scale factors)."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import init_model, make_predict_fn
@@ -674,32 +909,35 @@ def main_path(cfg_path, requests, expect):
     predict(imgs[0], sf)                     # warm-up request
     torch.cuda.synchronize()
 
-    for mod in expect:
-        mod.launches = 0
+    def label(key):
+        return f'{key[0].__name__.rsplit(".", 1)[-1]}.{key[1]}'
+
+    for mod, attr in expect:
+        setattr(mod, attr, 0)
     times = []
     for i in range(1, requests + 1):
-        before = {mod: mod.launches for mod in expect}
+        before = {key: getattr(*key) for key in expect}
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = predict(imgs[i], sf)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
-        got = {mod: mod.launches - before[mod] for mod in expect}
+        got = {key: getattr(*key) - before[key] for key in expect}
         for k, v in out.items():
             if v.is_floating_point():
                 check(torch.isfinite(v).all(), k)
         check(out['poses'].shape == (4, 100, head.num_joints, 3),
               tuple(out['poses'].shape))
-        counts = ', '.join(f'{n} {mod.__name__.rsplit(".", 1)[-1]}'
-                           for mod, n in got.items())
+        counts = ', '.join(f'{n} {label(key)}' for key, n in got.items())
+        k4 = sum(n for key, n in got.items() if 'gather' in label(key))
         phase('main', f'{name} request {i}: B=4 640x1152 in '
               f'{times[-1]:.2f} ms, {int(out["valid"].sum())} valid poses, '
               f'launches: {counts}')
-        check(all(got[mod] > 0 if n is None else got[mod] == n
-                  for mod, n in expect.items()),
+        check(all(n[0] <= got[key] <= n[1] if isinstance(n, tuple)
+                  else got[key] == n for key, n in expect.items())
+              and k4 <= K4_PER_REQUEST,
               (name, 'launches per request', counts))
-    totals = {mod.__name__.rsplit('.', 1)[-1]: mod.launches
-              for mod in expect}
+    totals = {label(key): getattr(*key) for key in expect}
     phase('main', f'{name}: {requests} requests ok, mean '
           f'{np.mean(times):.2f} ms, median {np.median(times):.2f} ms, '
           f'launches {totals}, outputs finite')
@@ -709,7 +947,7 @@ def main_path(cfg_path, requests, expect):
 def kernel_path_vs_plain_path(cfg_path, expect):
     """Same fp32 weights on the card (kernel) and on the CPU (plain); the
     card's forward launches ``expect`` = (dcn_shift, conv_gn) kernels and
-    some gather_rows."""
+    some of K4's (row gathers and fused samples)."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import init_model, make_predict_fn
@@ -737,13 +975,14 @@ def kernel_path_vs_plain_path(cfg_path, expect):
             sel.append(torch.topk(r, nms_pre, dim=1).indices
                        if r.shape[1] > nms_pre else None)
         outs_c = cpu(img, sel)
-        before = (dcn_shift.launches, conv_gn.launches, gather.launches)
+        before = (dcn_shift.launches, conv_gn.launches,
+                  gather.launches + gather.sampler_launches)
         outs_g = gpu(img.cuda(), [None if s is None else s.cuda()
                                   for s in sel])
         ran = (dcn_shift.launches - before[0], conv_gn.launches - before[1])
-        gathers = gather.launches - before[2]
+        gathers = gather.launches + gather.sampler_launches - before[2]
     check(ran == expect and gathers > 0,
-          (cfg_name, 'fp32 launches (dcn_shift, conv_gn, gather_rows)', ran,
+          (cfg_name, 'fp32 launches (dcn_shift, conv_gn, K4)', ran,
            gathers))
     worst = 0.0
     for name, lc, lg in zip(('cls', 'pose', 'ctr', 'ref_uvd'), outs_c,
@@ -777,8 +1016,8 @@ def kernel_path_vs_plain_path(cfg_path, expect):
         pose_err = max(pose_err, d / max(1.0, pg[i].abs().max().item()))
     check(pose_err <= 1e-3, pose_err)
     phase('plain', f'{cfg_name} B=1 128x160 fp32 kernel path (card: '
-          f'{ran[0]} dcn_shift, {ran[1]} conv_gn, {gathers} gather_rows '
-          f'launches) vs plain path '
+          f'{ran[0]} dcn_shift, {ran[1]} conv_gn, {gathers} K4 (row gather '
+          f'and fused sampler) launches) vs plain path '
           f'(CPU): head outputs max err / max|ref| {worst:.3g} (<= 1e-3); '
           f'decode: {nv} valid on both, scores within 1e-4, poses max err '
           f'/ max|pose| {pose_err:.3g} (<= 1e-3) ok')
@@ -818,44 +1057,67 @@ def loss_grads(model, cfg, batch, featmaps, max_pos):
 @contextlib.contextmanager
 def k4_launchers(forward, backward):
     """Within the block, the port's row gathers on CUDA tensors run
-    ``forward`` and ``backward`` in place of K4's launchers
-    (``gather.gather_rows_cuda``, ``gather.scatter_rows_cuda``)."""
+    ``forward`` and ``backward`` in place of K4's grouped launchers
+    (``gather.gather_grouped_cuda``, ``gather.scatter_grouped_cuda``),
+    through which the one-segment gathers go too."""
     from das_tpu_torch.ops import gather
-    saved = gather.gather_rows_cuda, gather.scatter_rows_cuda
-    gather.gather_rows_cuda, gather.scatter_rows_cuda = forward, backward
+    saved = gather.gather_grouped_cuda, gather.scatter_grouped_cuda
+    gather.gather_grouped_cuda, gather.scatter_grouped_cuda = forward, \
+        backward
     try:
         yield
     finally:
-        gather.gather_rows_cuda, gather.scatter_rows_cuda = saved
+        gather.gather_grouped_cuda, gather.scatter_grouped_cuda = saved
 
 
 def k4_witness(seen):
-    """K4's launchers, each also holding its result against the plain
-    version on the very same inputs. ``seen`` gets one (direction, N, R, C,
-    P, dtype, max err / max|ref|) per launch; the forward's error is 0 when
-    it is equal bit for bit and inf otherwise."""
+    """K4's grouped launchers, each also holding its result against the
+    plain version on the very same inputs. ``seen`` gets one (direction, N,
+    R, C, P, dtype, max err / max|ref|) per segment of a forward launch and
+    per table of a backward launch (P then counts all its segments'
+    points); the forward's error is 0 when it is equal bit for bit and inf
+    otherwise. ``seen.launches`` counts the launches."""
     import torch
     from das_tpu_torch.ops import gather
-    kernel_fwd, kernel_bwd = gather.gather_rows_cuda, gather.scatter_rows_cuda
+    kernel_fwd = gather.gather_grouped_cuda
+    kernel_bwd = gather.scatter_grouped_cuda
 
-    def forward(table, idx):
-        out = kernel_fwd(table, idx)
-        same = torch.equal(out, gather.gather_rows_plain(table, idx))
-        seen.append(('forward', *table.shape, idx.shape[1], table.dtype,
-                     0.0 if same else math.inf))
-        return out
+    def forward(tables, idxs):
+        outs = kernel_fwd(tables, idxs)
+        wants = gather.gather_grouped_plain(tables, idxs)
+        seen.launches[0] += 1
+        for t, i, o, w in zip(tables, idxs, outs, wants):
+            seen.append(('forward', *t.shape, i.shape[1], t.dtype,
+                         0.0 if torch.equal(o, w) else math.inf))
+        return outs
 
-    def backward(grad, idx, rows, dtype):
-        got = kernel_bwd(grad, idx, rows, dtype)
-        want = gather.scatter_rows_plain(grad, idx, rows, dtype).float()
-        err = (got.float() - want).abs().max().item()
-        scale = want.abs().max().item()
-        N, P, C = grad.shape
-        seen.append(('backward', N, rows, C, P, dtype,
-                     err / scale if scale else (0.0 if err == 0 else
-                                                math.inf)))
-        return got
+    def backward(grads, idxs, which, rows, dtypes):
+        gots = kernel_bwd(grads, idxs, which, rows, dtypes)
+        wants = gather.scatter_grouped_plain(grads, idxs, which, rows,
+                                             dtypes)
+        seen.launches[1] += 1
+        for u, (got, want) in enumerate(zip(gots, wants)):
+            check((got is None) == (want is None), 'K4 backward: a table')
+            if got is None:
+                continue
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            N, R, C = got.shape
+            P = sum(i.shape[1] for i, w, g in zip(idxs, which, grads)
+                    if w == u and g is not None)
+            seen.append(('backward', N, R, C, P, dtypes[u],
+                         err / scale if scale else (0.0 if err == 0 else
+                                                    math.inf)))
+        return gots
     return forward, backward
+
+
+class Seen(list):
+    """The witness's records, and its (forward, backward) launches."""
+
+    def __init__(self):
+        super().__init__()
+        self.launches = [0, 0]
 
 
 def train_full_width(steps=5):
@@ -911,7 +1173,8 @@ def train_full_width(steps=5):
         m = {k: float(v) for k, v in metrics.items()}
         fwd, bwd = gather.launches - f0, gather.backward_launches - b0
         check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
-        check(fwd > 0 and bwd > 0, ('train K4 launches', i, fwd, bwd))
+        check(fwd == K4_PER_STEP and bwd == K4_PER_STEP,
+              ('train K4 launches', i, fwd, bwd))
         phase('train', f'step {i}: ' + ', '.join(
             f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} ms '
             f'(CUDA events); K4 launches {fwd} forward + {bwd} backward')
@@ -963,11 +1226,11 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     from das_tpu_torch.ops import gather
     model, cfg = run['model'], run['cfg']
     args = (cfg, run['batch'], run['featmaps'], run['max_pos'])
-    plain = (gather.gather_rows_plain, gather.scatter_rows_plain)
+    plain = (gather.gather_grouped_plain, gather.scatter_grouped_plain)
     for name in dtypes:
         dt = {'bf16': torch.bfloat16, 'f32': torch.float32}[name]
         keep_master_weights(model, dt)
-        seen = []
+        seen = Seen()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with k4_launchers(*k4_witness(seen)):
@@ -988,6 +1251,8 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               ('K4 backward vs plain on the training path', name,
                max(bwd, key=lambda s: s[-1])))
         shapes = sorted({s[1:5] for s in seen})
+        check(seen.launches == [K4_PER_STEP, K4_PER_STEP],
+              ('K4 launches of the gradient pass', name, seen.launches))
         check(la == lb, ('loss terms, K4 vs plain on the card', name, la,
                          lb))
         check(sorted(ga) == sorted(gb), ('gradient keys', name))
@@ -1014,8 +1279,9 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
         B, H, W = run['batch']['img'].shape[:3]
         phase('train', f'{name} gradient pass, full depth, B={B} {H}x{W}, '
               f'K4 vs its plain pair on the card ({secs:.1f} s for 4 '
-              f'passes, peak memory {peak:.2f} GiB): {len(fwd)} forward + {len(bwd)} backward K4 '
-              f'launches held against plain on their own inputs at '
+              f'passes, peak memory {peak:.2f} GiB): {seen.launches[0]} forward + '
+              f'{seen.launches[1]} backward K4 launches ({len(fwd)} gathers, '
+              f'{len(bwd)} table gradients) held against plain on their own inputs at '
               f'{len(shapes)} (N, R, C, P) shapes {shapes}: forward bit for'
               f' bit, backward max err / max|ref| '
               f'{max(s[-1] for s in bwd):.3g} (<= {tol:.3g}); loss terms '
@@ -1155,20 +1421,27 @@ def main():
     k2 = conv_gn_vs_plain()
     oks_nms_vs_plain()
     k4, k4b = gather_vs_plain()
-    model, _, n1, _, _ = main_path(SERVING_CFG, 2,
-                                   {dcn_shift: 16, conv_gn: 0, gather: None})
+    grouped_gather_vs_plain()
+    k4s = sampler_vs_plain()
+
+    def expect(convs):
+        return {(dcn_shift, 'launches'): 16, (conv_gn, 'launches'): convs,
+                (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
+                (gather, 'sampler_launches'): K4_SAMPLES}
+    model, _, n1, _, _ = main_path(SERVING_CFG, 2, expect(0))
     del model
-    model, cfg, n2, img, sf = main_path(
-        FUSED_CFG, 3, {dcn_shift: 16, conv_gn: 36, gather: None})
+    model, cfg, n2, img, sf = main_path(FUSED_CFG, 3, expect(36))
     k3 = nms_on_served_request(model, cfg, img, sf)
     del model
     torch.cuda.empty_cache()
     fwd, bwd, run = train_full_width()
-    k1['launches'] = n1['dcn_shift'] + n2['dcn_shift']
-    k2['launches'] = n2['conv_gn']
-    k4['launches'] = n1['gather'] + n2['gather'] + fwd
+    k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches']
+    k2['launches'] = n2['conv_gn.launches']
+    k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + fwd
     k4b['launches'] = bwd
-    for k in (k1, k2, k3, k4, k4b):
+    k4s['launches'] = n1['gather.sampler_launches'] \
+        + n2['gather.sampler_launches']
+    for k in (k1, k2, k3, k4, k4b, k4s):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     train_k4_vs_plain_on_card(run, ('bf16', 'f32'))
     del run
@@ -1176,7 +1449,7 @@ def main():
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()
-    print(json.dumps({'kernels': [k1, k2, k3, k4, k4b]}), flush=True)
+    print(json.dumps({'kernels': [k1, k2, k3, k4, k4b, k4s]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

@@ -22,21 +22,56 @@
 // in VMEM (~72 MB at the stride-4 level). An H100 block has 227 KB of shared
 // memory, so the statistics need a reduction across blocks, in three
 // launches on one stream:
-//   1. conv: one block owns 64 output pixels of ONE image (tiles never
-//      straddle two images) x all output channels of its column block, and
-//      loops over the 9 taps and 32-channel slices of Cin, as the DCN kernel
-//      (dcn_shift.cu) does without the offsets. bf16 runs WMMA (mma.sync, f32
-//      accumulate) with 16-byte loads when Cin and Cout are multiples of 8,
-//      the next slice's loads in flight during the current product; f32 runs
-//      true FMAs. The epilogue writes y (f32) to a workspace and the block's
-//      per-(image, group) partial sums of y and y^2 to its own slot of a
-//      partials buffer: no atomics, so runs repeat bit for bit.
+//   1. conv: an implicit GEMM, pixels x (9 taps x Cin) x Cout; the epilogue
+//      writes y (f32) to a workspace and the block's per-(image, group)
+//      partial sums of y and y^2 to its own slot of a partials buffer: no
+//      atomics, so runs repeat bit for bit.
 //   2. stats: one block per (image, group) sums the slots in a fixed tree
 //      order and writes mean and rstd.
-//   3. apply: elementwise relu(y * a + b), rounded to x's type.
-// Recomputing the conv instead of the workspace round trip, a cluster/DSMEM
-// reduction, wgmma and TMA are left for a later version.
+//   3. apply: elementwise relu(y * a + b), rounded to x's type; a thread
+//      reads 16 bytes of y and writes its 4 channels (8 bytes of bf16):
+//      neighbouring threads cover whole lines both ways. A variant with 8
+//      channels a thread (two 16-byte loads 32 bytes apart between
+//      neighbours, one 16-byte store) measured slower, 0.124 against 0.109
+//      ms at the stride-4 level on an NVIDIA H100 80GB HBM3 at 700 W.
+// The f32 workspace round trip stays: at the stride-4 level it moves 189 MB
+// out, 189 MB in and 94 MB of bf16 out, ~0.14 ms at 3.35 TB/s, less than the
+// 0.22 ms that a second conv pass would take at the tensor cores' peak; at
+// the two coarsest levels the workspace fits the 50 MB L2.
+//
+// The bf16 conv pass (Cin and Cout multiples of 8, 16-byte aligned bases)
+// is built from what Hopper added:
+//   * wgmma: two consumer warpgroups, each 64 pixels x all BN <= 256 output
+//     channels of the block (m64n256k16 or m64n64k16, bf16 operands read
+//     from shared memory through descriptors, f32 accumulators in
+//     registers, 128 a thread at BN = 256).
+//   * A block owns 128 pixels, an 8 x 16 patch of ONE image, so the weights
+//     are read once per 128 pixels. Per 64-channel slice of a tap it
+//     fetches a 16 KB x tile and a 32 KB weight tile for 4.2 MFLOP: 87 FLOP
+//     per byte from L2; at the stride-4 level of a B=4 640x1152 request
+//     1,440 blocks read 1.7 GB of weights and 0.85 GB of x through L2 for
+//     217 GFLOP. (A cluster of two blocks sharing each weight tile by TMA
+//     multicast would halve the weight traffic again; not done here.)
+//   * TMA: one producer warp keeps a ring of 4 stages full. The x tile is a
+//     box of a 4-D map over (N, H, W, Cin) at the tap's shifted
+//     coordinates; what lies outside the image, negative coordinates too,
+//     arrives as zeros, which is the conv's padding and also covers the
+//     ragged last patch and a Cin that is no multiple of 64. The weight
+//     tile is 64 x BN of a 3-D map over (9, Cin, Cout). Both land in the
+//     128-byte swizzle that the wgmma descriptors read (x: K-major; the
+//     weight: MN-major, 64-channel column chunks 8 KB apart). Each stage
+//     has a "full" mbarrier that the TMA completes with its byte count and
+//     an "empty" one that the two warpgroups release when the wgmma group
+//     that read the stage has retired.
+//   * The epilogue pairs neighbouring lanes by shuffle so that each thread
+//     stores 16 bytes of consecutive channels of y, and reduces the
+//     per-channel sums from the accumulator registers in a fixed order
+//     (lanes by shuffle, then the 8 warps through shared memory).
+// f32 runs true FMAs (64 pixels x 128 channels per block), and bf16 shapes
+// that 16-byte loads cannot take run WMMA (mma.sync) on tiles filled element
+// by element (64 pixels x BN).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -72,12 +107,13 @@ __device__ __forceinline__ void tap_rows(int (&rows)[KK][BM], int n, int m0,
 
 // The block's partial sums of y and y^2 over its pixels, per group, from
 // the per-channel block sums t1, t2 of channels [n0, n0 + bn); groups that
-// miss the block's channels get 0. One slot per block.
+// miss the block's channels get 0. One slot per block; called by the
+// block's first nthreads threads.
 __device__ __forceinline__ void write_group_partials(
     const float* t1, const float* t2, float2* part, size_t slot, int n0,
-    int bn, int Cout, int G) {
+    int bn, int Cout, int G, int nthreads) {
   const int cg = Cout / G;
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+  for (int g = threadIdx.x; g < G; g += nthreads) {
     const int lo = max(g * cg, n0);
     const int hi = min(min((g + 1) * cg, n0 + bn), Cout);
     float s1 = 0.f, s2 = 0.f;
@@ -118,19 +154,18 @@ __device__ __forceinline__ void mma_slice(
   }
 }
 
-// bf16 conv pass: 64 pixels x BN output channels per block, WM x WN warps.
+// bf16 conv pass for shapes that 16-byte loads cannot take: 64 pixels x BN
+// output channels per block, WM x WN warps, tiles filled element by element.
 template <int BN, int WM, int WN>
 __global__ void __launch_bounds__(THREADS)
 conv_gn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ weight,
                     float* __restrict__ ws, float2* __restrict__ part,
-                    int H, int W, int Cin, int Cout, int G, int tiles,
-                    bool vec) {
+                    int H, int W, int Cin, int Cout, int G, int tiles) {
   static_assert(WM * WN == THREADS / 32, "eight warps");
   constexpr int FM = BM / 16 / WM;        // 16-row fragments per warp
   constexpr int FN = BN / 16 / WN;        // 16-column fragments per warp
   constexpr int LDA = BK + 8, LDB = BN + 8;
-  constexpr int BV = BK * BN / 8 / THREADS;   // 16-byte W loads per thread
   __shared__ int rows[KK][BM];
   __shared__ __align__(128) __nv_bfloat16 As[BM * LDA];
   __shared__ __align__(128) __nv_bfloat16 Bs[BK * LDB];
@@ -155,63 +190,24 @@ conv_gn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int nsl = (Cin + BK - 1) / BK;
   const int iters = KK * nsl;
-  if (vec) {
-    // thread -> (pixel, 8 channels) of the x tile; BV 8-channel runs of W_k
-    const int pa = tid / (BK / 8), ca = (tid % (BK / 8)) * 8;
-    uint4 qa, qb[BV];
-    auto fetch = [&](int it) {
-      const int k = it / nsl, c0 = (it % nsl) * BK;
-      const int idx = rows[k][pa];
-      const int ci = c0 + ca;
-      qa = (idx >= 0 && ci < Cin)
-               ? __ldg(reinterpret_cast<const uint4*>(
-                     x + (size_t)idx * Cin + ci))
-               : make_uint4(0, 0, 0, 0);
-#pragma unroll
-      for (int t = 0; t < BV; ++t) {
-        const int e = tid + t * THREADS;
-        const int kr = e / (BN / 8), o = (e % (BN / 8)) * 8;
-        const int cw = c0 + kr, co = n0 + o;
-        qb[t] = (cw < Cin && co < Cout)
-                    ? __ldg(reinterpret_cast<const uint4*>(
-                          weight + ((size_t)k * Cin + cw) * Cout + co))
-                    : make_uint4(0, 0, 0, 0);
-      }
-    };
-    fetch(0);
-    for (int it = 0; it < iters; ++it) {
-      *reinterpret_cast<uint4*>(&As[pa * LDA + ca]) = qa;
-#pragma unroll
-      for (int t = 0; t < BV; ++t) {
-        const int e = tid + t * THREADS;
-        *reinterpret_cast<uint4*>(
-            &Bs[(e / (BN / 8)) * LDB + (e % (BN / 8)) * 8]) = qb[t];
-      }
-      __syncthreads();
-      if (it + 1 < iters) fetch(it + 1);   // in flight during the product
-      mma_slice<FM, FN, LDA, LDB>(acc, As, Bs, wm * FM * 16, wn * FN * 16);
-      __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    const int k = it / nsl, c0 = (it % nsl) * BK;
+    for (int e = tid; e < BM * BK; e += THREADS) {
+      const int p = e / BK, c = e % BK, ci = c0 + c;
+      const int idx = rows[k][p];
+      As[p * LDA + c] = (idx >= 0 && ci < Cin) ? x[(size_t)idx * Cin + ci]
+                                               : __float2bfloat16(0.f);
     }
-  } else {
-    for (int it = 0; it < iters; ++it) {
-      const int k = it / nsl, c0 = (it % nsl) * BK;
-      for (int e = tid; e < BM * BK; e += THREADS) {
-        const int p = e / BK, c = e % BK, ci = c0 + c;
-        const int idx = rows[k][p];
-        As[p * LDA + c] = (idx >= 0 && ci < Cin) ? x[(size_t)idx * Cin + ci]
-                                                 : __float2bfloat16(0.f);
-      }
-      for (int e = tid; e < BK * BN; e += THREADS) {
-        const int kr = e / BN, o = e % BN;
-        const int cw = c0 + kr, co = n0 + o;
-        Bs[kr * LDB + o] = (cw < Cin && co < Cout)
-                               ? weight[((size_t)k * Cin + cw) * Cout + co]
-                               : __float2bfloat16(0.f);
-      }
-      __syncthreads();
-      mma_slice<FM, FN, LDA, LDB>(acc, As, Bs, wm * FM * 16, wn * FN * 16);
-      __syncthreads();
+    for (int e = tid; e < BK * BN; e += THREADS) {
+      const int kr = e / BN, o = e % BN;
+      const int cw = c0 + kr, co = n0 + o;
+      Bs[kr * LDB + o] = (cw < Cin && co < Cout)
+                             ? weight[((size_t)k * Cin + cw) * Cout + co]
+                             : __float2bfloat16(0.f);
     }
+    __syncthreads();
+    mma_slice<FM, FN, LDA, LDB>(acc, As, Bs, wm * FM * 16, wn * FN * 16);
+    __syncthreads();
   }
 
   // epilogue: y (f32) to the workspace; per-channel sums of y and y^2
@@ -258,7 +254,330 @@ conv_gn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   __syncthreads();
   write_group_partials(tot[0], tot[1], part,
                        ((size_t)n * tiles + tile) * gridDim.y + blockIdx.y,
-                       n0, BN, Cout, G);
+                       n0, BN, Cout, G, THREADS);
+}
+
+// ---- the bf16 conv pass on wgmma, fed by TMA ------------------------------
+
+constexpr int TH = 8, TW = 16;           // the block's patch: 128 pixels
+constexpr int TK = 64;                   // input channels per slice: 128 bytes
+constexpr int STAGES = 4;
+constexpr int A_BYTES = TH * TW * TK * 2;               // 16 KB
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int WG_THREADS = CONSUMERS + 32;              // and the producer warp
+
+constexpr int wgmma_smem_bytes(int bn) {
+  // 1 KB to align the ring, the ring, the barriers, chs[2][8][bn], tot[2][bn]
+  return 1024 + STAGES * (A_BYTES + TK * bn * 2) + 2 * STAGES * 8 +
+         (2 * 8 + 2) * bn * 4;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Spin until the phase of the given parity has completed. A barrier that
+// never completes (a fault in the pipeline) traps instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t spins = 0; !done; ++spins) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (spins > (1u << 28)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// A wgmma shared-memory descriptor in the 128-byte swizzle: the start
+// address, the leading and the stride byte offsets, each in 16-byte units.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | static_cast<uint64_t>(1) << 62;
+}
+
+// D (64 x N, f32, registers) += A (64 x 16, K-major) B (16 x N, MN-major).
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103, "
+      " %104, %105, %106, %107, %108, %109, %110, %111, "
+      " %112, %113, %114, %115, %116, %117, %118, %119, "
+      " %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN> struct Wgmma;
+template <> struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    wgmma_n64(d, da, db);
+  }
+};
+template <> struct Wgmma<256> {
+  static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    wgmma_n256(d, da, db);
+  }
+};
+
+// One block: the 8 x 16 patch (h0.., w0..) of image n x output channels
+// [n0, n0 + BN). Warps 0-7 are the two consumer warpgroups, warp 8 the
+// producer.
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+conv_gn_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     float* __restrict__ ws, float2* __restrict__ part, int H,
+                     int W, int Cin, int Cout, int G, int tiles_w, int tiles) {
+  constexpr int B_BYTES = TK * BN * 2;
+  constexpr int STAGE = A_BYTES + B_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  float* chs = reinterpret_cast<float*>(bars + 2 * STAGES);   // [2][8][BN]
+  float* tot = chs + 2 * 8 * BN;                              // [2][BN]
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full = smem_u32(bars), empty = full + STAGES * 8;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;
+  const int n0 = blockIdx.y * BN;
+  const int nsl = (Cin + TK - 1) / TK;
+  const int iters = KK * nsl;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s * 8, 1);    // the producer's arrive with the bytes
+      mbar_init(empty + s * 8, 2);   // one arrive per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {
+    if (lane == 0) {
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(empty + s * 8, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s * 8, STAGE);
+        const int k = it / nsl, c0 = (it % nsl) * TK;
+        const uint32_t a = ring + s * STAGE, b = a + A_BYTES;
+        tma_load_4d(a, &xmap, full + s * 8, c0, w0 + k % 3 - 1,
+                    h0 + k / 3 - 1, n);
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          tma_load_3d(b + q * (TK * 128), &wmap, full + s * 8, n0 + q * 64,
+                      c0, k);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(full + s * 8, (it / STAGES) & 1);
+    const uint32_t a = ring + s * STAGE + wg * (64 * 128);
+    const uint32_t b = ring + s * STAGE + A_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < TK / 16; ++j)
+      // x: rows of 128 bytes, 8-row groups 1 KB apart, 32 bytes per k step;
+      // weight: 64-column chunks 8 KB apart, 8-row groups 1 KB apart, 16
+      // rows (2 KB) per k step
+      Wgmma<BN>::mma(d, wgmma_desc(a + j * 32, 16, 1024),
+                     wgmma_desc(b + j * 2048, TK * 128, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (it > 0) {
+      // the group before this one has retired: its stage is free
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (tid % 128 == 0) mbar_arrive(empty + ((it - 1) % STAGES) * 8);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+  // epilogue. Thread (warp, lane) holds, for each 8-column group j, the
+  // columns 8j + 2q, + 1 (q = lane % 4) of the pixels (th, r8) in d[4j],
+  // d[4j + 1] and (th, r8 + 8) in d[4j + 2], d[4j + 3], with th = the warp
+  // and r8 = lane / 4.
+  const int q = lane % 4, r8 = lane / 4;
+  const int h = h0 + warp, wa = w0 + r8, wb = wa + 8;
+  const bool oka = h < H && wa < W, okb = h < H && wb < W;
+  const bool odd = q & 1;
+  // an even lane stores its first pixel's four columns, an odd lane its
+  // second pixel's: 16 bytes each
+  float* row = ws + ((size_t)(n * H + h) * W + (odd ? wb : wa)) * Cout + n0 +
+               2 * (q & 2);
+  const bool store = odd ? okb : oka;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const float d0 = d[4 * j], d1 = d[4 * j + 1], d2 = d[4 * j + 2],
+                d3 = d[4 * j + 3];
+    float s1a = (oka ? d0 : 0.f) + (okb ? d2 : 0.f);
+    float s1b = (oka ? d1 : 0.f) + (okb ? d3 : 0.f);
+    float s2a = (oka ? d0 * d0 : 0.f) + (okb ? d2 * d2 : 0.f);
+    float s2b = (oka ? d1 * d1 : 0.f) + (okb ? d3 * d3 : 0.f);
+#pragma unroll
+    for (int m = 4; m < 32; m *= 2) {
+      s1a += __shfl_xor_sync(0xffffffffu, s1a, m);
+      s1b += __shfl_xor_sync(0xffffffffu, s1b, m);
+      s2a += __shfl_xor_sync(0xffffffffu, s2a, m);
+      s2b += __shfl_xor_sync(0xffffffffu, s2b, m);
+    }
+    if (r8 == 0) {
+      const int c = 8 * j + 2 * q;
+      chs[warp * BN + c] = s1a;
+      chs[warp * BN + c + 1] = s1b;
+      chs[(8 + warp) * BN + c] = s2a;
+      chs[(8 + warp) * BN + c + 1] = s2b;
+    }
+    const float e0 = __shfl_xor_sync(0xffffffffu, odd ? d0 : d2, 1);
+    const float e1 = __shfl_xor_sync(0xffffffffu, odd ? d1 : d3, 1);
+    if (store && n0 + 8 * j < Cout)
+      *reinterpret_cast<float4*>(row + 8 * j) =
+          odd ? make_float4(e0, e1, d2, d3) : make_float4(d0, d1, e0, e1);
+  }
+  bar_consumers();
+  for (int c = tid; c < BN; c += CONSUMERS) {
+    float t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      t1 += chs[r * BN + c];
+      t2 += chs[(8 + r) * BN + c];
+    }
+    tot[c] = t1;
+    tot[BN + c] = t2;
+  }
+  bar_consumers();
+  write_group_partials(tot, tot + BN, part,
+                       ((size_t)n * tiles + tile) * gridDim.y + blockIdx.y,
+                       n0, BN, Cout, G, CONSUMERS);
 }
 
 // f32 conv pass: 64 pixels x 128 channels per block; each thread a 4 x 8
@@ -358,7 +677,7 @@ conv_gn_f32_kernel(const float* __restrict__ x,
   __syncthreads();
   write_group_partials(tot[0], tot[1], part,
                        ((size_t)n * tiles + tile) * gridDim.y + blockIdx.y,
-                       n0, BN, Cout, G);
+                       n0, BN, Cout, G, THREADS);
 }
 
 // mean and rstd of one (image, group) from its slots, in a fixed order.
@@ -453,6 +772,13 @@ gn_apply1_kernel(const float* __restrict__ ws,
                          beta[c]));
 }
 
+// Which conv pass a call takes: the wgmma pass for bf16 with Cin and Cout
+// multiples of 8 and 16-byte aligned bases (what TMA's maps need), else the
+// element-wise tiles.
+bool takes_wgmma(int Cin, int Cout, int is_bf16, int aligned) {
+  return is_bf16 && aligned && Cin % 8 == 0 && Cout % 8 == 0;
+}
+
 int block_n(int Cout, int is_bf16) {
   return is_bf16 ? (Cout <= 64 ? 64 : 256) : BN_F32;
 }
@@ -472,13 +798,84 @@ void launch_apply(const float* ws, const float2* stats, const float* gamma,
   }
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda; the runtime hands out its entry
+// point, so this library links against no libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 map in the 128-byte swizzle; dims, box innermost first, strides in
+// bytes from the second dimension on. Elements outside the tensor read as 0.
+bool bf16_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              const cuuint32_t* box) {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  EncodeTiled encode = encode_tiled();
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BN>
+cudaError_t launch_wgmma(const void* x, const void* weight, float* ws,
+                         float2* part, int N, int H, int W, int Cin, int Cout,
+                         int G, cudaStream_t s) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xd[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)N};
+  const cuuint64_t xs[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
+                            (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t xb[4] = {TK, TW, TH, 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)Cout, (cuuint64_t)Cin, KK};
+  const cuuint64_t wst[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)Cin * Cout * 2};
+  const cuuint32_t wb[3] = {64, TK, 1};
+  if (!bf16_map(&xmap, x, 4, xd, xs, xb) ||
+      !bf16_map(&wmap, weight, 3, wd, wst, wb))
+    return cudaErrorInvalidValue;
+  constexpr int smem = wgmma_smem_bytes(BN);
+  // above 48 KB a kernel has to be allowed its shared memory, once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      conv_gn_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (allowed != cudaSuccess) return allowed;
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const dim3 grid((unsigned)(N * tiles_w * tiles_h),
+                  (unsigned)((Cout + BN - 1) / BN));
+  conv_gn_wgmma_kernel<BN><<<grid, WG_THREADS, smem, s>>>(
+      xmap, wmap, ws, part, H, W, Cin, Cout, G, tiles_w, tiles_w * tiles_h);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Slots of the partials buffer per image: (pixel tiles) x (column blocks).
-// The caller allocates N * slots * G float2 for it.
-extern "C" int conv_gn_relu_slots(int H, int W, int Cout, int is_bf16) {
+// The caller allocates N * slots * G float2 for it. aligned: x's and the
+// weight's base addresses are multiples of 16.
+extern "C" int conv_gn_relu_slots(int H, int W, int Cin, int Cout,
+                                  int is_bf16, int aligned) {
   const int bn = block_n(Cout, is_bf16);
-  return ((H * W + BM - 1) / BM) * ((Cout + bn - 1) / bn);
+  const int tiles = takes_wgmma(Cin, Cout, is_bf16, aligned)
+                        ? ((H + TH - 1) / TH) * ((W + TW - 1) / TW)
+                        : (H * W + BM - 1) / BM;
+  return tiles * ((Cout + bn - 1) / bn);
 }
 
 // x (N,H,W,Cin), weight (9,Cin,Cout) in x's type (f32: is_bf16 = 0, bf16:
@@ -495,36 +892,42 @@ extern "C" int conv_gn_relu_forward(const void* x, const void* weight,
   const size_t HW = (size_t)H * W;
   if (N == 0 || HW == 0 || Cout == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const int tiles = (int)((HW + BM - 1) / BM);
-  const int bn = block_n(Cout, is_bf16);
-  const int nb = (Cout + bn - 1) / bn;
-  const dim3 grid((unsigned)(N * tiles), (unsigned)nb);
+  const int aligned = ((reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(weight)) % 16) == 0;
+  const bool wgmma = takes_wgmma(Cin, Cout, is_bf16, aligned);
+  const int slots = conv_gn_relu_slots(H, W, Cin, Cout, is_bf16, aligned);
   float* wsf = static_cast<float*>(ws);
   float2* pt = static_cast<float2*>(part);
-  if (is_bf16) {
+  cudaError_t err;
+  const int tiles = (int)((HW + BM - 1) / BM);
+  const int bn = block_n(Cout, is_bf16);
+  const dim3 grid((unsigned)(N * tiles), (unsigned)((Cout + bn - 1) / bn));
+  if (wgmma) {
+    err = bn == 64 ? launch_wgmma<64>(x, weight, wsf, pt, N, H, W, Cin, Cout,
+                                      G, s)
+                   : launch_wgmma<256>(x, weight, wsf, pt, N, H, W, Cin, Cout,
+                                       G, s);
+  } else if (is_bf16) {
     const auto* xb = static_cast<const __nv_bfloat16*>(x);
     const auto* wb = static_cast<const __nv_bfloat16*>(weight);
-    // 16-byte loads of 8 channels need 8 | Cin, 8 | Cout and aligned bases
-    const bool vec = Cin % 8 == 0 && Cout % 8 == 0 &&
-                     ((reinterpret_cast<uintptr_t>(x) |
-                       reinterpret_cast<uintptr_t>(weight)) % 16) == 0;
     if (bn == 64)
       conv_gn_bf16_kernel<64, 4, 2><<<grid, THREADS, 0, s>>>(
-          xb, wb, wsf, pt, H, W, Cin, Cout, G, tiles, vec);
+          xb, wb, wsf, pt, H, W, Cin, Cout, G, tiles);
     else
       conv_gn_bf16_kernel<256, 2, 4><<<grid, THREADS, 0, s>>>(
-          xb, wb, wsf, pt, H, W, Cin, Cout, G, tiles, vec);
+          xb, wb, wsf, pt, H, W, Cin, Cout, G, tiles);
+    err = cudaGetLastError();
   } else {
     conv_gn_f32_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(weight), wsf,
         pt, H, W, Cin, Cout, G, tiles);
+    err = cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const double cnt = (double)HW * (Cout / G);
   float2* st = static_cast<float2*>(stats);
   gn_stats_kernel<<<(unsigned)(N * G), THREADS, 0, s>>>(
-      pt, st, G, tiles * nb, (float)(1.0 / cnt), eps);
+      pt, st, G, slots, (float)(1.0 / cnt), eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)N * HW * Cout;

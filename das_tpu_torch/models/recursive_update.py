@@ -6,9 +6,10 @@ features with a DCNv2 conv and gates the joint-offset field
 (``NextLevelOffset``), then re-samples the field at head-proposed
 locations and fuses the 2*num_heads candidates with a per-dim online
 softmax over their sampled confidences. Features are NCHW; the offset
-fields are NHWC, as in the JAX functions. Every row fetch, the bilinear
-corners and the sparse ``take_at``, is the row gather ``gather_rows`` (K4),
-in the forward and, under training, in the backward.
+fields are NHWC, as in the JAX functions. Every row fetch is K4
+(``ops/gather.py``): each bilinear sample one launch (all candidates of a
+level in one sample), the sparse path's two ``take_at`` fields one grouped
+row gather, in the forward and, under training, in the backward.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from ..ops.gather import gather_rows
+from ..ops.gather import gather_rows_grouped
 from ..ops.interp import sample_bilinear_abs
 from .layers import ConvModule, conv2d
 
@@ -85,13 +86,13 @@ def _offset_sample(uvd: torch.Tensor, sampling_offset: torch.Tensor,
     samp_off = torch.cat([off_from_target, off_from_source], dim=3)
 
     feat = torch.cat([uvd_j, conf_j], dim=-1)               # (NJ,H,W,2D)
-    sampled = []
-    for c in range(2 * Hd):
-        off_c = samp_off[:, :, :, c, :]
-        sx = xs + off_c[..., 0].float() - 0.5
-        sy = ys + off_c[..., 1].float() - 0.5
-        sampled.append(sample_bilinear_abs(feat, sx, sy))
-    fused = _fuse_candidates(samp_off, torch.stack(sampled, dim=3), D)
+    # all 2*Hd candidates of every pixel in one sample, candidates innermost
+    sx = xs[..., None] + samp_off[..., 0].float() - 0.5     # (NJ,H,W,2Hd)
+    sy = ys[..., None] + samp_off[..., 1].float() - 0.5
+    sampled = sample_bilinear_abs(feat, sx.reshape(N * J, -1),
+                                  sy.reshape(N * J, -1)) \
+        .reshape(N * J, H, W, 2 * Hd, 2 * D)
+    fused = _fuse_candidates(samp_off, sampled, D)
     fused = fused.reshape(N, J, H, W, D).permute(0, 2, 3, 1, 4)
     return fused.reshape(N, H, W, J * D)
 
@@ -114,11 +115,10 @@ def _offset_sample_sparse(uvd: torch.Tensor, sampling_offset: torch.Tensor,
     xk = (idxj % W).float() + 0.5
     yk = torch.div(idxj, W, rounding_mode='floor').float() + 0.5
 
-    def take_at(field, c):                                  # (NJ, K, c)
-        return gather_rows(field.reshape(N * J, H * W, c).contiguous(), idxj)
-
-    uvd_sel = take_at(uvd_j, D)
-    samp_sel = take_at(samp_j, Hd * 2)
+    # both fields at the selected points, one launch: (NJ, K, D), (NJ, K, 2Hd)
+    uvd_sel, samp_sel = gather_rows_grouped(
+        [uvd_j.reshape(N * J, H * W, D).contiguous(),
+         samp_j.reshape(N * J, H * W, Hd * 2).contiguous()], [idxj, idxj])
 
     off_to_target = uvd_sel[..., :2]
     tx = xk + off_to_target[..., 0].float() - 0.5

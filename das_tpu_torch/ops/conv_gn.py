@@ -12,8 +12,10 @@ variance E[y^2] - E[y]^2, both in f32, then ``rsqrt(var + eps)``); the
 affine is in f32, then relu, then the result is rounded to ``x.dtype``.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
-(``das_tpu_torch/csrc/conv_gn.cu``) or raises. On a CPU tensor it runs the
-plain PyTorch version, ``conv_gn_relu_plain``.
+(``das_tpu_torch/csrc/conv_gn.cu``: a conv pass, on ``wgmma`` fed by TMA
+for bf16 with Cin and Cout multiples of 8, a statistics pass and an apply
+pass) or raises. On a CPU tensor it runs the plain PyTorch version,
+``conv_gn_relu_plain``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import (FLOAT, INT, PTR, CudaLibrary, check_launch,
-                         check_tensor)
+                         check_tensor, raw_stream)
 
 LIB = CudaLibrary('conv_gn.cu', {
-    'conv_gn_relu_slots': [INT] * 4,
+    'conv_gn_relu_slots': [INT] * 6,
     'conv_gn_relu_forward': [PTR] * 8 + [INT] * 6 + [FLOAT, INT, PTR]})
 
 # Kernel launches since the last reset; the main path's run reads it.
@@ -94,19 +96,26 @@ def conv_gn_relu(x: torch.Tensor, weight: torch.Tensor, gamma: torch.Tensor,
     check_tensor('beta', beta, (Cout,), torch.float32, dev)
     lib = LIB.load()
     is_bf16 = int(dt == torch.bfloat16)
-    slots = lib.conv_gn_relu_slots(H, W, Cout, is_bf16)
+    # the conv pass the call takes (wgmma fed by TMA, or element-wise tiles)
+    # follows the alignment of x and the weight, and sets the slot count
+    aligned = int((x.data_ptr() | w.data_ptr()) % 16 == 0)
+    slots = lib.conv_gn_relu_slots(H, W, Cin, Cout, is_bf16, aligned)
     out = torch.empty((N, H, W, Cout), dtype=dt, device=dev)
-    ws = torch.empty((N, H, W, Cout), dtype=torch.float32, device=dev)
-    part = torch.empty((N, slots, groups, 2), dtype=torch.float32,
-                       device=dev)
-    stats = torch.empty((N, groups, 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv_gn_relu_forward(
-            x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-            out.data_ptr(), ws.data_ptr(), part.data_ptr(),
-            stats.data_ptr(), N, H, W, Cin, Cout, groups, float(eps),
-            is_bf16, stream)
+    # the f32 scratch, one allocation: ws (N,H,W,Cout), part (N, slots,
+    # groups, 2), stats (N, groups, 2), each from a 16-byte boundary
+    sizes = [-(-n // 4) * 4 for n in (N * H * W * Cout,
+                                      N * slots * groups * 2,
+                                      N * groups * 2)]
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    ws, part, stats = scratch.split(sizes)
+    args = (x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), part.data_ptr(), stats.data_ptr(),
+            N, H, W, Cin, Cout, groups, float(eps), is_bf16)
+    if dev.index == torch.cuda.current_device():
+        err = lib.conv_gn_relu_forward(*args, raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.conv_gn_relu_forward(*args, raw_stream(dev))
     check_launch('conv_gn_relu', err)
     launches += 1
     return out

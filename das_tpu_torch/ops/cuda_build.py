@@ -131,6 +131,16 @@ def check_tensor(name: str, t: torch.Tensor, shape, dtype, device):
         raise ValueError(f'{name} must be contiguous')
 
 
+def raw_stream(device: torch.device) -> int:
+    """The handle of PyTorch's current stream on ``device``, for a ctypes
+    call. ``torch.cuda.current_stream`` builds a Stream object on every
+    call; the binding it wraps returns the handle alone."""
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if get is not None:
+        return get(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def check_launch(name: str, err: int):
     if err != 0:
         raise RuntimeError(f'{name} kernel launch failed: CUDA error {err}')

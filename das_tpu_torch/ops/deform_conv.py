@@ -20,6 +20,7 @@ are mask logits passed through a sigmoid; sampling pads with zeros.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -81,13 +82,26 @@ def modulated_deform_conv(x: torch.Tensor,
     out = torch.zeros((N, H, W, Cout), dtype=x.dtype, device=x.device) \
         if bias is None else \
         bias.to(x.dtype).expand(N, H, W, Cout)
+    # all K*K taps in one sample, taps outermost: (N, K*K, H, W) points
+    sy = ys[:, None] + _tap_shift(K, padding, 0, x.device)[:, None, None] \
+        + offset[..., 0::2].float().permute(0, 3, 1, 2)
+    sx = xs[:, None] + _tap_shift(K, padding, 1, x.device)[:, None, None] \
+        + offset[..., 1::2].float().permute(0, 3, 1, 2)
+    taps = sample_bilinear_abs(x, sx.reshape(N, -1), sy.reshape(N, -1)) \
+        .reshape(N, K * K, H, W, Cin)
     for k in range(K * K):
         kh, kw = divmod(k, K)
-        sy = ys + (kh - padding) + offset[..., 2 * k].float()
-        sx = xs + (kw - padding) + offset[..., 2 * k + 1].float()
-        tap = sample_bilinear_abs(x, sx, sy) * mask[..., k:k + 1]
+        tap = taps[:, k] * mask[..., k:k + 1]
         out = out + tap @ weight[kh, kw]
     return out
+
+
+@functools.lru_cache(maxsize=32)
+def _tap_shift(K: int, padding: int, axis: int, device) -> torch.Tensor:
+    """(K*K,) f32: each tap's row (``axis`` 0) or column (1) shift,
+    ``kh - padding`` or ``kw - padding``, taps row-major."""
+    return torch.tensor([float(divmod(k, K)[axis] - padding)
+                         for k in range(K * K)], device=device)
 
 
 def _deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
@@ -168,11 +182,16 @@ def _hybrid_repair(base, x, offset, mask, weight, bias, K, padding,
 
     exact = torch.zeros((N, M, Cout), dtype=x.dtype, device=x.device) \
         if bias is None else bias.to(x.dtype).expand(N, M, Cout)
+    # all K*K taps of the M pixels in one sample, taps outermost
+    sy = py[:, None] + _tap_shift(K, padding, 0, x.device)[:, None] \
+        + d[..., 0].permute(0, 2, 1)                         # (N, KK, M)
+    sx = px[:, None] + _tap_shift(K, padding, 1, x.device)[:, None] \
+        + d[..., 1].permute(0, 2, 1)
+    taps = sample_bilinear_abs(x, sx.reshape(N, -1), sy.reshape(N, -1)) \
+        .reshape(N, KK, M, Cin)
     for t in range(KK):
         kh, kw = divmod(t, K)
-        sy = py + (kh - padding) + d[..., t, 0]
-        sx = px + (kw - padding) + d[..., t, 1]
-        tap = sample_bilinear_abs(x, sx, sy) * m_sel[..., t:t + 1].to(x.dtype)
+        tap = taps[:, t] * m_sel[..., t:t + 1].to(x.dtype)
         exact = exact + tap @ weight[kh, kw]
 
     flat = base.reshape(N, HW, Cout).clone()

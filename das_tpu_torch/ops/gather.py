@@ -1,4 +1,5 @@
-"""Row gather kernel (CUDA, sm_90a), its adjoint, and their plain versions.
+"""Row gather kernel (CUDA, sm_90a), its adjoint, the fused bilinear
+sampler, and their plain versions.
 
 Counterpart of ``tools/analysis_tools/pallas_gather_probe.py::gather_pl``,
 the in-kernel row gather that the JAX package runs as
@@ -10,33 +11,44 @@ recursive update's ``take_at``. ``gather_rows(table, idx)`` computes
 for table (N, R, C) and idx (N, P) int32 or int64. Its gradient is the
 scatter-add of the output gradient into a zero table, accumulated in f32
 (f64 for an f64 table) and cast to the table's type, as XLA's adjoint of
-the gather.
+the gather. ``gather_rows_grouped`` does up to ``MAX_SEGMENTS`` such
+gathers that share N in one launch, and their adjoints in one launch:
+gathers of the same table add into one buffer, zeroed once and cast once.
+``sample_rows_bilinear`` is a whole zero-padded bilinear sample of the flat
+image in one launch, for callers that ask for no gradient.
 
-On a CUDA tensor the wrapper launches the hand-written kernels
+On a CUDA tensor a wrapper launches the hand-written kernels
 (``das_tpu_torch/csrc/gather_rows.cu``) or raises; on a CPU tensor it runs
-the plain versions. Both go through one ``torch.autograd.Function``, which
-takes its forward and backward as arguments. The kernels are built with
-``nvcc`` at first use into ``build/das_tpu_torch/`` (``ops/cuda_build.py``).
+the plain versions. The gathers go through ``torch.autograd.Function``s
+that take their forward and backward as arguments. The kernels are built
+with ``nvcc`` at first use into ``build/das_tpu_torch/``
+(``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import List, Optional, Sequence
+
 import torch
 
 from .cuda_build import INT, LONG, PTR, CudaLibrary, check_launch, \
-    check_tensor
+    raw_stream
 
 LIB = CudaLibrary('gather_rows.cu', {
-    'gather_rows_forward': [PTR, PTR, PTR, LONG, LONG, LONG, INT, INT, PTR],
-    'gather_rows_backward': [PTR, PTR, PTR, LONG, LONG, LONG, INT, INT, INT,
-                             PTR]})
+    'gather_rows_grouped': [PTR, INT, LONG, INT, PTR],
+    'sample_rows_bilinear': [PTR, PTR, PTR, PTR, LONG, INT, INT, LONG, INT,
+                             INT, PTR]})
 
-# Kernel launches since the last reset, forward and backward; the main
-# path's run reads them.
+# Kernel launches since the last reset: the gather, its adjoint and the
+# fused sampler; the main path's run reads them.
 launches = 0
 backward_launches = 0
+sampler_launches = 0
 
+MAX_SEGMENTS = 8
 _IDX_TYPES = (torch.int32, torch.int64)
+_TABLE_TYPES = (torch.float32, torch.bfloat16)
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor
@@ -52,71 +64,152 @@ def scatter_rows_plain(grad: torch.Tensor, idx: torch.Tensor, rows: int,
     """Plain version of the backward: ``index_add_`` of ``grad`` (N, P, C)
     into a zero (N, rows, C) buffer in f32 (f64 for f64), cast to
     ``dtype``."""
-    N, P, C = grad.shape
-    acc = torch.promote_types(dtype, torch.float32)
-    flat = idx.long().clamp(0, rows - 1) \
-        + torch.arange(N, device=grad.device)[:, None] * rows
-    buf = torch.zeros((N * rows, C), dtype=acc, device=grad.device)
-    buf.index_add_(0, flat.reshape(-1), grad.reshape(N * P, C).to(acc))
-    return buf.reshape(N, rows, C).to(dtype)
+    return scatter_grouped_plain([grad], [idx], [0], [rows], [dtype])[0]
 
 
-def _check_cuda(table: torch.Tensor, idx: torch.Tensor):
-    if table.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'the kernel takes f32 or bf16 tables '
-                        f'(got {table.dtype})')
+def gather_grouped_plain(tables: Sequence[torch.Tensor],
+                         idxs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Plain version of the grouped forward: one plain gather each."""
+    return [gather_rows_plain(t, i) for t, i in zip(tables, idxs)]
+
+
+def scatter_grouped_plain(grads: Sequence[Optional[torch.Tensor]],
+                          idxs: Sequence[torch.Tensor],
+                          which: Sequence[int], rows: Sequence[int],
+                          dtypes: Sequence[torch.dtype]
+                          ) -> List[Optional[torch.Tensor]]:
+    """Plain version of the grouped backward. Segment ``s`` has the output
+    gradient ``grads[s]`` (N, P_s, C) or None and the indices ``idxs[s]``,
+    and belongs to table ``which[s]``, which has ``rows[which[s]]`` rows
+    and the type ``dtypes[which[s]]``. Each table's segments are added with
+    ``index_add_`` into one zero f32 buffer (f64 for f64), cast once.
+    Returns one gradient per table, None where no segment has one."""
+    out: List[Optional[torch.Tensor]] = [None] * len(rows)
+    for u, (R, dtype) in enumerate(zip(rows, dtypes)):
+        buf = None
+        for g, idx, w in zip(grads, idxs, which):
+            if w != u or g is None:
+                continue
+            N, P, C = g.shape
+            acc = torch.promote_types(dtype, torch.float32)
+            if buf is None:
+                buf = torch.zeros((N * R, C), dtype=acc, device=g.device)
+            flat = idx.long().clamp(0, R - 1) \
+                + torch.arange(N, device=g.device)[:, None] * R
+            buf.index_add_(0, flat.reshape(-1), g.reshape(N * P, C).to(acc))
+        if buf is not None:
+            out[u] = buf.reshape(-1, R, buf.shape[-1]).to(dtype)
+    return out
+
+
+def _check_segment(what: str, t: torch.Tensor, idx: torch.Tensor, dev):
+    """Raise unless the kernel takes ``t`` (N, ., C) with ``idx`` (N, P):
+    f32 or bf16, int32 or int64 indices, both contiguous and on ``dev``."""
+    if t.dtype not in _TABLE_TYPES:
+        raise TypeError(f'the kernel takes f32 or bf16 {what}s '
+                        f'(got {t.dtype})')
     if idx.dtype not in _IDX_TYPES:
         raise TypeError(f'idx must be int32 or int64 (got {idx.dtype})')
-    if table.dim() != 3 or idx.dim() != 2 or idx.shape[0] != table.shape[0]:
-        raise ValueError(f'table must be (N,R,C) and idx (N,P), got '
-                         f'{tuple(table.shape)} and {tuple(idx.shape)}')
-    check_tensor('table', table, table.shape, table.dtype, table.device)
-    check_tensor('idx', idx, idx.shape, idx.dtype, table.device)
+    if t.dim() != 3 or idx.dim() != 2 or idx.shape[0] != t.shape[0]:
+        raise ValueError(f'{what} must be (N,.,C) and idx (N,P), got '
+                         f'{tuple(t.shape)} and {tuple(idx.shape)}')
+    if t.device != dev or idx.device != dev or dev.type != 'cuda':
+        raise ValueError(f'{what} on {t.device} and idx on {idx.device}, '
+                         f'expected {dev}, a CUDA device')
+    if not (t.is_contiguous() and idx.is_contiguous()):
+        raise ValueError(f'{what} and idx must be contiguous')
+
+
+def _launch_grouped(desc: List[int], n: int, N: int, backward: int, dev):
+    lib = LIB.load()
+    arr = (ctypes.c_longlong * len(desc))(*desc)
+    if dev.index == torch.cuda.current_device():
+        err = lib.gather_rows_grouped(arr, n, N, backward, raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.gather_rows_grouped(arr, n, N, backward,
+                                          raw_stream(dev))
+    check_launch('gather_rows_grouped', err)
+
+
+def gather_grouped_cuda(tables: Sequence[torch.Tensor],
+                        idxs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Launch the gather kernel once for all segments."""
+    global launches
+    if not 1 <= len(tables) <= MAX_SEGMENTS or len(idxs) != len(tables):
+        raise ValueError(f'1 to {MAX_SEGMENTS} segments, one idx each (got '
+                         f'{len(tables)} tables, {len(idxs)} idx)')
+    dev, N = tables[0].device, tables[0].shape[0]
+    outs, desc = [], []
+    for table, idx in zip(tables, idxs):
+        _check_segment('table', table, idx, dev)
+        if table.shape[0] != N:
+            raise ValueError('the segments of one launch share N')
+        _, R, C = table.shape
+        P = idx.shape[1]
+        out = table.new_empty((N, P, C))
+        outs.append(out)
+        desc += [table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, P,
+                 C * table.element_size(), int(idx.dtype == torch.int64)]
+    _launch_grouped(desc, len(tables), N, 0, dev)
+    launches += 1
+    return outs
+
+
+def scatter_grouped_cuda(grads: Sequence[Optional[torch.Tensor]],
+                         idxs: Sequence[torch.Tensor], which: Sequence[int],
+                         rows: Sequence[int], dtypes: Sequence[torch.dtype]
+                         ) -> List[Optional[torch.Tensor]]:
+    """Launch the adjoint kernel once for all segments (arguments as
+    ``scatter_grouped_plain``): every table's f32 buffer is a slice of one
+    allocation, zeroed in one call; each is cast to its table's type."""
+    global backward_launches
+    live = [s for s, g in enumerate(grads) if g is not None]
+    if not 1 <= len(live) <= MAX_SEGMENTS:
+        raise ValueError(f'1 to {MAX_SEGMENTS} segments with a gradient '
+                         f'(got {len(live)})')
+    dev, N = grads[live[0]].device, grads[live[0]].shape[0]
+    width = {}
+    for s in live:
+        _check_segment('gradient', grads[s], idxs[s], dev)
+        if grads[s].shape[:2] != idxs[s].shape:
+            raise ValueError(f'gradient {tuple(grads[s].shape)} does not '
+                             f'match idx {tuple(idxs[s].shape)}')
+        if grads[s].shape[0] != N or \
+                width.setdefault(which[s], grads[s].shape[2]) \
+                != grads[s].shape[2]:
+            raise ValueError('the segments of one launch share N, those of '
+                             'one table C')
+    sizes = [N * rows[u] * width[u] if u in width else 0
+             for u in range(len(rows))]
+    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
+    bufs, at = [], 0
+    for size in sizes:
+        bufs.append(flat[at:at + size])
+        at += size
+    desc = []
+    for s in live:
+        g, idx, u = grads[s], idxs[s], which[s]
+        desc += [g.data_ptr(), idx.data_ptr(), bufs[u].data_ptr(), rows[u],
+                 idx.shape[1], width[u], int(g.dtype == torch.bfloat16)
+                 | int(idx.dtype == torch.int64) << 1]
+    _launch_grouped(desc, len(live), N, 1, dev)
+    backward_launches += 1
+    return [bufs[u].reshape(N, rows[u], width[u]).to(dtypes[u])
+            if u in width else None for u in range(len(rows))]
 
 
 def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor
                      ) -> torch.Tensor:
-    """Launch the forward kernel."""
-    global launches
-    _check_cuda(table, idx)
-    N, R, C = table.shape
-    P = idx.shape[1]
-    out = torch.empty((N, P, C), dtype=table.dtype, device=table.device)
-    lib = LIB.load()
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.gather_rows_forward(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), N, R, P,
-            C * table.element_size(), int(idx.dtype == torch.int64), stream)
-    check_launch('gather_rows', err)
-    launches += 1
-    return out
+    """Launch the gather kernel for one segment."""
+    return gather_grouped_cuda([table], [idx])[0]
 
 
 def scatter_rows_cuda(grad: torch.Tensor, idx: torch.Tensor, rows: int,
                       dtype: torch.dtype) -> torch.Tensor:
-    """Launch the backward kernel into a zero f32 buffer; cast to
-    ``dtype``."""
-    global backward_launches
-    if grad.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f'the kernel takes f32 or bf16 gradients '
-                        f'(got {grad.dtype})')
-    if idx.dtype not in _IDX_TYPES:
-        raise TypeError(f'idx must be int32 or int64 (got {idx.dtype})')
-    N, P, C = grad.shape
-    check_tensor('grad', grad, (N, P, C), grad.dtype, grad.device)
-    check_tensor('idx', idx, (N, P), idx.dtype, grad.device)
-    buf = torch.zeros((N, rows, C), dtype=torch.float32, device=grad.device)
-    lib = LIB.load()
-    with torch.cuda.device(grad.device):
-        stream = torch.cuda.current_stream(grad.device).cuda_stream
-        err = lib.gather_rows_backward(
-            grad.data_ptr(), idx.data_ptr(), buf.data_ptr(), N, rows, P, C,
-            int(grad.dtype == torch.bfloat16),
-            int(idx.dtype == torch.int64), stream)
-    check_launch('gather_rows backward', err)
-    backward_launches += 1
-    return buf.to(dtype)
+    """Launch the adjoint kernel for one segment into a zero f32 buffer;
+    cast to ``dtype``."""
+    return scatter_grouped_cuda([grad], [idx], [0], [rows], [dtype])[0]
 
 
 class GatherRows(torch.autograd.Function):
@@ -139,6 +232,44 @@ class GatherRows(torch.autograd.Function):
         return g, None, None, None
 
 
+class GatherRowsGrouped(torch.autograd.Function):
+    """``forward(tables, idxs)`` over the distinct tables ``*uniq`` with
+    the gradient ``backward(grads, idxs, which, rows, dtypes)``; segment
+    ``s`` gathers ``uniq[which[s]]`` at ``idxs[s]``."""
+
+    @staticmethod
+    def forward(ctx, forward, backward, which, idxs, *uniq):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*idxs)
+        ctx.which, ctx.scatter = which, backward
+        ctx.rows = [t.shape[1] for t in uniq]
+        ctx.dtypes = [t.dtype for t in uniq]
+        return tuple(forward([uniq[w] for w in which], idxs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        live = [g.contiguous() if g is not None and
+                ctx.needs_input_grad[4 + w] else None
+                for g, w in zip(grads, ctx.which)]
+        if all(g is None for g in live):
+            return (None,) * (4 + len(ctx.rows))
+        out = ctx.scatter(live, list(ctx.saved_tensors), ctx.which, ctx.rows,
+                          ctx.dtypes)
+        return (None, None, None, None, *out)
+
+
+def _launchers(device: torch.device):
+    """(single forward, single backward, grouped forward, grouped backward)
+    for tensors on ``device``."""
+    if device.type == 'cpu':
+        return (gather_rows_plain, scatter_rows_plain, gather_grouped_plain,
+                scatter_grouped_plain)
+    if device.type == 'cuda':
+        return (gather_rows_cuda, scatter_rows_cuda, gather_grouped_cuda,
+                scatter_grouped_cuda)
+    raise ValueError(f'no row gather kernel for device {device}')
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``out[n, p] = table[n, clamp(idx[n, p], 0, R - 1)]``.
 
@@ -146,13 +277,134 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     run the plain versions; CUDA tensors launch the kernels, which take f32
     or bf16 contiguous tables. Differentiable in ``table``.
     """
-    if table.device.type == 'cpu':
-        fwd, bwd = gather_rows_plain, scatter_rows_plain
-    elif table.device.type == 'cuda':
-        fwd, bwd = gather_rows_cuda, scatter_rows_cuda
+    fwd, bwd, _, _ = _launchers(table.device)
+    if table.device.type == 'cuda':
         idx = idx.contiguous()
-    else:
-        raise ValueError(f'no row gather kernel for device {table.device}')
     if torch.is_grad_enabled() and table.requires_grad:
         return GatherRows.apply(table, idx, fwd, bwd)
     return fwd(table, idx)
+
+
+def gather_rows_grouped(tables: Sequence[torch.Tensor],
+                        idxs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """``[gather_rows(t, i) for t, i in zip(tables, idxs)]`` in one launch,
+    and under autograd one launch for all their gradients.
+
+    1 to ``MAX_SEGMENTS`` segments; the tables (N, R_s, C_s) share N and
+    the device, and may differ in R, C and type; idx (N, P_s). A table may
+    appear in several segments (the same tensor object): its gradient is
+    then the sum over them, accumulated in one f32 buffer.
+    """
+    _, _, fwd, bwd = _launchers(tables[0].device)
+    if tables[0].device.type == 'cuda':
+        idxs = [i.contiguous() for i in idxs]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        uniq: List[torch.Tensor] = []
+        which = []
+        for t in tables:
+            for u, seen in enumerate(uniq):
+                if seen is t:
+                    which.append(u)
+                    break
+            else:
+                which.append(len(uniq))
+                uniq.append(t)
+        return list(GatherRowsGrouped.apply(fwd, bwd, which, list(idxs),
+                                            *uniq))
+    return list(fwd(tables, idxs))
+
+
+def sample_rows_bilinear_plain(flat: torch.Tensor, x: torch.Tensor,
+                               y: torch.Tensor, H: int, W: int,
+                               gather=gather_rows) -> torch.Tensor:
+    """Plain version of the fused sampler, and the sampler of every path
+    that asks for a gradient: bilinear sample of the flat image ``flat``
+    (N, H*W, C) at absolute pixel coordinates ``x``, ``y`` (N, P) f32, zero
+    outside the image. The corner weights are computed in f32 and cast to
+    ``flat.dtype`` before they multiply; the four corners are fetched by
+    one ``gather`` (``gather_rows``: the row gather with 4 P indices) and
+    summed in ``flat.dtype`` in the order (x0,y0), (x1,y0), (x0,y1),
+    (x1,y1). Returns (N, P, C)."""
+    P = x.shape[1]
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    wx1 = x - x0
+    wy1 = y - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+
+    def corner(xi, yi, wgt):
+        inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
+        xi_c = xi.clamp(0, W - 1).long()
+        yi_c = yi.clamp(0, H - 1).long()
+        return yi_c * W + xi_c, (wgt * inb).to(flat.dtype)
+
+    corners = [corner(x0, y0, wx0 * wy0), corner(x1, y0, wx1 * wy0),
+               corner(x0, y1, wx0 * wy1), corner(x1, y1, wx1 * wy1)]
+    vals = gather(flat, torch.cat([c[0] for c in corners], dim=1))
+    v = [vals[:, k * P:(k + 1) * P] * corners[k][1][..., None]
+         for k in range(4)]
+    return v[0] + v[1] + v[2] + v[3]
+
+
+def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
+                              y: torch.Tensor, H: int, W: int
+                              ) -> torch.Tensor:
+    """Launch the fused sampler kernel."""
+    global sampler_launches
+    if flat.dtype not in _TABLE_TYPES:
+        raise TypeError(f'the kernel takes f32 or bf16 images '
+                        f'(got {flat.dtype})')
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f'x and y must be f32 (got {x.dtype}, {y.dtype})')
+    if flat.dim() != 3 or flat.shape[1] != H * W or x.dim() != 2 \
+            or x.shape != y.shape or x.shape[0] != flat.shape[0]:
+        raise ValueError(f'flat must be (N,{H}*{W},C) and x, y (N,P), got '
+                         f'{tuple(flat.shape)}, {tuple(x.shape)} and '
+                         f'{tuple(y.shape)}')
+    dev = flat.device
+    if x.device != dev or y.device != dev:
+        raise ValueError(f'x on {x.device} and y on {y.device}, expected '
+                         f'{dev}')
+    if not (flat.is_contiguous() and x.is_contiguous()
+            and y.is_contiguous()):
+        raise ValueError('flat, x and y must be contiguous')
+    if dev.type != 'cuda':
+        raise ValueError(f'the kernel runs on a CUDA device (got {dev})')
+    N, _, C = flat.shape
+    P = x.shape[1]
+    out = flat.new_empty((N, P, C))
+    lib = LIB.load()
+    args = (flat.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), N,
+            H, W, P, C, int(flat.dtype == torch.bfloat16))
+    if dev.index == torch.cuda.current_device():
+        err = lib.sample_rows_bilinear(*args, raw_stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = lib.sample_rows_bilinear(*args, raw_stream(dev))
+    check_launch('sample_rows_bilinear', err)
+    sampler_launches += 1
+    return out
+
+
+def sample_rows_bilinear(flat: torch.Tensor, x: torch.Tensor,
+                         y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Zero-padded bilinear sample of the flat image ``flat`` (N, H*W, C),
+    contiguous, at ``x``, ``y`` (N, P) f32 -> (N, P, C).
+
+    CUDA tensors with no gradient asked for launch the fused kernel, which
+    equals the plain composition bit for bit. Where autograd records (the
+    image or a coordinate requires a gradient), and on the CPU, the plain
+    composition runs around one row gather of all four corners, so the
+    gradients of the image, x and y come from autograd and the gather's
+    adjoint."""
+    wants_grad = torch.is_grad_enabled() and (
+        flat.requires_grad or x.requires_grad or y.requires_grad)
+    if flat.device.type == 'cuda' and not wants_grad:
+        return sample_rows_bilinear_cuda(flat, x.contiguous(),
+                                         y.contiguous(), H, W)
+    if flat.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no sampler kernel for device {flat.device}')
+    return sample_rows_bilinear_plain(flat, x, y, H, W)

@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from .gather import gather_rows
+from .gather import sample_rows_bilinear
 
 
 def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
@@ -33,39 +33,19 @@ def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
     type: in bf16 a coordinate >= 128 has no fractional part left. Corner
     weights are computed in f32 and cast to ``img.dtype`` before they
     multiply, and the four corners are summed in ``img.dtype`` in the order
-    (x0,y0), (x1,y0), (x0,y1), (x1,y1), as the JAX function does. Each
-    corner is one ``gather_rows`` (K4) of the flat (N, H*W, C) image, as the
-    JAX function's ``'clip'`` row gathers.
+    (x0,y0), (x1,y0), (x0,y1), (x1,y1), as the JAX function does. The whole
+    sample is one launch of K4 (``ops/gather.py``): the fused sampler on
+    the card where no gradient is asked for, else one row gather of all
+    four corners of the flat (N, H*W, C) image, as the JAX function's
+    ``'clip'`` row gathers, with the weights around it.
 
     Returns (N, *x.shape[1:], C).
     """
     N, H, W, C = img.shape
-    orig_shape = x.shape
-    x = x.reshape(N, -1).float()
-    y = y.reshape(N, -1).float()
-
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    x1 = x0 + 1.0
-    y1 = y0 + 1.0
-    wx1 = x - x0
-    wy1 = y - y0
-    wx0 = 1.0 - wx1
-    wy0 = 1.0 - wy1
-
     flat = img.reshape(N, H * W, C).contiguous()
-
-    def corner(xi, yi, wgt):
-        inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        xi_c = xi.clamp(0, W - 1).long()
-        yi_c = yi.clamp(0, H - 1).long()
-        vals = gather_rows(flat, yi_c * W + xi_c)             # (N, P, C)
-        w = (wgt * inb).to(img.dtype)
-        return vals * w[..., None]
-
-    out = (corner(x0, y0, wx0 * wy0) + corner(x1, y0, wx1 * wy0)
-           + corner(x0, y1, wx0 * wy1) + corner(x1, y1, wx1 * wy1))
-    return out.reshape(*orig_shape, C)
+    out = sample_rows_bilinear(flat, x.reshape(N, -1).float(),
+                               y.reshape(N, -1).float(), H, W)
+    return out.reshape(*x.shape, C)
 
 
 @functools.lru_cache(maxsize=64)

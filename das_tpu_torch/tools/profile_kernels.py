@@ -1,0 +1,169 @@
+"""Where the time of two of the port's kernels goes, on the card.
+
+    python -m das_tpu_torch.tools.profile_kernels [--what conv_gn wrapper]
+
+``conv_gn``: the fused conv+GN+relu (K2) at the four levels of a B=4
+640x1152 bf16 request, for Cout 256 and 64, under ``torch.profiler``: the
+device time of each of its launches (the conv, the statistics and the apply
+pass) apart, per call, one JSON line per shape.
+
+``wrapper``: what one call of the row gather's wrapper (K4) costs the host,
+piece by piece, with ``time.perf_counter`` over 1,000 calls of each (the
+least of 5 such batches): the
+checks, ``torch.empty``, the device guard, the stream handle, the ctypes
+array, the ctypes call (the launch), and the whole wrappers. One JSON line.
+It works on any version of ``ops/gather.py`` that has ``gather_rows_cuda``;
+pieces that a version lacks are left out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from ..ops import conv_gn, gather
+
+LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]
+
+
+def conv_gn_passes(calls: int = 10):
+    gen = torch.Generator().manual_seed(11)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for lvl, (h, w) in enumerate(LEVELS):
+        for cout in (256, 64):
+            x = torch.randn(4, h, w, 256, generator=gen).cuda().bfloat16()
+            wt = (torch.randn(3, 3, 256, cout, generator=gen) * 0.05) \
+                .cuda().bfloat16()
+            gamma = (torch.rand(cout, generator=gen) + 0.5).cuda()
+            beta = (torch.randn(cout, generator=gen) * 0.1).cuda()
+            for _ in range(3):
+                conv_gn.conv_gn_relu(x, wt, gamma, beta, groups=32)
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(calls):
+                    conv_gn.conv_gn_relu(x, wt, gamma, beta, groups=32)
+                torch.cuda.synchronize()
+            kernels = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CPU:
+                    continue
+                us = getattr(e, 'self_device_time_total',
+                             getattr(e, 'self_cuda_time_total', 0.0))
+                name = e.key.replace('void ', '').replace(
+                    '(anonymous namespace)::', '')[:48]
+                kernels[name] = kernels.get(name, 0.0) + us / 1e3 / calls
+            print(json.dumps(dict(
+                what='conv_gn', level=lvl, shape=f'4x{h}x{w}x256->{cout}',
+                ms_per_call=kernels, sum_ms=sum(kernels.values()))),
+                flush=True)
+
+
+def per_call_us(fn, calls: int = 1000, batches: int = 5) -> float:
+    """Host microseconds per call: the least of ``batches`` batches of
+    ``calls`` calls (the host is shared; a batch that was interrupted
+    reads high)."""
+    for _ in range(10):
+        fn()
+    best = float('inf')
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return best
+
+
+def wrapper_split():
+    """Host microseconds per call of each piece of K4's wrapper, at the RU
+    level-0 take_at shape (60 x 46080 x 8 bf16, 1000 points)."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn(60, 46080, 8, generator=gen).to(dev).bfloat16()
+    idx = torch.randint(0, 46080, (60, 1000), generator=gen).to(dev)
+    out = {}
+    if hasattr(gather, '_check_cuda'):
+        out['checks'] = per_call_us(lambda: gather._check_cuda(table, idx))
+    else:
+        out['checks'] = per_call_us(
+            lambda: gather._check_segment('table', table, idx, dev))
+    out['torch.empty'] = per_call_us(lambda: torch.empty(
+        (60, 1000, 8), dtype=table.dtype, device=dev))
+    out['table.new_empty'] = per_call_us(
+        lambda: table.new_empty((60, 1000, 8)))
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+    out['with torch.cuda.device'] = per_call_us(guard)
+    out['torch.cuda.current_device'] = per_call_us(torch.cuda.current_device)
+    out['current_stream().cuda_stream'] = per_call_us(
+        lambda: torch.cuda.current_stream(dev).cuda_stream)
+    get = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+    if get is not None:
+        out['_cuda_getCurrentRawStream'] = per_call_us(
+            lambda: get(dev.index))
+    out['data_ptr x3'] = per_call_us(
+        lambda: (table.data_ptr(), idx.data_ptr(), table.data_ptr()))
+    desc = [table.data_ptr(), idx.data_ptr(), table.data_ptr(), 46080, 1000,
+            16, 1]
+    out['ctypes array of 7'] = per_call_us(
+        lambda: (ctypes.c_longlong * 7)(*desc))
+    lib = gather.LIB.load()
+    o = torch.empty((60, 1000, 8), dtype=table.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if hasattr(lib, 'gather_rows_grouped'):
+        d = [table.data_ptr(), idx.data_ptr(), o.data_ptr(), 46080, 1000, 16,
+             1]
+        arr = (ctypes.c_longlong * 7)(*d)
+        out['ctypes call (launch)'] = per_call_us(
+            lambda: lib.gather_rows_grouped(arr, 1, 60, 0, stream))
+    else:
+        out['ctypes call (launch)'] = per_call_us(
+            lambda: lib.gather_rows_forward(
+                table.data_ptr(), idx.data_ptr(), o.data_ptr(), 60, 46080,
+                1000, 16, 1, stream))
+    out['gather_rows_cuda (whole wrapper)'] = per_call_us(
+        lambda: gather.gather_rows_cuda(table, idx))
+    out['gather_rows (dispatch + wrapper)'] = per_call_us(
+        lambda: gather.gather_rows(table, idx))
+    if hasattr(gather, 'gather_grouped_cuda'):
+        t3 = table[..., :3].contiguous()
+        out['gather_grouped_cuda, 2 segments'] = per_call_us(
+            lambda: gather.gather_grouped_cuda([t3, table], [idx, idx]))
+    if hasattr(gather, 'sample_rows_bilinear_cuda'):
+        x = torch.rand(60, 1000, generator=gen).to(dev) * 287
+        y = torch.rand(60, 1000, generator=gen).to(dev) * 159
+        out['sample_rows_bilinear_cuda (whole wrapper)'] = per_call_us(
+            lambda: gather.sample_rows_bilinear_cuda(table, x, y, 160, 288))
+    out['table[nidx, idx] (indexing call)'] = per_call_us(
+        lambda: table[torch.arange(60, device=dev)[:, None], idx])
+    print(json.dumps(dict(what='wrapper', unit='host us per call',
+                          shape='60x46080x8 bf16, P=1000 int64', **out)),
+          flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument('--what', nargs='+', default=['conv_gn', 'wrapper'],
+                    choices=['conv_gn', 'wrapper'])
+    args = ap.parse_args()
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    if 'conv_gn' in args.what:
+        conv_gn_passes()
+    if 'wrapper' in args.what:
+        wrapper_split()
+
+
+if __name__ == '__main__':
+    main()

@@ -8,7 +8,9 @@ Builds ``--config`` (default ``configs/das/exp_panoptic_tpu.py``; e.g.
 bf16 on the card (random weights from a seed, conv_offset zero as at
 init), serves B=4 640x1152
 requests and prints one JSON line: per-stage device times from CUDA events
-(backbone, neck, head, decode), the request time on the host clock, and,
+(backbone, neck, head, decode), the request times on the host clock with
+their median, least, greatest and standard deviation, K4's launches in one
+request (row gathers and fused samples), and,
 for one request under ``torch.profiler``, its host time, the sum of its
 kernels' device time in all and per stage (busy / host time is the
 device's busy share) and the kernels with the most device time. The
@@ -29,6 +31,7 @@ from torch.autograd import DeviceType
 
 from ..apis import init_model
 from ..core.decode import decode_batch
+from ..ops import gather
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'configs', 'das', 'exp_panoptic_tpu.py')
@@ -54,6 +57,12 @@ def stage_times(model, cfg, img, sf):
         ev[4].record()
     torch.cuda.synchronize()
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(STAGES)}
+
+
+def k4_launches() -> int:
+    """K4's launches so far: row gathers, their adjoints, fused samples."""
+    return gather.launches + gather.backward_launches \
+        + getattr(gather, 'sampler_launches', 0)
 
 
 def stage_busy_ms(trace_path, names):
@@ -92,11 +101,13 @@ def main():
     sf = torch.ones(4, 2, device='cuda')
     stage_times(model, cfg, img, sf)                      # warm-up
     stages, wall = [], []
+    before = k4_launches()
     for _ in range(args.requests):
         torch.cuda.synchronize()
         t = time.perf_counter()
         stages.append(stage_times(model, cfg, img, sf))
         wall.append((time.perf_counter() - t) * 1e3)
+    k4 = (k4_launches() - before) / max(1, args.requests)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -125,7 +136,12 @@ def main():
         device=torch.cuda.get_device_name(0),
         stages_ms={k: float(np.median([s[k] for s in stages]))
                    for k in stages[0]},
-        request_ms=wall, profiled_request_ms=profiled_ms,
+        request_ms=wall,
+        request_ms_median=float(np.median(wall)),
+        request_ms_min=float(np.min(wall)),
+        request_ms_max=float(np.max(wall)),
+        request_ms_std=float(np.std(wall)),
+        k4_launches_per_request=k4, profiled_request_ms=profiled_ms,
         profiled_device_busy_ms=busy,
         profiled_stage_busy_ms=stage_busy_ms(trace, STAGES),
         top_kernels=[dict(name=e.key[:90], ms=dev_us(e) / 1e3,

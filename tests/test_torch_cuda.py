@@ -106,10 +106,13 @@ def _convgn_inputs(n, h, w, cin, cout, dt, dev, seed=0):
 
 
 # tests/test_ops.py:474-475 as (n, h, w, cin, cout, groups), and element-path
-# shapes: Cin or Cout not a multiple of 8, a ragged last pixel tile
+# shapes: Cin or Cout not a multiple of 8, a ragged last pixel tile; then
+# shapes for the bf16 wgmma pass: ragged 8 x 16 patches, Cin across a
+# 64-channel slice, Cout across a 256-channel column block
 CONVGN_SHAPES = [(2, 8, 16, 8, 8, 4), (2, 10, 18, 32, 64, 8),
                  (2, 20, 36, 64, 64, 32), (1, 9, 7, 3, 6, 3),
-                 (2, 5, 11, 12, 130, 13)]
+                 (2, 5, 11, 12, 130, 13), (2, 13, 21, 72, 136, 17),
+                 (1, 7, 40, 128, 264, 33)]
 
 
 @pytest.mark.parametrize('shape', CONVGN_SHAPES)
@@ -131,16 +134,22 @@ def test_conv_gn_kernel_matches_plain(cuda, shape, dt):
         assert err <= 2e-5
     else:
         assert err <= 1e-2 * want.float().abs().max().item()
+    # per-block partial sums in fixed slots, no atomics: a run repeats
+    assert torch.equal(got, conv_gn.conv_gn_relu(*a, groups=groups))
 
 
 @pytest.mark.parametrize('cout', [256, 64])
-def test_conv_gn_kernel_matches_plain_bf16_serving_width(cuda, cout):
+@pytest.mark.parametrize('hw', [(160, 288), (80, 144), (40, 72), (20, 36)])
+def test_conv_gn_kernel_matches_plain_bf16_serving_width(cuda, cout, hw):
     """bf16 at the head's widths (256 -> 256 and 256 -> 64, 32 groups) on the
-    stride-16 level of a B=4 request: max error <= 1e-2 x max|ref|."""
-    a = _convgn_inputs(4, 80, 144, 256, cout, torch.bfloat16, cuda, seed=1)
-    got = conv_gn.conv_gn_relu(*a, groups=32).float()
+    four levels of a B=4 640x1152 request, where the conv pass runs wgmma
+    fed by TMA: max error <= 1e-2 x max|ref|, two runs equal bit for bit."""
+    a = _convgn_inputs(4, *hw, 256, cout, torch.bfloat16, cuda, seed=1)
+    got = conv_gn.conv_gn_relu(*a, groups=32)
+    assert torch.equal(got, conv_gn.conv_gn_relu(*a, groups=32))
     want = conv_gn.conv_gn_relu_plain(*a, groups=32).float()
-    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() \
+        <= 1e-2
 
 
 def test_conv_gn_kernel_refuses_what_it_does_not_take(cuda):
@@ -253,6 +262,109 @@ def test_gather_rows_kernel_refuses_what_it_does_not_take(cuda):
         gather.gather_rows(table, idx[:1])
 
 
+# (N, [(R, C, P)]): the RU's take_at at level 1 of a served request and of a
+# train step, and four segments of which the first and third are one table
+GROUPED_SHAPES = [(60, [(11520, 3, 1000), (11520, 8, 1000)]),
+                  (60, [(13440, 3, 512), (13440, 8, 512)]),
+                  (4, [(11520, 256, 2048), (2880, 6, 300), (11520, 256, 700),
+                       (720, 7, 5000)])]
+
+
+@pytest.mark.parametrize('shape', GROUPED_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_grouped_gather_kernel_matches_plain(cuda, shape, dt):
+    """One launch for all segments and one for all their gradients: the
+    forward equals the plain version bit for bit, each table's gradient
+    matches the plain one within 1e-5 x max|ref| in f32 and 2^-7 x max|ref|
+    in bf16 (f32 atomics in another order); a table gathered twice gets the
+    sum of both."""
+    N, segs = shape
+    g = torch.Generator().manual_seed(0)
+    tables, idxs, cts = [], [], []
+    for s, (R, C, P) in enumerate(segs):
+        if len(segs) == 4 and s == 2:
+            tables.append(tables[0])
+        else:
+            tables.append(torch.randn(N, R, C, generator=g).to(cuda, dt)
+                          .requires_grad_())
+        idxs.append(torch.randint(-R // 4, R + R // 4, (N, P), generator=g)
+                    .to(torch.int32 if s % 2 else torch.int64).to(cuda))
+        cts.append(torch.randn(N, P, C, generator=g).to(cuda, dt))
+    before = gather.launches, gather.backward_launches
+    got = gather.gather_rows_grouped(tables, idxs)
+    torch.autograd.backward(got, cts)
+    torch.cuda.synchronize()
+    assert (gather.launches, gather.backward_launches) == \
+        (before[0] + 1, before[1] + 1)
+    plain = [t.detach() for t in tables]
+    for o, w in zip(got, gather.gather_grouped_plain(plain, idxs)):
+        assert torch.equal(o, w)
+    uniq = [t for s, t in enumerate(tables) if not (len(segs) == 4 and s == 2)]
+    which = [next(u for u, t in enumerate(uniq) if t is tab)
+             for tab in tables]
+    want = gather.scatter_grouped_plain(cts, idxs, which,
+                                        [t.shape[1] for t in uniq],
+                                        [dt] * len(uniq))
+    tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    for t, w in zip(uniq, want):
+        assert t.grad.dtype == dt
+        assert (t.grad.float() - w.float()).abs().max() \
+            <= tol * w.float().abs().max()
+
+
+# (N, H, W, C, P): the RU's samples at level 1 of a served request and its
+# dense level 3, the uvd field alone, and the hybrid repair's nine taps
+SAMPLER_SHAPES = [(60, 80, 144, 8, 1000), (60, 80, 144, 6, 8000),
+                  (60, 20, 36, 6, 5760), (60, 80, 144, 3, 1000),
+                  (4, 80, 144, 256, 9 * 2048)]
+
+
+@pytest.mark.parametrize('shape', SAMPLER_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_fused_sampler_kernel_matches_plain_bit_for_bit(cuda, shape, dt):
+    """One launch per sample, equal bit for bit to the plain composition
+    (torch elementwise weights around the plain row gather), with points
+    outside the image and whole coordinates on and past its border; under
+    autograd the sampler takes the gather path and launches no sampler."""
+    N, H, W, C, P = shape
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(N, P, generator=g) * (W + 3) - 2
+    y = torch.rand(N, P, generator=g) * (H + 3) - 2
+    x[:, :36] = torch.tensor([-1.0, 0.0, W - 1.0, float(W), -0.5, W - 0.5]) \
+        .repeat_interleave(6)
+    y[:, :36] = torch.tensor([-1.0, 0.0, H - 1.0, float(H), -0.5, H - 0.5]) \
+        .repeat(6)
+    x, y = x.to(cuda), y.to(cuda)
+    flat = torch.randn(N, H * W, C, generator=g).to(cuda, dt)
+    before = gather.sampler_launches, gather.launches
+    got = gather.sample_rows_bilinear(flat, x, y, H, W)
+    torch.cuda.synchronize()
+    assert (gather.sampler_launches, gather.launches) == \
+        (before[0] + 1, before[1])
+    want = gather.sample_rows_bilinear_plain(flat, x, y, H, W,
+                                             gather=gather.gather_rows_plain)
+    assert torch.equal(got, want)
+    leaf = flat.clone().requires_grad_()
+    out = gather.sample_rows_bilinear(leaf, x, y, H, W)
+    assert (gather.sampler_launches, gather.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, want)
+
+
+def test_fused_sampler_kernel_refuses_what_it_does_not_take(cuda):
+    flat = torch.randn(2, 30, 4, device=cuda)
+    x = torch.rand(2, 9, device=cuda) * 4
+    y = torch.rand(2, 9, device=cuda) * 5
+    with pytest.raises(TypeError):
+        gather.sample_rows_bilinear(flat.half(), x, y, 6, 5)
+    with pytest.raises(ValueError):
+        gather.sample_rows_bilinear(flat.transpose(1, 2), x, y, 6, 5)
+    with pytest.raises(ValueError):
+        gather.sample_rows_bilinear(flat, x[:1], y, 6, 5)
+    with pytest.raises(ValueError):
+        gather.sample_rows_bilinear(flat, x, y, 6, 6)
+
+
 J = 4
 TRAIN_MODEL = dict(
     type='DAS',
@@ -357,9 +469,12 @@ def test_train_gradients_k4_vs_plain_on_the_card(cuda, monkeypatch):
     before = gather.launches, gather.backward_launches
     lk, gk = grads()
     assert gather.launches > before[0] and gather.backward_launches > before[1]
-    monkeypatch.setattr(gather, 'gather_rows_cuda', gather.gather_rows_plain)
-    monkeypatch.setattr(gather, 'scatter_rows_cuda',
-                        gather.scatter_rows_plain)
+    # every row gather on the card, the one-segment ones too, goes through
+    # the grouped launchers
+    monkeypatch.setattr(gather, 'gather_grouped_cuda',
+                        gather.gather_grouped_plain)
+    monkeypatch.setattr(gather, 'scatter_grouped_cuda',
+                        gather.scatter_grouped_plain)
     lp, gp = grads()
     _, gq = grads()
     assert lk == lp
