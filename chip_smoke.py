@@ -14,9 +14,13 @@ nonzero and prints no result:
 2. build: every kernel of the path from the repository's sources, one
    ``nvcc`` per source, all started together;
 3. each kernel against its plain PyTorch version on the card, and timed at
-   the serving shapes against its bound: ``dcn_shift`` (K1), ``conv_gn``
+   the serving shapes against its bound: ``dcn_shift`` (K1: its wgmma pass
+   at the four levels at r=1 and at level 1 at r=2, two runs equal bit for
+   bit, and timed beside the WMMA pass it took the place of), ``conv_gn``
    (K2, also against the unfused cuDNN conv + GroupNorm + relu),
-   ``oks_nms`` (K3), and K4: ``gather_rows`` (the row gather of every
+   ``oks_nms`` (K3: the keep mask bit for bit, with and without
+   ``max_keep``, also where M is no multiple of 64 or below 64), and K4:
+   ``gather_rows`` (the row gather of every
    bilinear sample that takes a gradient and of the RU ``take_at``, forward
    and backward, also against plain indexing and ``index_add_``), the
    grouped gather (several gathers, and all their gradients, in one launch
@@ -140,13 +144,48 @@ def convgn_bound_ms(N, H, W, Cin, Cout, elt_bytes, peak_flops):
     return bound_ms(flops, peak_flops, nbytes)
 
 
-def nms_bound_ms(B, M, J):
+def nms_joint_terms(kpts, areas, thr, sigmas, margin=0.01):
+    """The joint terms that these candidates' pairs need: a pair (i, j < i)
+    is summed joint by joint until even terms of 1 for every joint left
+    could not lift its mean above ``thr`` (the kernel's early exit, with its
+    margin on the sum), so a pair of far poses needs a few joints and a
+    pair that suppresses needs all J."""
+    import torch
+    from das_tpu_torch.ops.oks_nms import EPS, _nms_var2
+    B, M, J, _ = kpts.shape
+    var2 = _nms_var2(sigmas, kpts.device)
+    left = torch.arange(J - 1, -1, -1, device=kpts.device,
+                        dtype=torch.float32)
+    need = thr * J - margin
+    terms = 0
+    for b in range(B):
+        for i0 in range(0, M, 256):
+            rows = kpts[b, i0:i0 + 256]
+            d2 = ((rows[:, None] - kpts[b][None]) ** 2).sum(-1)   # (r, M, J)
+            scale = (areas[b, i0:i0 + 256, None] + areas[b][None]) * 0.5 \
+                + EPS
+            cum = torch.exp(-d2 / var2 / scale[..., None]).cumsum(-1)
+            stops = cum + left < need                # joint k ends the pair
+            n = torch.where(stops.any(-1), stops.float().argmax(-1) + 1, J)
+            below = torch.arange(M, device=kpts.device)[None] < \
+                torch.arange(i0, i0 + rows.shape[0],
+                             device=kpts.device)[:, None]
+            terms += int((n * below).sum())
+    return terms
+
+
+def nms_bound_ms(B, M, J, joint_terms=None):
     """Least time for one OKS-NMS keep mask: the pairwise similarities, 9
-    f32 operations per joint (2 subtractions, 2 products, a sum, 2
+    f32 operations per joint term (2 subtractions, 2 products, a sum, 2
     divisions, an exp, an accumulation) and 5 per pair (scale, mean,
     compare) over M(M-1)/2 pairs per image, on the CUDA cores; or the bytes
-    (kpts, areas, valid read once, keep written once), the larger."""
-    flops = B * M * (M - 1) / 2.0 * (9.0 * J + 5.0)
+    (kpts, areas, valid read once, keep written once), the larger.
+    ``joint_terms``: the terms this run's data needs (``nms_joint_terms``);
+    without it, J for every pair."""
+    pairs = B * M * (M - 1) / 2.0
+    if joint_terms is None:
+        joint_terms = pairs * J
+    flops = 9.0 * joint_terms + 5.0 * pairs
     nbytes = B * M * (J * 2 * 4 + 4 + 1 + 1)
     return bound_ms(flops, PEAK_F32_FLOPS, nbytes)
 
@@ -233,14 +272,48 @@ def dcn_vs_plain():
     phase('kernel', f'dcn_shift fp32 at the test_ops shapes, r=1,2: max abs '
           f'err {worst:.3g} (atol 1e-4) ok')
 
-    a = inputs(1, 160, 288, 256, 256, torch.bfloat16, spread=0.8,
-               wscale=0.05)
-    got = dcn_shift.deform_conv_shift(*a, radius=1).float()
-    want = dcn_shift.deform_conv_shift_plain(*a, radius=1).float()
-    rel = ((got - want).abs().max() / want.abs().max()).item()
-    check(rel <= 1e-2, rel)
-    phase('kernel', f'dcn_shift bf16 1x160x288x256 r=1: max err / max|ref| '
-          f'{rel:.3g} (<= 1e-2) ok')
+    def bf16_case(a, r, want_wgmma, what):
+        """Kernel vs plain within 1e-2 of max|ref|, two runs equal bit for
+        bit, and the pass the call took."""
+        before = dcn_shift.wgmma_launches
+        got = dcn_shift.deform_conv_shift(*a, radius=r)
+        again = dcn_shift.deform_conv_shift(*a, radius=r)
+        want = dcn_shift.deform_conv_shift_plain(*a, radius=r).float()
+        torch.cuda.synchronize()
+        check(dcn_shift.wgmma_launches - before == 2 * want_wgmma,
+              ('dcn_shift pass', what, r))
+        check(torch.equal(got, again), ('dcn_shift bf16 repeats', what, r))
+        err = (got.float() - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        check(rel <= 1e-2, ('dcn_shift bf16', what, r, rel))
+        return err, rel
+
+    # the WMMA pass (channels that the wgmma pass does not take), then the
+    # wgmma pass: ragged patches (H, W no multiples of 8, 16), Cin of one to
+    # four slices, Cout below, at and across a column block, both radii; one
+    # tap with offsets 0 and mask 1 (a plain 3x3 conv); far negative inputs,
+    # where a padded zero times a weight and a skipped corner must agree
+    worst = 0.0
+    for (n, h, w, cin, cout, r, takes) in [
+            (2, 9, 7, 8, 16, 1, 0), (2, 13, 21, 72, 136, 2, 0),
+            (1, 8, 16, 64, 64, 1, 1), (2, 13, 21, 128, 192, 1, 1),
+            (2, 13, 21, 128, 192, 2, 1), (3, 5, 40, 192, 320, 1, 1),
+            (2, 20, 36, 256, 128, 2, 1)]:
+        a = inputs(n, h, w, cin, cout, torch.bfloat16, spread=1.2 * r,
+                   wscale=0.05)
+        worst = max(worst, bf16_case(a, r, takes, (n, h, w, cin, cout))[1])
+    x, off, mask, wt, b = inputs(2, 13, 21, 128, 192, torch.bfloat16,
+                                 wscale=0.05)
+    worst = max(worst, bf16_case(
+        (x, torch.zeros_like(off), torch.ones_like(mask), wt, b), 1, 1,
+        'offsets 0, mask 1')[1])
+    worst = max(worst, bf16_case((-x.abs() - 100, off * 2, mask, wt, b), 1,
+                                 1, 'far negative x')[1])
+    phase('kernel', f'dcn_shift bf16 at small shapes (WMMA pass: Cin 8 and '
+          f'72; wgmma pass: ragged patches, Cin 64 to 256, Cout 64 to 320, '
+          f'r=1,2, offsets 0 with mask 1, far negative x): max err / '
+          f'max|ref| {worst:.3g} (<= 1e-2), two runs equal bit for bit, '
+          f'each call on the pass its shapes name ok')
 
     n, h, w = 2, 8, 6
     a = inputs(n, h, w, 3, 5, torch.float32, far=True)
@@ -252,30 +325,57 @@ def dcn_vs_plain():
     phase('kernel', f"hybrid_pallas (kernel + repair) vs exact 'patch', far "
           f'offsets, fp32: max abs err {err:.3g} (atol 1e-4) ok')
 
-    entry = None
+    def wmma_pass(a, r):
+        """The source's WMMA pass, which these shapes took before the wgmma
+        pass, on the same inputs (a raw call that names the pass)."""
+        x, off, mask, wt, b = a
+        out = torch.empty_like(x)
+        fn = dcn_shift.LIB.load().dcn_shift_forward_pass
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def run():
+            check(fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                     wt.data_ptr(), b.data_ptr(), out.data_ptr(), *x.shape,
+                     wt.shape[-1], r, 1, 1, stream) == 0, 'WMMA pass launch')
+            return out
+        return run
+
+    entry, total, total_wmma = None, 0.0, 0.0
     for lvl, (h, w) in enumerate(LEVELS):
-        a = inputs(4, h, w, 256, 256, torch.bfloat16, spread=0.8,
-                   wscale=0.05)
-        got = dcn_shift.deform_conv_shift(*a, radius=1).float()
-        want = dcn_shift.deform_conv_shift_plain(*a, radius=1).float()
-        err = (got - want).abs().max().item()
-        rel = err / want.abs().max().item()
-        check(rel <= 1e-2, (lvl, rel))
-        ms = cuda_ms(lambda: dcn_shift.deform_conv_shift(*a, radius=1), 20)
-        plain_ms = cuda_ms(
-            lambda: dcn_shift.deform_conv_shift_plain(*a, radius=1), 3)
-        bound, by = dcn_bound_ms(4, h, w, 256, 256, 2, PEAK_BF16_FLOPS)
-        phase('kernel', f'dcn_shift level {lvl} 4x{h}x{w}x256 bf16 r=1: '
-              f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound '
-              f'{bound:.4f} ms ({by}), max abs err {err:.4g}')
-        if lvl == 0:
-            entry = dict(
-                name='dcn_shift', route='cuda',
-                source='das_tpu_torch/csrc/dcn_shift.cu',
-                replaces='das_tpu/ops/pallas_dcn.py:111', launches=0,
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None,
-                shape=f'4x{h}x{w}x256 bf16 r=1')
+        for r in (1, 2) if lvl == 1 else (1,):
+            a = inputs(4, h, w, 256, 256, torch.bfloat16, spread=0.8 * r,
+                       wscale=0.05)
+            err, rel = bf16_case(a, r, 1, f'level {lvl}')
+            old = wmma_pass(a, r)
+            want = dcn_shift.deform_conv_shift_plain(*a, radius=r).float()
+            old_rel = ((old().float() - want).abs().max()
+                       / want.abs().max()).item()
+            check(old_rel <= 1e-2, ('dcn_shift WMMA pass', lvl, r, old_rel))
+            ms = cuda_ms(lambda: dcn_shift.deform_conv_shift(*a, radius=r),
+                         20)
+            wmma_ms = cuda_ms(old, 20)
+            plain_ms = cuda_ms(
+                lambda: dcn_shift.deform_conv_shift_plain(*a, radius=r), 3)
+            bound, by = dcn_bound_ms(4, h, w, 256, 256, 2, PEAK_BF16_FLOPS)
+            phase('kernel', f'dcn_shift level {lvl} 4x{h}x{w}x256 bf16 '
+                  f'r={r}: wgmma pass {ms:.4f} ms, WMMA pass {wmma_ms:.4f} '
+                  f'ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms '
+                  f'({by}); max err / max|ref| {rel:.3g} (<= 1e-2), two '
+                  f'runs equal bit for bit')
+            if r == 1:
+                total, total_wmma = total + 4 * ms, total_wmma + 4 * wmma_ms
+            if lvl == 0:
+                entry = dict(
+                    name='dcn_shift', route='cuda',
+                    source='das_tpu_torch/csrc/dcn_shift.cu',
+                    replaces='das_tpu/ops/pallas_dcn.py:111', launches=0,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    wmma_pass_ms=wmma_ms, shape=f'4x{h}x{w}x256 bf16 r=1')
+    # a request runs four DCN convs per level
+    phase('kernel', f'dcn_shift summed over the 16 launches of a request (4 '
+          f'per level, r=1): wgmma pass {total:.4f} ms, WMMA pass '
+          f'{total_wmma:.4f} ms')
     return entry
 
 
@@ -413,16 +513,23 @@ def nms_inputs(B, M, J, seed=0):
 def oks_nms_vs_plain():
     import torch
     from das_tpu_torch.ops import oks_nms
-    # the shapes of tests/test_pallas_nms.py, then one request's M
-    for B, M, J in [(1, 48, 15), (1, 16, 4), (4, 3720, 15)]:
+    # the shapes of tests/test_pallas_nms.py (both below one 64-row block),
+    # M no multiple of 64, one block exactly, then one request's M
+    for B, M, J in [(1, 48, 15), (1, 16, 4), (2, 777, 17), (3, 64, 15),
+                    (4, 3720, 15)]:
         a = nms_inputs(B, M, J)
         sig = oks_nms.default_sigmas(J)
         got = oks_nms.oks_nms_keep(*a, 0.9, sig)
         want = oks_nms.oks_nms_keep_plain(*a, 0.9, sig)
         check(torch.equal(got, want), ('oks_nms keep mask', B, M, J))
         check(0 < int(got.sum()) < B * M, ('oks_nms kept', B, M, J))
-    phase('kernel', 'oks_nms keep mask == plain, bit for bit, at the '
-          'test_pallas_nms shapes (M=48 J=15, M=16 J=4) and at B=4 M=3720 '
+        for k in (0, 1, 7, 100, M):
+            got = oks_nms.oks_nms_keep(*a, 0.9, sig, max_keep=k)
+            check(torch.equal(got, want & (want.cumsum(-1) <= k)),
+                  ('oks_nms keep mask with max_keep', B, M, J, k))
+    phase('kernel', 'oks_nms keep mask == plain, bit for bit, without and '
+          'with max_keep (0, 1, 7, 100, M), at the test_pallas_nms shapes '
+          '(M=48 J=15, M=16 J=4), at M=777 J=17, M=64 and at B=4 M=3720 '
           'J=15, near-duplicate candidates ok')
 
 
@@ -733,24 +840,6 @@ def sampler_vs_plain():
     return entry
 
 
-def pose_template(model, radius=12.0):
-    """Every candidate's joints on a circle of ``radius`` grid steps around
-    its point (the uvd prediction conv's bias), so that candidates at
-    neighbouring points overlap at OKS > 0.9 and the NMS suppresses some:
-    random head weights alone give poses of a few pixels, which never
-    overlap."""
-    import torch
-    head = model.bbox_head
-    J = head.num_joints
-    ang = torch.arange(J, dtype=torch.float32) * (2 * math.pi / J)
-    uvd = torch.stack([radius * torch.cos(ang), radius * torch.sin(ang),
-                       torch.zeros(J)], dim=-1).reshape(-1)
-    with torch.no_grad():
-        head.conv_cls.bias.zero_()          # let poses pass score_thr
-        bias = head.conv_poses[0].bias
-        bias.copy_(uvd.to(bias.device, bias.dtype))
-
-
 def same_up_to_ties(a, b, scores, cut):
     """Index lists ``a`` and ``b`` pick the same scores in the same order
     and, within each run of equal scores, the same indices; a run that
@@ -765,67 +854,100 @@ def same_up_to_ties(a, b, scores, cut):
 
 
 def nms_on_served_request(model, cfg, img, sf):
-    """K3 on the NMS candidates of one served request. Returns the oks_nms
-    entry of the kernel table."""
+    """K3 on the NMS candidates of one served request, and its place in the
+    decode: the keep mask against the plain version, ``oks_nms_sorted``
+    against ``oks_nms_fixed``, and ``decode_batch``'s own output against the
+    one built from ``oks_nms_fixed``'s indices. Returns the oks_nms entry
+    of the kernel table."""
     import torch
-    from das_tpu_torch.core.decode import decode_candidates
+    from das_tpu_torch.core.decode import decode_batch
     from das_tpu_torch.ops import oks_nms
+    from das_tpu_torch.tools.profile_kernels import (pose_template,
+                                                     served_candidates)
     head = cfg.model.bbox_head
     test_cfg = dict(cfg.model.test_cfg)
-    J, thr = int(head.num_joints), float(test_cfg['nms_thr'])
-    post = int(test_cfg['nms_post'])
-    sig = oks_nms.default_sigmas(J)
+    J = int(head.num_joints)
     pose_template(model)
+    r = served_candidates(model, cfg, img, sf)
+    kpts, areas, valid, c = r['kpts'], r['areas'], r['valid'], r['cand']
+    thr, sig, post = r['thr'], r['sigmas'], r['nms_post']
     with torch.inference_mode():
-        cls, pose, ctr, _ = model(img)
-        c = decode_candidates(cls, pose, ctr, tuple(head.strides), sf, J,
-                              test_cfg)
         B, M = c['nms_scores'].shape
         check(bool(c['valid'].any()), 'no valid candidate')
-        order = torch.sort(c['nms_scores'], dim=1, descending=True,
-                           stable=True).indices
-        nidx = torch.arange(B, device=order.device)[:, None]
-        kpts = c['xy'][nidx, order].contiguous()
-        areas = c['areas'][nidx, order].contiguous()
-        valid = c['valid'][nidx, order].contiguous()
         torch.cuda.synchronize()
-        oks_nms.launches = 0
+        before = oks_nms.launches
         keep = oks_nms.oks_nms_keep(kpts, areas, valid, thr, sig)
+        capped = oks_nms.oks_nms_keep(kpts, areas, valid, thr, sig,
+                                      max_keep=post)
         torch.cuda.synchronize()
-        launches = oks_nms.launches
+        check(oks_nms.launches == before + 2, 'oks_nms_keep launches')
         plain = oks_nms.oks_nms_keep_plain(kpts, areas, valid, thr, sig)
         check(torch.equal(keep, plain), 'served keep mask != plain')
-        gather, out_valid = oks_nms.oks_nms_fixed(
-            c['xy'], c['nms_scores'], c['areas'], c['valid'], thr, sig,
-            max_dets=post)
+        check(torch.equal(capped, plain & (plain.cumsum(-1) <= post)),
+              'served keep mask with max_keep != plain')
         kept = keep.sum(1).tolist()
-        check(all(0 < k < M for k in kept), ('kept per image', kept, M))
+        check(all(post < k < M for k in kept), ('kept per image', kept, M))
+        args = (c['xy'], c['nms_scores'], c['areas'], c['valid'], thr, sig)
+        before = oks_nms.launches
+        mine, mine_ok = oks_nms.oks_nms_sorted(*args, max_dets=post)
+        check(oks_nms.launches == before + 1, 'oks_nms_sorted launches')
+        fixed, fixed_ok = oks_nms.oks_nms_fixed(*args, max_dets=post)
+        scores = c['nms_scores'].cpu()
         for b in range(B):
-            mine = order[b][keep[b]][:post].cpu()
-            fixed = gather[b][out_valid[b]].cpu()
-            check(same_up_to_ties(mine, fixed, c['nms_scores'][b].cpu(),
-                                  post), ('oks_nms_keep != oks_nms_fixed',
+            check(same_up_to_ties(mine[b][mine_ok[b]].cpu(),
+                                  fixed[b][fixed_ok[b]].cpu(), scores[b],
+                                  post), ('oks_nms_sorted != oks_nms_fixed',
                                           b))
+        # the decode's own output on this request against the one that
+        # oks_nms_fixed's indices give: the same scores in the same order,
+        # and each pose that of a candidate of that score
+        before = oks_nms.launches
+        out = decode_batch(*r['heads'], tuple(head.strides), sf, J, test_cfg)
+        check(oks_nms.launches == before + 1, 'decode_batch K3 launches')
+        nidx = torch.arange(B, device=fixed.device)[:, None]
+        check(torch.equal(out['valid'], fixed_ok), 'decode valid')
+        check(torch.equal(out['scores'], torch.where(
+            fixed_ok, c['nms_scores'][nidx, fixed], 0.0)), 'decode scores')
+        same = (out['poses'] == c['poses'][nidx, fixed]).flatten(2).all(-1)
+        check(torch.equal(out['poses'], c['poses'][nidx, mine]),
+              'decode poses != those of oks_nms_sorted\'s indices')
+        for b, i in (~same).nonzero().tolist():
+            check(float(c['nms_scores'][b, mine[b, i]]) ==
+                  float(c['nms_scores'][b, fixed[b, i]]),
+                  ('decode pose differs beyond an equal-score swap', b, i))
+        terms = nms_joint_terms(kpts, areas, thr, sig)
         ms = cuda_ms(lambda: oks_nms.oks_nms_keep(kpts, areas, valid, thr,
                                                   sig), 20)
+        capped_ms = cuda_ms(lambda: oks_nms.oks_nms_keep(
+            kpts, areas, valid, thr, sig, max_keep=post), 20)
+        sorted_ms = cuda_ms(lambda: oks_nms.oks_nms_sorted(
+            *args, max_dets=post), 20)
         plain_ms = cuda_ms(lambda: oks_nms.oks_nms_keep_plain(
             kpts, areas, valid, thr, sig), 1)
         fixed_ms = cuda_ms(lambda: oks_nms.oks_nms_fixed(
-            c['xy'], c['nms_scores'], c['areas'], c['valid'], thr, sig,
-            max_dets=post), 3)
-    bound, by = nms_bound_ms(B, M, J)
+            *args, max_dets=post), 3)
+    bound, by = nms_bound_ms(B, M, J, terms)
+    full_bound, _ = nms_bound_ms(B, M, J)
+    pairs = B * M * (M - 1) // 2
     phase('nms', f'served fused-GN request, B={B} M={M} J={J}: '
           f'{int(valid.sum())} valid, kept per image {kept}; keep mask == '
-          f'plain; first {post} kept == oks_nms_fixed (up to equal-score '
-          f'swaps); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-          f'oks_nms_fixed {fixed_ms:.4f} ms, bound {bound:.4f} ms ({by}); '
-          f'{launches} launch')
+          f'plain, also with max_keep={post}; oks_nms_sorted == '
+          f'oks_nms_fixed and decode_batch == the decode built from '
+          f'oks_nms_fixed (up to equal-score swaps: {int((~same).sum())} '
+          f'poses swapped); kernel {ms:.4f} ms, with max_keep={post} '
+          f'{capped_ms:.4f} ms, oks_nms_sorted (sort, kernel, topk) '
+          f'{sorted_ms:.4f} ms, plain {plain_ms:.4f} ms, oks_nms_fixed '
+          f'{fixed_ms:.4f} ms; bound {bound:.4f} ms ({by}; {terms} joint '
+          f'terms of {pairs} pairs; {full_bound:.4f} ms were every pair '
+          f'summed over all {J} joints)')
     return dict(name='oks_nms', route='cuda',
                 source='das_tpu_torch/csrc/oks_nms.cu',
-                replaces='das_tpu/ops/pallas_nms.py:88', launches=launches,
+                replaces='das_tpu/ops/pallas_nms.py:88', launches=0,
                 max_abs_err=float((keep != plain).sum().item()), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                library_ms=None, oks_nms_fixed_ms=fixed_ms,
+                library_ms=None, max_keep_ms=capped_ms,
+                oks_nms_sorted_ms=sorted_ms, oks_nms_fixed_ms=fixed_ms,
+                all_joints_bound_ms=full_bound,
                 shape=f'B={B} M={M} J={J} served candidates')
 
 
@@ -1415,7 +1537,7 @@ def train_kernel_vs_plain():
 def main():
     import torch
     name, smi = environment()
-    from das_tpu_torch.ops import conv_gn, dcn_shift, gather
+    from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
     build()
     k1 = dcn_vs_plain()
     k2 = conv_gn_vs_plain()
@@ -1425,7 +1547,9 @@ def main():
     k4s = sampler_vs_plain()
 
     def expect(convs):
-        return {(dcn_shift, 'launches'): 16, (conv_gn, 'launches'): convs,
+        return {(dcn_shift, 'launches'): 16,
+                (dcn_shift, 'wgmma_launches'): 16,
+                (conv_gn, 'launches'): convs, (oks_nms, 'launches'): 1,
                 (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
                 (gather, 'sampler_launches'): K4_SAMPLES}
     model, _, n1, _, _ = main_path(SERVING_CFG, 2, expect(0))
@@ -1437,6 +1561,7 @@ def main():
     fwd, bwd, run = train_full_width()
     k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches']
     k2['launches'] = n2['conv_gn.launches']
+    k3['launches'] = n1['oks_nms.launches'] + n2['oks_nms.launches']
     k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + fwd
     k4b['launches'] = bwd
     k4s['launches'] = n1['gather.sampler_launches'] \

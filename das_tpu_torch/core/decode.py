@@ -5,6 +5,12 @@ reconstruction, test-scale unwarp, score filtering and greedy OKS-NMS, all
 with fixed shapes and on the device of the inputs. The JAX ``vmap`` over
 images is a batch dimension here; nothing syncs with the host.
 
+Hard NMS is ``ops.oks_nms.oks_nms_sorted``: a stable sort by score, one
+ordered scan over the sorted candidates (the OKS-NMS kernel on the card,
+its plain version on the CPU) and a top-k, which gives what the JAX
+decode's ``oks_nms_fixed`` gives in ``nms_post`` rounds. Soft NMS keeps
+``soft_oks_nms_fixed``.
+
 Conventions kept from the reference (das_head.py:653-796): the root xy
 for joint reconstruction is the grid point itself, depth is scaled by
 sqrt(sx*sy), xy are divided by the test scale factor, joint visibility is
@@ -18,7 +24,7 @@ from typing import Dict, Sequence
 
 import torch
 
-from ..ops.oks_nms import default_sigmas, oks_nms_fixed, soft_oks_nms_fixed
+from ..ops.oks_nms import default_sigmas, oks_nms_sorted, soft_oks_nms_fixed
 from .targets import make_points
 
 
@@ -115,7 +121,7 @@ def _decode(cls_scores, pose_preds, centernesses, points, scale_factors,
             c['xy'], nms_scores, c['areas'], c['valid'], nms_thr, nms_post,
             sig)
     elif nms_type == 'hard':
-        gather, out_valid = oks_nms_fixed(
+        gather, out_valid = oks_nms_sorted(
             c['xy'], nms_scores, c['areas'], c['valid'], nms_thr, sig,
             max_dets=nms_post)
     else:

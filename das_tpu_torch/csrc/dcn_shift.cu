@@ -11,42 +11,79 @@
 // the sum is cast to x's type and the bias is added in x's type.
 //
 // Only the 2x2 corners around the clamped point have a nonzero hat weight,
-// so the kernel reads those four. It rounds as the plain version does
-// (each hat weight, product and partial sum to x's type, in window order,
-// with no fused multiply-add), so the tap tile it feeds the product is the
-// plain version's bit for bit; only the order of the f32 sums differs.
+// so the kernels read those four, in window order, and round as the plain
+// version does: each hat weight, product and partial sum to x's type, with
+// no fused multiply-add. The f32 and the element-wise bf16 kernels add in
+// f32 and round, as PyTorch does; the wgmma pass adds in packed bf16
+// (add.rn.bf16x2), which rounds once where PyTorch rounds twice (to f32,
+// then to bf16), so an element of its tap tile can differ from the plain
+// version's by one bf16 step where the f32 sum is a tie. Otherwise only the
+// order of the f32 sums differs.
 //
 // What bounds it on an H100: the contraction. At the serving shapes
 // (Cin = Cout = 256) it is 2*9*256*256 = 1.18 MFLOP per output pixel against
 // about 1.1 KB of compulsory traffic (x, offsets, mask, output), some 1000
 // operations per byte, far above the card's ~295 bf16 tensor-core operations
 // per byte. So the kernel is bound by operations, and the tensor cores must
-// do the product.
+// do the product. Next to it stands the tap tile: ~20 CUDA-core operations
+// per element of a (pixels x 9 x Cin) tile, as long on the CUDA cores as the
+// product on the tensor cores unless it is packed two to an instruction and
+// overlapped with the product.
 //
-// Design: the TPU kernel kept a 4-row band of full width with all channels
-// in VMEM; that does not fit in 227 KB of shared memory. Here one block owns
-// a tile of 64 output pixels (flattened over N*H*W, so a ragged edge is one
-// bound) x all output channels of its column block, and loops over the 9
-// taps and over 32-channel slices of Cin:
-//   * per tap, 64 threads compute each pixel's four corner indices and hat
-//     weights (zero outside the image) and its mask into shared memory;
-//   * per slice, the block builds the 64 x 32 modulated tap tile in shared
-//     memory from global x and loads the matching 32-row slice of W_k. When
-//     Cin and Cout are multiples of 8 (the model's layers), each thread
-//     moves 8 channels with 16-byte loads, so a slice costs one round trip
-//     to memory; otherwise one element per load;
-//   * bf16: 8 warps multiply the tiles with WMMA (mma.sync, bf16 in, f32
-//     accumulate in registers), 64 x 256 output channels per block, so the
-//     tap tile is built once for every output channel of a 256-channel
-//     layer; f32: every thread does a 4 x 8 register tile of FMAs over
-//     64 x 128 outputs, so fp32 inputs keep full fp32 products.
-// The epilogue casts the f32 sum to x's type, then adds the bias in that
-// type, as the TPU kernel does. TMA, wgmma and a software pipeline are left
-// for a later version.
+// The bf16 pass on wgmma (64 | Cin, 64 | Cout, 16-byte aligned bases):
+//   * A block owns an 8 x 16 patch of output pixels of ONE image x BN output
+//     channels (256; 128 where a level has too few patches to fill the
+//     card). With the offset clamped, every corner of every tap of those
+//     pixels lies in rows -(r+1)..+(r+2) around the patch: PH x PW =
+//     (8+2r+3) x (16+2r+3) pixels (13 x 21 at r=1). The TPU kernel kept a
+//     4-row band of full width with all channels in VMEM; here one
+//     64-channel slice of the halo'd patch (35 KB at r=1) is staged in shared
+//     memory by ONE TMA box of a 4-D map over (N, H, W, Cin); what lies
+//     outside the image arrives as zeros, which is the zero padding. Global
+//     reads of x fall from 36x (four corners of nine taps, from L1/L2) to
+//     ~2.1x. Loop order: channel slice outside, tap inside; the next slice's
+//     patch is in flight while this one is used (two buffers).
+//   * Per (pixel, tap), once per block: the patch-local byte offset of the
+//     top-left corner, the four hat weights rounded to bf16 and the mask, 16
+//     bytes, 18 KB in all, reused by every channel slice.
+//   * The product: two consumer warpgroups of 64 pixels each issue
+//     m64nBNk16 wgmma with f32 accumulators in registers (128 a thread at
+//     BN = 256). B is W_k's 64 x BN slice, brought by TMA from a 3-D map
+//     over (9, Cin, Cout) into a ring (3 stages at r=1, 2 at r=2) in the
+//     128-byte swizzle, MN-major, 64-column chunks 8 KB apart, with a "full"
+//     and an "empty" mbarrier a stage.
+//   * The A operand, the 128 x 64 tap tile, is built by the consumer threads
+//     themselves, each warpgroup its own 64 rows, into shared memory in the
+//     128-byte swizzle the descriptor expects (16-byte chunk index XOR row
+//     mod 8), in one of two buffers: a thread reads 16 bytes (8 channels) of
+//     each of the four corners, eight threads a pixel (so a warp reads four
+//     whole 128-byte pixels and no two threads share a bank whatever the
+//     offsets), multiplies and adds in packed bf16 and stores 16 bytes; then
+//     fence.proxy.async, a warpgroup barrier, wgmma.fence and the four
+//     wgmma of the slice. wgmma is asynchronous: while tap t multiplies, the
+//     same threads build tap t+1; they wait only for tap t-1 to retire,
+//     which frees its A buffer and its W stage.
+//   * Two producer warps: one keeps the W ring full, one the patch buffers.
+//     A barrier that never completes traps instead of hanging.
+//   * Epilogue: the f32 sums go, rounded to bf16, through shared memory (the
+//     W ring is free by then) and leave as whole rows, 16 bytes a lane, with
+//     the bias added in bf16 on the way.
+// Shared memory at r=1, BN=256: W ring 3 x 32 KB, A 2 x 16 KB, patch
+// 2 x 34.1 KB, metadata 18 KB, barriers: 215.4 KB of 227. At r=2 the patch
+// is 15 x 23 (43.1 KB a buffer) and the ring has 2 stages: 201.3 KB.
+//
+// Other shapes: f32 runs true FMAs (64 pixels x 128 channels a block, a
+// 4 x 8 register tile a thread, tap tile built from global memory), and bf16
+// shapes that the wgmma pass does not take run WMMA (mma.sync) on 64 pixels
+// x 256 channels a block, tiles filled with 16-byte loads (8 | Cin, 8 | Cout)
+// or element by element.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "hopper.cuh"
 
 #include <stdint.h>
 
@@ -307,6 +344,284 @@ dcn_shift_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// ---- the bf16 pass on wgmma: W by TMA, x's patch by TMA, A built here ------
+
+constexpr int TH = 8, TW = 16;           // the block's patch: 128 pixels
+constexpr int TK = 64;                   // input channels per slice: 128 bytes
+constexpr int A_BYTES = TH * TW * TK * 2;               // 16 KB
+constexpr int META_BYTES = KK * TH * TW * 16;           // 18 KB
+constexpr int WG_THREADS = CONSUMERS + 64;   // two consumer warpgroups and
+                                             // two producer warps
+
+__host__ __device__ constexpr int patch_h(int r) { return TH + 2 * r + 3; }
+__host__ __device__ constexpr int patch_w(int r) { return TW + 2 * r + 3; }
+__host__ __device__ constexpr int patch_bytes(int r) {
+  return patch_h(r) * patch_w(r) * TK * 2;
+}
+__host__ __device__ constexpr int w_stages(int r) { return r == 1 ? 3 : 2; }
+constexpr int wgmma_smem_bytes(int r, int bn) {
+  // 1 KB to align, the W ring, two A tiles, two patch slices, the metadata,
+  // the barriers (full and empty per W stage and per patch buffer)
+  return 1024 + w_stages(r) * TK * bn * 2 + 2 * A_BYTES +
+         2 * patch_bytes(r) + META_BYTES + (2 * w_stages(r) + 4) * 8;
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+__device__ __forceinline__ uint32_t bf16_bits(float v) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Two channels of the modulated tap from the four corners' values: window
+// order, each product and partial sum rounded to bf16 (packed, never fused),
+// then times the mask. The sum starts from +0 as the plain version's does.
+__device__ __forceinline__ uint32_t tap2(uint32_t x00, uint32_t x01,
+                                         uint32_t x10, uint32_t x11,
+                                         __nv_bfloat162 w00,
+                                         __nv_bfloat162 w01,
+                                         __nv_bfloat162 w10,
+                                         __nv_bfloat162 w11,
+                                         __nv_bfloat162 m) {
+  __nv_bfloat162 v = __hadd2_rn(as_bf162(0u), __hmul2_rn(as_bf162(x00), w00));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x01), w01));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x10), w10));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x11), w11));
+  v = __hmul2_rn(v, m);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One block: the 8 x 16 patch (h0.., w0..) of image n x output channels
+// [n0, n0 + BN). Warps 0-7 are the two consumer warpgroups, which build the
+// tap tiles and multiply; warp 8 feeds the W ring, warp 9 the patch buffers.
+template <int R, int BN>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+dcn_shift_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const float* __restrict__ offset,
+                       const __nv_bfloat16* __restrict__ mask,
+                       const __nv_bfloat16* __restrict__ bias,
+                       __nv_bfloat16* __restrict__ out, int H, int W, int Cin,
+                       int Cout, int tiles_w, int tiles) {
+  constexpr int PW = patch_w(R);
+  constexpr int PATCH = patch_bytes(R);
+  constexpr int STAGES = w_stages(R);
+  constexpr int B_BYTES = TK * BN * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* a_tiles = smem + STAGES * B_BYTES;
+  uint8_t* patches = a_tiles + 2 * A_BYTES;
+  uint4* meta = reinterpret_cast<uint4*>(patches + 2 * PATCH);   // [KK][128]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(patches + 2 * PATCH +
+                                               META_BYTES);
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t wfull = smem_u32(bars), wempty = wfull + STAGES * 8;
+  const uint32_t pfull = wempty + STAGES * 8, pempty = pfull + 2 * 8;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;
+  const int n0 = blockIdx.y * BN;
+  const int nsl = Cin / TK;
+  const int iters = KK * nsl;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(wfull + s * 8, 1);    // the producer's arrive with the bytes
+      mbar_init(wempty + s * 8, 2);   // one arrive per consumer warpgroup
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(pfull + s * 8, 1);
+      mbar_init(pempty + s * 8, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {          // the W ring: slice outside, tap in
+    if (lane == 0) {
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % STAGES;
+        mbar_wait(wempty + s * 8, ((it / STAGES) & 1) ^ 1);
+        mbar_expect_tx(wfull + s * 8, B_BYTES);
+        const int sl = it / KK, k = it - sl * KK;
+#pragma unroll
+        for (int q = 0; q < BN / 64; ++q)
+          tma_load_3d(ring + s * B_BYTES + q * (TK * 128), &wmap,
+                      wfull + s * 8, n0 + q * 64, sl * TK, k);
+      }
+    }
+    return;
+  }
+  if (warp == CONSUMERS / 32 + 1) {      // x's halo'd patch, slice by slice
+    if (lane == 0) {
+      for (int sl = 0; sl < nsl; ++sl) {
+        const int s = sl % 2;
+        mbar_wait(pempty + s * 8, ((sl / 2) & 1) ^ 1);
+        mbar_expect_tx(pfull + s * 8, PATCH);
+        tma_load_4d(smem_u32(patches + s * PATCH), &xmap, pfull + s * 8,
+                    sl * TK, w0 - (R + 1), h0 - (R + 1), n);
+      }
+    }
+    return;
+  }
+
+  // per (tap, pixel): the top-left corner's byte offset in a patch slice,
+  // the four hat weights (bf16) and the mask (bf16, in both halves)
+#pragma unroll
+  for (int i = 0; i < (KK * TH * TW + CONSUMERS - 1) / CONSUMERS; ++i) {
+    const int e = tid + i * CONSUMERS;
+    if (e >= KK * TH * TW) break;
+    const int p = e / KK, k = e - p * KK;
+    const int ph = p / TW, pw = p % TW;
+    const int py = h0 + ph, px = w0 + pw;
+    uint4 md = make_uint4(0u, 0u, 0u, 0u);
+    if (py < H && px < W) {
+      const size_t gp = ((size_t)n * H + py) * W + px;
+      const float r = (float)R;
+      const float oy = offset[gp * (2 * KK) + 2 * k];
+      const float ox = offset[gp * (2 * KK) + 2 * k + 1];
+      // clamped displacement of the tap from the output pixel
+      const float dy = __fadd_rn(fminf(fmaxf(oy, -r), r), (float)(k / 3 - 1));
+      const float dx = __fadd_rn(fminf(fmaxf(ox, -r), r), (float)(k % 3 - 1));
+      const float fy = floorf(dy), fx = floorf(dx);
+      // hat weights as the plain version writes them: max(0, 1 - |i - d|)
+      float wy[2], wx[2];
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        wy[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fy + (float)a, dy)));
+        wx[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fx + (float)a, dx)));
+      }
+      const int ly = ph + (int)fy + R + 1, lx = pw + (int)fx + R + 1;
+      const uint32_t mk = (uint32_t)__bfloat16_as_ushort(mask[gp * KK + k]);
+      md.x = (uint32_t)((ly * PW + lx) * (TK * 2));
+      md.y = bf16_bits(__fmul_rn(wy[0], wx[0])) |
+             bf16_bits(__fmul_rn(wy[0], wx[1])) << 16;
+      md.z = bf16_bits(__fmul_rn(wy[1], wx[0])) |
+             bf16_bits(__fmul_rn(wy[1], wx[1])) << 16;
+      md.w = mk | mk << 16;
+    }
+    meta[k * (TH * TW) + p] = md;
+  }
+  bar_consumers();
+
+  const int wg = warp / 4, t = tid % 128;
+  const int chunk = t % 8;               // the thread's 16 bytes of a pixel
+  const int mrow = t / 8;                // its rows: mrow + 16 i, i < 4
+  float d[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[i] = 0.f;
+
+  for (int it = 0; it < iters; ++it) {
+    const int sl = it / KK, k = it - sl * KK;
+    if (k == 0) mbar_wait(pfull + (sl % 2) * 8, (sl / 2) & 1);
+    // build this warpgroup's 64 rows of the tap tile; its buffer is free:
+    // the wgmma that read it (two taps ago) has retired
+    const uint8_t* patch = patches + (sl % 2) * PATCH + chunk * 16;
+    uint8_t* atile = a_tiles + (it % 2) * A_BYTES + wg * (64 * 128);
+    const uint4* mt = meta + k * (TH * TW) + wg * 64;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = mrow + 16 * i;
+      const uint4 md = mt[m];
+      const uint8_t* c = patch + md.x;
+      const uint4 q00 = *reinterpret_cast<const uint4*>(c);
+      const uint4 q01 = *reinterpret_cast<const uint4*>(c + TK * 2);
+      const uint4 q10 = *reinterpret_cast<const uint4*>(c + PW * TK * 2);
+      const uint4 q11 = *reinterpret_cast<const uint4*>(c + (PW + 1) * TK * 2);
+      const __nv_bfloat162 w00 = as_bf162(__byte_perm(md.y, md.y, 0x1010));
+      const __nv_bfloat162 w01 = as_bf162(__byte_perm(md.y, md.y, 0x3232));
+      const __nv_bfloat162 w10 = as_bf162(__byte_perm(md.z, md.z, 0x1010));
+      const __nv_bfloat162 w11 = as_bf162(__byte_perm(md.z, md.z, 0x3232));
+      const __nv_bfloat162 mk = as_bf162(md.w);
+      uint4 o;
+      o.x = tap2(q00.x, q01.x, q10.x, q11.x, w00, w01, w10, w11, mk);
+      o.y = tap2(q00.y, q01.y, q10.y, q11.y, w00, w01, w10, w11, mk);
+      o.z = tap2(q00.z, q01.z, q10.z, q11.z, w00, w01, w10, w11, mk);
+      o.w = tap2(q00.w, q01.w, q10.w, q11.w, w00, w01, w10, w11, mk);
+      *reinterpret_cast<uint4*>(atile + m * 128 + ((chunk ^ (m & 7)) * 16)) =
+          o;
+    }
+    // the tile was written by ordinary stores and is read by wgmma
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    bar_warpgroup(wg);
+    if (k == KK - 1 && t == 0) mbar_arrive(pempty + (sl % 2) * 8);
+    const int s = it % STAGES;
+    mbar_wait(wfull + s * 8, (it / STAGES) & 1);
+    const uint32_t a = smem_u32(atile);
+    const uint32_t b = ring + s * B_BYTES;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < TK / 16; ++j)
+      // A: rows of 128 bytes, 8-row groups 1 KB apart, 32 bytes per k step;
+      // W: 64-column chunks 8 KB apart, 8-row groups 1 KB apart, 16 rows
+      // (2 KB) per k step
+      Wgmma<BN>::mma(d, wgmma_desc(a + j * 32, 16, 1024),
+                     wgmma_desc(b + j * 2048, TK * 128, 1024));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (it > 0) {
+      // the group before this one has retired: its W stage is free
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (t == 0) mbar_arrive(wempty + ((it - 1) % STAGES) * 8);
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+
+  // epilogue. Thread (warp, lane) holds, for each 8-column group j, the
+  // columns 8j + 2q, + 1 (q = lane % 4) of the pixels (th, r8) in d[4j],
+  // d[4j + 1] and (th, r8 + 8) in d[4j + 2], d[4j + 3], with th = the warp
+  // and r8 = lane / 4. The sums go, rounded to bf16, through shared memory
+  // (the W ring and the A tiles are free now; rows 16 bytes longer than
+  // BN channels, so that the eight pixels of a warp's store fall on
+  // different banks) and leave as whole rows: a warp reads one pixel's BN
+  // channels, adds the bias in bf16 and stores 16 bytes a lane.
+  constexpr int SROW = BN * 2 + 16;          // bytes per staged pixel
+  const int q = lane % 4, r8 = lane / 4;
+  bar_consumers();                           // both warpgroups' wgmma retired
+  {
+    uint8_t* pa = smem + (warp * TW + r8) * SROW + q * 4;
+    uint8_t* pb = pa + 8 * SROW;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(pa + j * 16) =
+          pack_bf16x2(d[4 * j], d[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(pb + j * 16) =
+          pack_bf16x2(d[4 * j + 2], d[4 * j + 3]);
+    }
+  }
+  bar_consumers();
+  constexpr int LANES = BN / 8;              // 16-byte pieces of a row
+  const int piece = tid % LANES;
+  const int col = n0 + piece * 8;
+  if (col < Cout) {
+    float bv[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      bv[c] = bias != nullptr ? __bfloat162float(bias[col + c]) : 0.f;
+    for (int p = tid / LANES; p < TH * TW; p += CONSUMERS / LANES) {
+      const int h = h0 + p / TW, w = w0 + p % TW;
+      if (h >= H || w >= W) continue;
+      uint4 v = *reinterpret_cast<const uint4*>(smem + p * SROW + piece * 16);
+      if (bias != nullptr) {
+        uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float lo = __uint_as_float(u[c] << 16);
+          const float hi = __uint_as_float(u[c] & 0xffff0000u);
+          u[c] = pack_bf16x2(__fadd_rn(lo, bv[2 * c]),
+                             __fadd_rn(hi, bv[2 * c + 1]));
+        }
+      }
+      *reinterpret_cast<uint4*>(out + ((size_t)(n * H + h) * W + w) * Cout +
+                                col) = v;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 dcn_shift_f32_kernel(const float* __restrict__ x,
                      const float* __restrict__ offset,
@@ -381,27 +696,104 @@ dcn_shift_f32_kernel(const float* __restrict__ x,
   }
 }
 
+// The wgmma pass takes bf16 with Cin and Cout multiples of 64 and 16-byte
+// aligned bases of x and the weight (what TMA's maps need).
+bool takes_wgmma(int Cin, int Cout, int is_bf16, int aligned) {
+  return is_bf16 && aligned && Cin > 0 && Cin % TK == 0 && Cout % 64 == 0;
+}
+
+// Output channels per block: 256, or 128 where that fills the card better
+// (a layer of at most 128 channels, or so few patches that blocks of 256
+// would leave more than half of the 132 SMs idle).
+int block_n(int patches, int Cout) {
+  return Cout <= 128 || patches <= 66 ? 128 : 256;
+}
+
+template <int R, int BN>
+cudaError_t launch_wgmma(const void* x, const void* offset, const void* mask,
+                         const void* weight, const void* bias, void* out,
+                         int N, int H, int W, int Cin, int Cout,
+                         cudaStream_t s) {
+  CUtensorMap xmap, wmap;
+  const cuuint64_t xd[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                            (cuuint64_t)N};
+  const cuuint64_t xs[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
+                            (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t xb[4] = {TK, (cuuint32_t)patch_w(R),
+                            (cuuint32_t)patch_h(R), 1};
+  const cuuint64_t wd[3] = {(cuuint64_t)Cout, (cuuint64_t)Cin, KK};
+  const cuuint64_t wst[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)Cin * Cout * 2};
+  const cuuint32_t wb[3] = {64, TK, 1};
+  // the patch is read pixel by pixel, 128 bytes at a time: no swizzle; the
+  // weight tile is wgmma's B operand: the 128-byte swizzle
+  if (!bf16_map(&xmap, x, 4, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !bf16_map(&wmap, weight, 3, wd, wst, wb, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  constexpr int smem = wgmma_smem_bytes(R, BN);
+  // above 48 KB a kernel has to be allowed its shared memory, once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      dcn_shift_wgmma_kernel<R, BN>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (allowed != cudaSuccess) return allowed;
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  const dim3 grid((unsigned)(N * tiles_w * tiles_h),
+                  (unsigned)((Cout + BN - 1) / BN));
+  dcn_shift_wgmma_kernel<R, BN><<<grid, WG_THREADS, smem, s>>>(
+      xmap, wmap, static_cast<const float*>(offset),
+      static_cast<const __nv_bfloat16*>(mask),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), H, W, Cin, Cout, tiles_w,
+      tiles_w * tiles_h);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// 1 if a call with these channels, type and alignment (x's and the weight's
+// base addresses multiples of 16) takes the wgmma pass, else 0.
+extern "C" int dcn_shift_takes_wgmma(int Cin, int Cout, int is_bf16,
+                                     int aligned) {
+  return takes_wgmma(Cin, Cout, is_bf16, aligned);
+}
 
 // x (N,H,W,Cin), offset (N,H,W,18) f32, mask (N,H,W,9), weight (9,Cin,Cout),
 // bias (Cout,) or null, out (N,H,W,Cout); x, mask, weight, bias and out share
-// one type: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). All contiguous.
-// Returns cudaGetLastError() after the launch.
-extern "C" int dcn_shift_forward(const void* x, const void* offset,
-                                 const void* mask, const void* weight,
-                                 const void* bias, void* out, int N, int H,
-                                 int W, int Cin, int Cout, int radius,
-                                 int is_bf16, void* stream) {
+// one type: f32 (is_bf16 = 0) or bf16 (is_bf16 = 1). All contiguous; radius
+// 1 or 2. wmma != 0 keeps a bf16 call off the wgmma pass, on the WMMA pass
+// that every bf16 shape took before (for timing the two side by side).
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue if a
+// tensor map could not be encoded.
+extern "C" int dcn_shift_forward_pass(const void* x, const void* offset,
+                                      const void* mask, const void* weight,
+                                      const void* bias, void* out, int N,
+                                      int H, int W, int Cin, int Cout,
+                                      int radius, int is_bf16, int wmma,
+                                      void* stream) {
   const long long P = (long long)N * H * W;
   if (P == 0 || Cout == 0) return 0;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const float r = (float)radius;
   const unsigned gm = (unsigned)((P + BM - 1) / BM);
+  const int aligned = ((reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(weight)) % 16) == 0;
+  if (!wmma && takes_wgmma(Cin, Cout, is_bf16, aligned)) {
+    const int patches = N * ((H + TH - 1) / TH) * ((W + TW - 1) / TW);
+    const bool wide = block_n(patches, Cout) == 256;
+    if (radius == 1)
+      return (int)(wide ? launch_wgmma<1, 256>(x, offset, mask, weight, bias,
+                                               out, N, H, W, Cin, Cout, s)
+                        : launch_wgmma<1, 128>(x, offset, mask, weight, bias,
+                                               out, N, H, W, Cin, Cout, s));
+    if (radius == 2)
+      return (int)(wide ? launch_wgmma<2, 256>(x, offset, mask, weight, bias,
+                                               out, N, H, W, Cin, Cout, s)
+                        : launch_wgmma<2, 128>(x, offset, mask, weight, bias,
+                                               out, N, H, W, Cin, Cout, s));
+    return (int)cudaErrorInvalidValue;
+  }
   if (is_bf16) {
     // 16-byte loads of 8 channels need 8 | Cin, 8 | Cout and aligned bases
-    const bool vec = Cin % 8 == 0 && Cout % 8 == 0 &&
-                     ((reinterpret_cast<uintptr_t>(x) |
-                       reinterpret_cast<uintptr_t>(weight)) % 16) == 0;
+    const bool vec = Cin % 8 == 0 && Cout % 8 == 0 && aligned;
     const dim3 grid(gm, (unsigned)((Cout + BN_BF16 - 1) / BN_BF16));
     dcn_shift_bf16_kernel<<<grid, THREADS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(offset),
@@ -418,4 +810,14 @@ extern "C" int dcn_shift_forward(const void* x, const void* offset,
         Cin, Cout, r);
   }
   return (int)cudaGetLastError();
+}
+
+// The same, each call on the pass its shapes name.
+extern "C" int dcn_shift_forward(const void* x, const void* offset,
+                                 const void* mask, const void* weight,
+                                 const void* bias, void* out, int N, int H,
+                                 int W, int Cin, int Cout, int radius,
+                                 int is_bf16, void* stream) {
+  return dcn_shift_forward_pass(x, offset, mask, weight, bias, out, N, H, W,
+                                Cin, Cout, radius, is_bf16, 0, stream);
 }

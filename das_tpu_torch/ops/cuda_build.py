@@ -3,9 +3,9 @@ what their wrappers hand them.
 
 Each source under ``das_tpu_torch/csrc/`` exposes a plain C interface. It
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library at first use,
-once per source content, into ``build/das_tpu_torch/`` (listed in
-``.gitignore``). ``build_all`` starts one ``nvcc`` per source, all at once,
-and waits for them together.
+once per content of the source and of the headers beside it (``*.cuh``),
+into ``build/das_tpu_torch/`` (listed in ``.gitignore``). ``build_all``
+starts one ``nvcc`` per source, all at once, and waits for them together.
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def so_path(self) -> Path:
-        src = self.source.read_bytes()
+        src = self.source.read_bytes() + b''.join(
+            h.read_bytes() for h in sorted(CSRC.glob('*.cuh')))
         tag = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()) \
             .hexdigest()[:16]
         return BUILD_DIR / f'lib{self.source.stem}_{tag}.so'

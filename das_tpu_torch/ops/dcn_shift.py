@@ -13,6 +13,15 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 the plain PyTorch version, ``deform_conv_shift_plain``. The kernel is built
 with ``nvcc`` at first use into ``build/das_tpu_torch/`` and loaded with
 ``ctypes`` (``ops/cuda_build.py``).
+
+The source holds three passes. bf16 with Cin and Cout multiples of 64 and
+16-byte aligned x and weight (the model's layers) takes the ``wgmma`` pass:
+x's halo'd patch staged in shared memory by TMA, the tap tile built there,
+the product on ``wgmma`` with the weight fed by TMA. Other bf16 shapes take
+the WMMA pass, f32 true FMAs. Which pass a call takes is decided by its
+shapes alone; a pass that fails raises, none gives way to another.
+``launches`` counts every launch, ``wgmma_launches`` those of the ``wgmma``
+pass.
 """
 
 from __future__ import annotations
@@ -24,10 +33,14 @@ import torch
 from .cuda_build import INT, PTR, CudaLibrary, check_launch, check_tensor
 
 LIB = CudaLibrary('dcn_shift.cu', {
-    'dcn_shift_forward': [PTR] * 6 + [INT] * 7 + [PTR]})
+    'dcn_shift_takes_wgmma': [INT] * 4,
+    'dcn_shift_forward': [PTR] * 6 + [INT] * 7 + [PTR],
+    'dcn_shift_forward_pass': [PTR] * 6 + [INT] * 8 + [PTR]})
 
-# Kernel launches since the last reset; the main path's run reads it.
+# Kernel launches since the last reset, and those of them that took the
+# wgmma pass; the main path's run reads both.
 launches = 0
+wgmma_launches = 0
 
 
 def deform_conv_shift_plain(x: torch.Tensor, offset: torch.Tensor,
@@ -87,7 +100,7 @@ def deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
     and a contiguous x. As the TPU wrapper does, offset is read as f32 and
     mask, weight and bias in ``x.dtype``.
     """
-    global launches
+    global launches, wgmma_launches
     if x.device.type == 'cpu':
         return deform_conv_shift_plain(x, offset, mask, weight, bias,
                                        K, padding, radius)
@@ -117,12 +130,16 @@ def deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
         check_tensor('bias', bias, (Cout,), dt, dev)
     out = torch.empty((N, H, W, Cout), dtype=dt, device=dev)
     lib = LIB.load()
+    is_bf16 = int(dt == torch.bfloat16)
+    aligned = int((x.data_ptr() | w.data_ptr()) % 16 == 0)
+    wgmma = lib.dcn_shift_takes_wgmma(Cin, Cout, is_bf16, aligned)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dcn_shift_forward(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            N, H, W, Cin, Cout, radius, int(dt == torch.bfloat16), stream)
+            N, H, W, Cin, Cout, radius, is_bf16, stream)
     check_launch('dcn_shift', err)
     launches += 1
+    wgmma_launches += wgmma
     return out

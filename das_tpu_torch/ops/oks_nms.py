@@ -1,22 +1,36 @@
 """OKS (object-keypoint-similarity) NMS, port of ``das_tpu/ops/oks_nms.py``
 and of ``das_tpu/ops/pallas_nms.py``.
 
-Fixed-shape greedy NMS for the fused decode: each of ``max_dets`` rounds is
-one argmax over the live candidates and one OKS row against the pick, run
-for exactly ``max_dets`` rounds with no host sync (a round after every
-candidate is gone only writes -1, so the result is that of the JAX
-``while_loop``, which stops early). The functions take one image's
-candidates, or a batch of images along a leading dimension.
+``oks_nms_fixed`` and ``soft_oks_nms_fixed`` are the ports of the JAX
+functions: fixed-shape greedy NMS, each of ``max_dets`` rounds one argmax
+over the live candidates and one OKS row against the pick, run for exactly
+``max_dets`` rounds with no host sync (a round after every candidate is
+gone only writes -1, so the result is that of the JAX ``while_loop``, which
+stops early). The functions take one image's candidates, or a batch of
+images along a leading dimension.
 
 ``oks_nms_keep`` is the counterpart of the Pallas kernel
 ``oks_nms_pallas``: the keep mask of greedy hard OKS-NMS over candidates
 already sorted by score. On a CUDA tensor it launches the hand-written
 kernel (``das_tpu_torch/csrc/oks_nms.cu``) or raises; on a CPU tensor it
-runs the plain version, ``oks_nms_keep_plain``. The decode keeps
-``oks_nms_fixed``, as the JAX decode does.
+runs the plain version, ``oks_nms_keep_plain``.
+
+``oks_nms_sorted`` is what the decode calls for hard NMS. It has
+``oks_nms_fixed``'s contract and result: a stable sort by score, one
+``oks_nms_keep`` over the sorted candidates, and the first ``max_dets``
+kept mapped back through the sort order, with no host sync and no round
+per detection. Greedy NMS that takes the best live candidate each round
+and one ordered scan over score-sorted candidates keep the same set in the
+same order. One difference is kept on purpose: ``oks_row`` and the kernel
+form the similarity in another expression order, so a pair whose
+similarity lies within an ulp or two of the threshold can fall on the
+other side (the JAX package has the same difference between
+``oks_nms_fixed`` and ``oks_nms_pallas``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,10 +39,13 @@ from .cuda_build import (FLOAT, INT, PTR, CudaLibrary, check_launch,
                          check_tensor)
 
 LIB = CudaLibrary('oks_nms.cu', {
-    'oks_nms_scan_rows': [INT],
-    'oks_nms_keep_forward': [PTR] * 6 + [INT] * 3 + [FLOAT, FLOAT, PTR]})
+    'oks_nms_max_candidates': [],
+    'oks_nms_keep_forward': [PTR] * 6 + [INT] * 3 + [FLOAT, FLOAT, INT,
+                                                     PTR]})
 
-# Kernel launches since the last reset; a run on served candidates reads it.
+# Kernel launches since the last reset (one per ``oks_nms_keep`` call on a
+# CUDA tensor: its mask and scan kernels together); the main path's run
+# reads it.
 launches = 0
 EPS = float(np.spacing(1))
 
@@ -136,16 +153,23 @@ def soft_oks_nms_fixed(kpts: torch.Tensor, scores: torch.Tensor,
     return torch.where(out_valid, order, 0), out_valid
 
 
+_VAR2 = {}
+
+
 def _nms_var2(sigmas: np.ndarray, device) -> torch.Tensor:
     """2 * (2 sigma)^2 per joint, formed in double and stored in f32, as
-    the Pallas kernel's ``float(variances[k]) * 2.0`` constants."""
-    var2 = ((np.asarray(sigmas, np.float64) * 2.0) ** 2) * 2.0
-    return torch.tensor(var2, dtype=torch.float32, device=device)
+    the Pallas kernel's ``float(variances[k]) * 2.0`` constants. Kept per
+    (sigmas, device), so that a request copies nothing from the host."""
+    key = (tuple(float(v) for v in sigmas), str(device))
+    if key not in _VAR2:
+        var2 = ((np.asarray(sigmas, np.float64) * 2.0) ** 2) * 2.0
+        _VAR2[key] = torch.tensor(var2, dtype=torch.float32, device=device)
+    return _VAR2[key]
 
 
 def oks_nms_keep_plain(kpts: torch.Tensor, areas: torch.Tensor,
-                       valid: torch.Tensor, thr: float,
-                       sigmas: np.ndarray) -> torch.Tensor:
+                       valid: torch.Tensor, thr: float, sigmas: np.ndarray,
+                       max_keep: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of ``oks_nms_keep`` (the Pallas kernel's
     semantics and expression order).
 
@@ -154,11 +178,12 @@ def oks_nms_keep_plain(kpts: torch.Tensor, areas: torch.Tensor,
     the greedy scan in order: i is kept iff ``valid[i]`` and no kept j < i
     has sim(i, j) > thr. Every divisor is a tensor, so the division is a
     true division on the card too (a Python scalar divisor may become a
-    multiply by its reciprocal there). Shapes as ``oks_nms_keep``.
+    multiply by its reciprocal there). With ``max_keep`` only the first
+    ``max_keep`` kept stay kept. Shapes as ``oks_nms_keep``.
     """
     if kpts.dim() == 3:
         return oks_nms_keep_plain(kpts[None], areas[None], valid[None], thr,
-                                  sigmas)[0]
+                                  sigmas, max_keep)[0]
     B, M, J, _ = kpts.shape
     dev = kpts.device
     var2 = _nms_var2(sigmas, dev)
@@ -176,29 +201,35 @@ def oks_nms_keep_plain(kpts: torch.Tensor, areas: torch.Tensor,
     keep = torch.zeros((B, M), dtype=torch.bool, device=dev)
     for i in range(M):
         keep[:, i] = valid[:, i] & ~(supp[:, i] & keep).any(-1)
+    if max_keep is not None:
+        keep = keep & (keep.cumsum(-1) <= max_keep)
     return keep
 
 
 def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
-                 valid: torch.Tensor, thr: float,
-                 sigmas: np.ndarray) -> torch.Tensor:
+                 valid: torch.Tensor, thr: float, sigmas: np.ndarray,
+                 max_keep: Optional[int] = None) -> torch.Tensor:
     """Greedy hard OKS-NMS keep mask over score-sorted candidates.
 
     Args: kpts (M, J, 2) xy, sorted by score, descending; areas (M,); valid
     (M,) bool; or a batch of images along a leading dimension. Returns the
-    keep mask (M,) (or (B, M)) bool, in the input order.
+    keep mask (M,) (or (B, M)) bool, in the input order. With ``max_keep``
+    the scan stops deciding once that many are kept, and the rest are not
+    kept; the first ``max_keep`` kept are the same either way.
 
     CPU tensors run ``oks_nms_keep_plain``; CUDA tensors launch the kernel,
     which takes f32 kpts and areas, a bool valid and J <= 32.
     """
     global launches
+    if max_keep is not None and max_keep < 0:
+        raise ValueError(f'max_keep must be >= 0 (got {max_keep})')
     if kpts.device.type == 'cpu':
-        return oks_nms_keep_plain(kpts, areas, valid, thr, sigmas)
+        return oks_nms_keep_plain(kpts, areas, valid, thr, sigmas, max_keep)
     if kpts.device.type != 'cuda':
         raise ValueError(f'no OKS-NMS kernel for device {kpts.device}')
     if kpts.dim() == 3:
         return oks_nms_keep(kpts[None], areas[None], valid[None], thr,
-                            sigmas)[0]
+                            sigmas, max_keep)[0]
     if kpts.dim() != 4 or kpts.shape[-1] != 2:
         raise ValueError(f'kpts must be (B,M,J,2), got {tuple(kpts.shape)}')
     B, M, J, _ = kpts.shape
@@ -211,7 +242,7 @@ def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
         raise ValueError(f'the kernel takes 1..32 joints with one sigma '
                          f'each (got J={J}, {len(sigmas)} sigmas)')
     lib = LIB.load()
-    if M and lib.oks_nms_scan_rows(M) == 0:
+    if M > lib.oks_nms_max_candidates():
         raise ValueError(f'{M} candidates exceed the scan\'s shared memory')
     var2 = _nms_var2(sigmas, dev)
     nw = (M + 63) // 64
@@ -222,7 +253,43 @@ def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
         err = lib.oks_nms_keep_forward(
             kpts.data_ptr(), areas.data_ptr(), var2.data_ptr(),
             valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), B, M, J,
-            float(thr), EPS, stream)
+            float(thr), EPS, -1 if max_keep is None else int(max_keep),
+            stream)
     check_launch('oks_nms_keep', err)
     launches += 1
     return keep
+
+
+@_batched
+def oks_nms_sorted(kpts: torch.Tensor, scores: torch.Tensor,
+                   areas: torch.Tensor, valid: torch.Tensor, thr: float,
+                   sigmas: np.ndarray, max_dets: int = None):
+    """Greedy hard OKS-NMS by one scan over the score-sorted candidates.
+
+    Contract and result of ``oks_nms_fixed``: candidates need not be
+    sorted; ties go to the lowest index (the sort is stable); returns
+    ``(gather_idx, out_valid)`` of length ``max_dets`` in greedy order. The
+    scan is ``oks_nms_keep``: the kernel on a CUDA tensor, its plain
+    version on a CPU tensor. Nothing syncs with the host.
+    """
+    B, M = scores.shape
+    if max_dets is None:
+        max_dets = M
+    dev = kpts.device
+    # invalid candidates sort last, as oks_nms_fixed never picks them
+    s = torch.where(valid, scores.float(),
+                    torch.full_like(scores, -torch.inf, dtype=torch.float32))
+    order = torch.sort(s, dim=1, descending=True, stable=True).indices
+    bidx = torch.arange(B, device=dev)[:, None]
+    keep = oks_nms_keep(
+        kpts[bidx, order].float().contiguous(),
+        areas[bidx, order].float().contiguous(),
+        valid[bidx, order].contiguous(), thr, sigmas, max_keep=max_dets)
+    # the first max_dets kept positions, in order: the largest of M - pos
+    rank = torch.where(keep, M - torch.arange(M, device=dev), 0)
+    top = torch.topk(rank, min(max_dets, M), dim=1).values      # (B, <=max)
+    if max_dets > M:
+        top = torch.nn.functional.pad(top, (0, max_dets - M))
+    out_valid = top > 0
+    pos = torch.where(out_valid, M - top, 0)
+    return torch.where(out_valid, order.gather(1, pos), 0), out_valid

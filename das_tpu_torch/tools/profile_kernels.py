@@ -1,6 +1,16 @@
-"""Where the time of two of the port's kernels goes, on the card.
+"""Where the time of the port's kernels goes, on the card.
 
-    python -m das_tpu_torch.tools.profile_kernels [--what conv_gn wrapper]
+    python -m das_tpu_torch.tools.profile_kernels
+        [--what dcn oks_nms conv_gn wrapper]
+
+``dcn``: the DCNv2 shift kernel (K1) at the four levels of a B=4 640x1152
+bf16 request (Cin = Cout = 256, r=1) under ``torch.profiler``: the device
+time of its launch per call, one JSON line per level.
+
+``oks_nms``: the OKS-NMS keep mask (K3) on the candidates of one served
+``exp_panoptic_tpu_fused_gn`` request (B=4, M=3720, J=15), under
+``torch.profiler``: the mask kernel and the scan kernel apart, per call,
+with and without ``max_keep`` where the wrapper takes it. One JSON line.
 
 ``conv_gn``: the fused conv+GN+relu (K2) at the four levels of a B=4
 640x1152 bf16 request, for Cout 256 and 64, under ``torch.profiler``: the
@@ -20,22 +30,137 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
+import math
+import os
 import subprocess
 import time
 
 import torch
 from torch.autograd import DeviceType
 
-from ..ops import conv_gn, gather
+from ..ops import conv_gn, dcn_shift, gather, oks_nms
 
 LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]
+FUSED_CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), 'configs', 'das',
+    'exp_panoptic_tpu_fused_gn.py')
+
+
+def kernel_ms(fn, calls: int = 10, warmup: int = 3):
+    """{kernel name: device ms per call} of ``fn`` under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        us = getattr(e, 'self_device_time_total',
+                     getattr(e, 'self_cuda_time_total', 0.0))
+        name = e.key.replace('void ', '').replace(
+            '(anonymous namespace)::', '')[:48]
+        kernels[name] = kernels.get(name, 0.0) + us / 1e3 / calls
+    return kernels
+
+
+def dcn_levels():
+    """K1's launch at each level."""
+    gen = torch.Generator().manual_seed(7)
+    for lvl, (h, w) in enumerate(LEVELS):
+        x = torch.randn(4, h, w, 256, generator=gen).cuda().bfloat16()
+        off = ((torch.rand(4, h, w, 18, generator=gen) * 2 - 1) * 0.8).cuda()
+        mask = torch.sigmoid(torch.randn(4, h, w, 9, generator=gen)) \
+            .cuda().bfloat16()
+        wt = (torch.randn(3, 3, 256, 256, generator=gen) * 0.05) \
+            .cuda().bfloat16()
+        b = torch.randn(256, generator=gen).cuda().bfloat16()
+        ms = kernel_ms(lambda: dcn_shift.deform_conv_shift(
+            x, off, mask, wt, b, radius=1))
+        print(json.dumps(dict(
+            what='dcn', level=lvl, shape=f'4x{h}x{w}x256 bf16 r=1',
+            ms_per_call=ms, sum_ms=sum(ms.values()))), flush=True)
+
+
+def pose_template(model, radius=12.0):
+    """Every candidate's joints on a circle of ``radius`` grid steps around
+    its point (the uvd prediction conv's bias), so that candidates at
+    neighbouring points overlap at OKS > 0.9 and the NMS suppresses some:
+    random head weights alone give poses of a few pixels, which never
+    overlap."""
+    head = model.bbox_head
+    J = head.num_joints
+    ang = torch.arange(J, dtype=torch.float32) * (2 * math.pi / J)
+    uvd = torch.stack([radius * torch.cos(ang), radius * torch.sin(ang),
+                       torch.zeros(J)], dim=-1).reshape(-1)
+    with torch.no_grad():
+        head.conv_cls.bias.zero_()          # let poses pass score_thr
+        bias = head.conv_poses[0].bias
+        bias.copy_(uvd.to(bias.device, bias.dtype))
+
+
+def served_candidates(model, cfg, img, sf):
+    """One served request up to its NMS: the head's outputs (``heads``), the
+    candidate set the decode hands to its NMS (``cand``), the stable sort
+    order by score (``order``) and the sorted ``kpts``, ``areas`` and
+    ``valid`` that ``oks_nms_keep`` takes, with ``thr``, ``sigmas`` and
+    ``nms_post`` from the config."""
+    from ..core.decode import decode_candidates
+    head = cfg.model.bbox_head
+    test_cfg = dict(cfg.model.test_cfg)
+    J = int(head.num_joints)
+    with torch.inference_mode():
+        cls, pose, ctr, _ = model(img)
+        c = decode_candidates(cls, pose, ctr, tuple(head.strides), sf, J,
+                              test_cfg)
+        order = torch.sort(c['nms_scores'], dim=1, descending=True,
+                           stable=True).indices
+        nidx = torch.arange(order.shape[0], device=order.device)[:, None]
+        return dict(
+            heads=(cls, pose, ctr), cand=c, order=order,
+            kpts=c['xy'][nidx, order].contiguous(),
+            areas=c['areas'][nidx, order].contiguous(),
+            valid=c['valid'][nidx, order].contiguous(),
+            thr=float(test_cfg['nms_thr']), sigmas=oks_nms.default_sigmas(J),
+            nms_post=int(test_cfg['nms_post']))
+
+
+def oks_nms_passes():
+    """K3's kernels apart on a served request's candidates."""
+    import numpy as np
+    from ..apis import init_model
+    model, cfg = init_model(FUSED_CFG, dtype=torch.bfloat16, device='cuda')
+    pose_template(model)
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.randn(4, 640, 1152, 3).astype(np.float32)) \
+        .cuda()
+    r = served_candidates(model, cfg, img, torch.ones(4, 2, device='cuda'))
+    del model
+    kpts, areas, valid = r['kpts'], r['areas'], r['valid']
+    thr, sig, post = r['thr'], r['sigmas'], r['nms_post']
+    B, M, J, _ = kpts.shape
+    out = dict(what='oks_nms', shape=f'B={B} M={M} J={J} served candidates',
+               valid=int(valid.sum()))
+    keep = oks_nms.oks_nms_keep(kpts, areas, valid, thr, sig)
+    out['kept_per_image'] = keep.sum(1).tolist()
+    out['ms_per_call'] = kernel_ms(
+        lambda: oks_nms.oks_nms_keep(kpts, areas, valid, thr, sig), 20)
+    if 'max_keep' in inspect.signature(oks_nms.oks_nms_keep).parameters:
+        out[f'ms_per_call_max_keep_{post}'] = kernel_ms(
+            lambda: oks_nms.oks_nms_keep(kpts, areas, valid, thr, sig,
+                                         max_keep=post), 20)
+    print(json.dumps(out), flush=True)
 
 
 def conv_gn_passes(calls: int = 10):
     gen = torch.Generator().manual_seed(11)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     for lvl, (h, w) in enumerate(LEVELS):
         for cout in (256, 64):
             x = torch.randn(4, h, w, 256, generator=gen).cuda().bfloat16()
@@ -43,22 +168,8 @@ def conv_gn_passes(calls: int = 10):
                 .cuda().bfloat16()
             gamma = (torch.rand(cout, generator=gen) + 0.5).cuda()
             beta = (torch.randn(cout, generator=gen) * 0.1).cuda()
-            for _ in range(3):
-                conv_gn.conv_gn_relu(x, wt, gamma, beta, groups=32)
-            torch.cuda.synchronize()
-            with torch.profiler.profile(activities=acts) as prof:
-                for _ in range(calls):
-                    conv_gn.conv_gn_relu(x, wt, gamma, beta, groups=32)
-                torch.cuda.synchronize()
-            kernels = {}
-            for e in prof.key_averages():
-                if e.device_type == DeviceType.CPU:
-                    continue
-                us = getattr(e, 'self_device_time_total',
-                             getattr(e, 'self_cuda_time_total', 0.0))
-                name = e.key.replace('void ', '').replace(
-                    '(anonymous namespace)::', '')[:48]
-                kernels[name] = kernels.get(name, 0.0) + us / 1e3 / calls
+            kernels = kernel_ms(lambda: conv_gn.conv_gn_relu(
+                x, wt, gamma, beta, groups=32), calls)
             print(json.dumps(dict(
                 what='conv_gn', level=lvl, shape=f'4x{h}x{w}x256->{cout}',
                 ms_per_call=kernels, sum_ms=sum(kernels.values()))),
@@ -153,12 +264,17 @@ def wrapper_split():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument('--what', nargs='+', default=['conv_gn', 'wrapper'],
-                    choices=['conv_gn', 'wrapper'])
+    ap.add_argument('--what', nargs='+',
+                    default=['dcn', 'oks_nms', 'conv_gn', 'wrapper'],
+                    choices=['dcn', 'oks_nms', 'conv_gn', 'wrapper'])
     args = ap.parse_args()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip(), flush=True)
+    if 'dcn' in args.what:
+        dcn_levels()
+    if 'oks_nms' in args.what:
+        oks_nms_passes()
     if 'conv_gn' in args.what:
         conv_gn_passes()
     if 'wrapper' in args.what:

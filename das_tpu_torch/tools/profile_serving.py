@@ -9,8 +9,10 @@ bf16 on the card (random weights from a seed, conv_offset zero as at
 init), serves B=4 640x1152
 requests and prints one JSON line: per-stage device times from CUDA events
 (backbone, neck, head, decode), the request times on the host clock with
-their median, least, greatest and standard deviation, K4's launches in one
-request (row gathers and fused samples), and,
+their median, least, greatest and standard deviation, the decode's span
+(the device-side time from the head's last kernel to the decode's last,
+waits for the host included), K4's launches in one request (row gathers and
+fused samples) and K3's (the decode's OKS-NMS kernel), and,
 for one request under ``torch.profiler``, its host time, the sum of its
 kernels' device time in all and per stage (busy / host time is the
 device's busy share) and the kernels with the most device time. The
@@ -31,7 +33,7 @@ from torch.autograd import DeviceType
 
 from ..apis import init_model
 from ..core.decode import decode_batch
-from ..ops import gather
+from ..ops import gather, oks_nms
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'configs', 'das', 'exp_panoptic_tpu.py')
@@ -101,13 +103,14 @@ def main():
     sf = torch.ones(4, 2, device='cuda')
     stage_times(model, cfg, img, sf)                      # warm-up
     stages, wall = [], []
-    before = k4_launches()
+    before, before_k3 = k4_launches(), oks_nms.launches
     for _ in range(args.requests):
         torch.cuda.synchronize()
         t = time.perf_counter()
         stages.append(stage_times(model, cfg, img, sf))
         wall.append((time.perf_counter() - t) * 1e3)
     k4 = (k4_launches() - before) / max(1, args.requests)
+    k3 = (oks_nms.launches - before_k3) / max(1, args.requests)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -141,7 +144,9 @@ def main():
         request_ms_min=float(np.min(wall)),
         request_ms_max=float(np.max(wall)),
         request_ms_std=float(np.std(wall)),
-        k4_launches_per_request=k4, profiled_request_ms=profiled_ms,
+        decode_span_ms=float(np.median([s['decode'] for s in stages])),
+        k4_launches_per_request=k4, k3_launches_per_request=k3,
+        profiled_request_ms=profiled_ms,
         profiled_device_busy_ms=busy,
         profiled_stage_busy_ms=stage_busy_ms(trace, STAGES),
         top_kernels=[dict(name=e.key[:90], ms=dev_us(e) / 1e3,

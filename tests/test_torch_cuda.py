@@ -65,14 +65,77 @@ def test_dcn_shift_kernel_matches_plain_fp32(cuda, shape, radius):
 
 def test_dcn_shift_kernel_matches_plain_bf16_serving_shape(cuda):
     """bf16 at the level-0 serving shape: max error <= 1e-2 x max|ref|
-    (the tap tiles are the plain version's bit for bit; the f32 sums run
-    in another order, so the bf16 rounding of a sum can differ)."""
+    (the tap tiles are the plain version's up to the double rounding of
+    PyTorch's bf16 add; the f32 sums run in another order, so the bf16
+    rounding of a sum can differ)."""
     a = list(_inputs(1, 160, 288, 256, 256, torch.bfloat16, cuda,
                      spread=0.8))
     a[3] = a[3] * 0.25
     got = dcn_shift.deform_conv_shift(*a, radius=1).float()
     want = dcn_shift.deform_conv_shift_plain(*a, radius=1).float()
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+
+
+@pytest.mark.parametrize('hw,radius', [
+    ((160, 288), 1), ((80, 144), 1), ((40, 72), 1), ((20, 36), 1),
+    ((80, 144), 2), ((13, 21), 1), ((13, 21), 2)])
+def test_dcn_shift_wgmma_pass_matches_plain(cuda, hw, radius):
+    """The wgmma pass at the four serving levels (B=4, 256 channels, r=1),
+    at level 1 at r=2 and on a ragged patch: it is the pass the call takes
+    (the wgmma count moves with the launch count), max error <= 1e-2 x
+    max|ref|, and two runs are equal bit for bit."""
+    a = list(_inputs(4, *hw, 256, 256, torch.bfloat16, cuda,
+                     spread=0.8 * radius))
+    a[3] = a[3] * 0.25
+    before = dcn_shift.launches, dcn_shift.wgmma_launches
+    got = dcn_shift.deform_conv_shift(*a, radius=radius)
+    again = dcn_shift.deform_conv_shift(*a, radius=radius)
+    torch.cuda.synchronize()
+    assert (dcn_shift.launches, dcn_shift.wgmma_launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert torch.equal(got, again)
+    want = dcn_shift.deform_conv_shift_plain(*a, radius=radius).float()
+    assert ((got.float() - want).abs().max() / want.abs().max()).item() \
+        <= 1e-2
+
+
+@pytest.mark.parametrize('case', ['offsets 0, mask 1', 'far negative x',
+                                  'Cout 192', 'no bias'])
+def test_dcn_shift_wgmma_pass_corner_cases(cuda, case):
+    """One tap tile that is a plain 3x3 conv's (offsets 0, mask 1); far
+    negative inputs, where a padded zero times a weight and a corner outside
+    the image must agree; Cout across a column block; no bias. Max error
+    <= 1e-2 x max|ref|."""
+    x, off, mask, wt, b = _inputs(2, 13, 21, 128,
+                                  192 if case == 'Cout 192' else 128,
+                                  torch.bfloat16, cuda, spread=1.6)
+    wt = wt * 0.25
+    if case == 'offsets 0, mask 1':
+        off, mask = torch.zeros_like(off), torch.ones_like(mask)
+    if case == 'far negative x':
+        x = -x.abs() - 100
+    if case == 'no bias':
+        b = None
+    before = dcn_shift.wgmma_launches
+    got = dcn_shift.deform_conv_shift(x, off, mask, wt, b).float()
+    torch.cuda.synchronize()
+    assert dcn_shift.wgmma_launches == before + 1
+    want = dcn_shift.deform_conv_shift_plain(x, off, mask, wt, b).float()
+    assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+
+
+def test_dcn_shift_other_bf16_shapes_keep_off_the_wgmma_pass(cuda):
+    """Cin or Cout no multiple of 64, or f32: the WMMA or the f32 kernel,
+    and the wgmma count stays."""
+    before = dcn_shift.wgmma_launches
+    for shape, dt in [((2, 9, 7, 72, 136), torch.bfloat16),
+                      ((2, 9, 7, 64, 72), torch.bfloat16),
+                      ((2, 9, 7, 64, 64), torch.float32)]:
+        a = _inputs(*shape, dt, cuda)
+        got = dcn_shift.deform_conv_shift(*a).float()
+        want = dcn_shift.deform_conv_shift_plain(*a).float()
+        assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
+    assert dcn_shift.wgmma_launches == before
 
 
 def test_hybrid_pallas_on_the_card_is_exact(cuda):
@@ -194,6 +257,46 @@ def test_oks_nms_kernel_matches_plain(cuda, B, M, J):
     assert 0 < int(got.sum()) < B * M
 
 
+@pytest.mark.parametrize('B,M,J', [(1, 16, 4), (3, 64, 15), (2, 777, 17),
+                                   (4, 3720, 15)])
+def test_oks_nms_kernel_max_keep_and_ragged_m(cuda, B, M, J):
+    """M below 64, one block exactly, no multiple of 64 and a request's M:
+    with max_keep=k the mask is the first k kept of the plain version's
+    full mask, bit for bit."""
+    kpts, areas, valid = _nms_inputs(B, M, J, cuda, seed=2)
+    sig = oks_nms.default_sigmas(J)
+    want = oks_nms.oks_nms_keep_plain(kpts, areas, valid, 0.9, sig)
+    assert torch.equal(oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig),
+                       want)
+    for k in (0, 1, 7, 100, M):
+        got = oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig, max_keep=k)
+        assert torch.equal(got, want & (want.cumsum(-1) <= k)), k
+        plain = oks_nms.oks_nms_keep_plain(kpts, areas, valid, 0.9, sig,
+                                           max_keep=k)
+        assert torch.equal(got, plain), k
+
+
+@pytest.mark.parametrize('B,M,J', [(2, 200, 17), (4, 3720, 15)])
+def test_oks_nms_sorted_on_the_card_matches_fixed(cuda, B, M, J):
+    """The decode's hard NMS on the card (sort, K3 with max_keep, top-k; one
+    kernel launch) against oks_nms_fixed on the card: the same indices and
+    validity. Scores are distinct, so no tie can swap."""
+    kpts, areas, valid = _nms_inputs(B, M, J, cuda, seed=3)
+    g = torch.Generator().manual_seed(5)
+    scores = torch.stack([torch.randperm(M, generator=g) for _ in range(B)]) \
+        .float().to(cuda) / M
+    sig = oks_nms.default_sigmas(J)
+    before = oks_nms.launches
+    idx, ok = oks_nms.oks_nms_sorted(kpts, scores, areas, valid, 0.9, sig,
+                                     max_dets=100)
+    torch.cuda.synchronize()
+    assert oks_nms.launches == before + 1
+    fidx, fok = oks_nms.oks_nms_fixed(kpts, scores, areas, valid, 0.9, sig,
+                                      max_dets=100)
+    assert torch.equal(ok, fok) and torch.equal(idx, fidx)
+    assert int(ok.sum()) == 100 * B
+
+
 def test_oks_nms_kernel_refuses_what_it_does_not_take(cuda):
     kpts, areas, valid = _nms_inputs(1, 20, 15, cuda)
     sig = oks_nms.default_sigmas(15)
@@ -205,6 +308,8 @@ def test_oks_nms_kernel_refuses_what_it_does_not_take(cuda):
         oks_nms.oks_nms_keep(kpts, areas[:, :5], valid, 0.9, sig)
     with pytest.raises(ValueError):
         oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig[:3])
+    with pytest.raises(ValueError):
+        oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig, max_keep=-2)
 
 
 # (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's, the
