@@ -46,7 +46,19 @@ nonzero and prints no result:
    launch also held against the plain version on its own inputs) and with
    the plain pair in its place on the card, gradients compared leaf by
    leaf; then one fp32 step at B=2 128x160 on the card (K4 live) against
-   the same step on the CPU (plain).
+   the same step on the CPU (plain);
+7. evaluation ("eval"), through ``apis/test.py::run_test`` with device
+   preprocessing: 8 synthetic 1920x1080 PNG frames (written by this script:
+   zlib over filter-0 rows) and a CMU-Panoptic-format json under
+   ``build/``; both serving configs in bf16 (B=4 640x1152, 2 batches, the
+   launch counts set to 0 as each batch's forward starts and read as its
+   decode returns: 16 K1 of which 16 on the wgmma pass, 1 K3, 3 grouped
+   gathers, fused samples within K4_SAMPLES, and 36 K2 on the fused
+   config), people found and MPJPE finite; the device preprocessing of a
+   batch against a float64 reference (<= 1e-4); ``fuse_conv_bn`` at full
+   width, fused against unfused in f32, and both timed in bf16; run_test
+   on the card against the CPU at 240x320; and ``python -m
+   das_tpu_torch.tools.test`` once as a subprocess.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -221,7 +233,12 @@ def environment():
         tri = triton.__version__
     except ImportError:
         tri = 'absent'
-    phase('env', f'nvcc {nvcc or "absent"}; triton {tri}')
+    try:
+        import cv2
+        cv = cv2.__version__
+    except ImportError:
+        cv = 'absent'
+    phase('env', f'nvcc {nvcc or "absent"}; triton {tri}; cv2 {cv}')
     return name, smi[0]
 
 
@@ -991,6 +1008,10 @@ def flagged_per_layer(model, img):
     return counts
 
 
+def count_label(key):
+    return f'{key[0].__name__.rsplit(".", 1)[-1]}.{key[1]}'
+
+
 def main_path(cfg_path, requests, expect):
     """Serve ``requests`` B=4 640x1152 bf16 requests of ``cfg_path``. Every
     count of ``expect`` ({(kernel module, name of its count): launches per
@@ -1031,9 +1052,6 @@ def main_path(cfg_path, requests, expect):
     predict(imgs[0], sf)                     # warm-up request
     torch.cuda.synchronize()
 
-    def label(key):
-        return f'{key[0].__name__.rsplit(".", 1)[-1]}.{key[1]}'
-
     for mod, attr in expect:
         setattr(mod, attr, 0)
     times = []
@@ -1050,8 +1068,9 @@ def main_path(cfg_path, requests, expect):
                 check(torch.isfinite(v).all(), k)
         check(out['poses'].shape == (4, 100, head.num_joints, 3),
               tuple(out['poses'].shape))
-        counts = ', '.join(f'{n} {label(key)}' for key, n in got.items())
-        k4 = sum(n for key, n in got.items() if 'gather' in label(key))
+        counts = ', '.join(f'{n} {count_label(key)}'
+                           for key, n in got.items())
+        k4 = sum(n for key, n in got.items() if 'gather' in count_label(key))
         phase('main', f'{name} request {i}: B=4 640x1152 in '
               f'{times[-1]:.2f} ms, {int(out["valid"].sum())} valid poses, '
               f'launches: {counts}')
@@ -1059,7 +1078,7 @@ def main_path(cfg_path, requests, expect):
                   else got[key] == n for key, n in expect.items())
               and k4 <= K4_PER_REQUEST,
               (name, 'launches per request', counts))
-    totals = {label(key): getattr(*key) for key in expect}
+    totals = {count_label(key): getattr(*key) for key in expect}
     phase('main', f'{name}: {requests} requests ok, mean '
           f'{np.mean(times):.2f} ms, median {np.median(times):.2f} ms, '
           f'launches {totals}, outputs finite')
@@ -1534,6 +1553,387 @@ def train_kernel_vs_plain():
           f'parameters agree; frozen unchanged ok')
 
 
+EVAL_DIR = os.path.join(HERE, 'build', 'chip_smoke_eval')
+EVAL_J = 15
+EVAL_F = 1000.0
+# decoded people of two runs that should agree (fused against unfused, card
+# against CPU): scores within EVAL_SCORE_TOL, each pose within EVAL_POSE_RTOL
+# of its largest coordinate (phase 5's tolerances)
+EVAL_SCORE_TOL = 1e-4
+EVAL_POSE_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """f32 convs and matmuls in f32, as the CPU computes them, for the
+    block; the flags as they were after it."""
+    import torch
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def png_bytes(rgb):
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) uint8: zlib over filter-0
+    rows."""
+    import struct
+    import zlib
+    import numpy as np
+    h, w, _ = rgb.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)],
+                          axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack('>I', len(body)) + kind + body
+                + struct.pack('>I', zlib.crc32(kind + body)))
+    return (b'\x89PNG\r\n\x1a\n'
+            + chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0))
+            + chunk(b'IDAT', zlib.compress(rows.tobytes(), 1))
+            + chunk(b'IEND', b''))
+
+
+def write_eval_data(name, n, h, w, seed):
+    """``n`` synthetic h x w PNG frames and a CMU-Panoptic-format
+    annotation json beside them (the layout of
+    tests/test_datasets.py::make_panoptic_json: pinhole camera of focal
+    EVAL_F / 1920 * w at the centre, 2 or 3 people an image with pixel+depth
+    joints, world joints, full visibility). Returns (folder, json path)."""
+    import numpy as np
+    root = os.path.join(EVAL_DIR, name)
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    f = EVAL_F * w / 1920
+    images, anns = [], []
+    for i in range(n):
+        blocks = rng.randint(0, 256, (h // 40 + 1, w // 40 + 1, 3))
+        rgb = np.kron(blocks, np.ones((40, 40, 1), np.int64))[:h, :w]
+        rgb = (rgb + rng.randint(0, 16, (h, w, 3))).clip(0, 255)
+        fname = f'frame_{i:02d}.png'
+        with open(os.path.join(root, fname), 'wb') as fh:
+            fh.write(png_bytes(rgb.astype(np.uint8)))
+        images.append(dict(
+            id=i + 1, file_name=fname, width=w, height=h,
+            cam=dict(K=[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.]],
+                     R=np.eye(3).tolist(), t=[[0.], [0.], [0.]])))
+        for p in range(2 + i % 2):
+            base = np.array([w * (0.2 + 0.3 * p), h * 0.45, 300.0 + 40 * p])
+            joints = base + rng.randn(EVAL_J, 3) * [w / 30, h / 10, 15]
+            u, v, z = joints.T
+            world = np.stack([(u - w / 2) / f * z, (v - h / 2) / f * z, z], 1)
+            bbox = [float(u.min()), float(v.min()), float(np.ptp(u)),
+                    float(np.ptp(v))]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
+                area=bbox[2] * bbox[3], iscrowd=0,
+                joints3d_img=joints.tolist(), joints3d=world.tolist(),
+                joints2d_vis=[[1, 1]] * EVAL_J,
+                joints3d_vis=[[1, 1, 1]] * EVAL_J))
+    ann = os.path.join(root, 'annotations.json')
+    with open(ann, 'w') as fh:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name='person')]), fh)
+    return root, ann
+
+
+def eval_config(cfg_path, root, ann, img_scale=None):
+    """``cfg_path`` with its test data set to ``ann`` and the images under
+    ``root`` (and the test scale to ``img_scale``, where given), as
+    ``--cfg-options`` sets them."""
+    from das_tpu_torch.config import Config
+    cfg = Config.fromfile(cfg_path)
+    opts = {'data.test.ann_file': ann, 'data.test.img_prefix': root}
+    if img_scale is not None:
+        opts['data.test.pipeline.2.img_scale'] = img_scale
+    cfg.merge_from_dict(opts)
+    return cfg
+
+
+@contextlib.contextmanager
+def per_batch_counts(model, expect):
+    """The launches of each batch that ``run_test`` evaluates: every count of
+    ``expect`` set to 0 as the model's forward starts (a pre-hook) and read
+    as the batch's decode returns. Yields the list of per-batch counts."""
+    import das_tpu_torch.apis.test as test_api
+    batches = []
+    real = test_api.decode_batch
+
+    def start(mod, inp):
+        for mod_, attr in expect:
+            setattr(mod_, attr, 0)
+
+    def decode(*args, **kwargs):
+        out = real(*args, **kwargs)
+        batches.append({count_label(k): getattr(*k) for k in expect})
+        return out
+
+    hook = model.register_forward_pre_hook(start)
+    test_api.decode_batch = decode
+    try:
+        yield batches
+    finally:
+        hook.remove()
+        test_api.decode_batch = real
+
+
+def people_agree(ref, got, what):
+    """Two runs' decoded people of each image (``run_test``'s output dicts):
+    the same count, scores in the same order within EVAL_SCORE_TOL, and each
+    pose of ``got`` within EVAL_POSE_RTOL (of its largest coordinate) of a
+    ``ref`` pose whose score is within EVAL_SCORE_TOL; the lowest-scored
+    entries, where a near tie can cross the nms_post cut, are skipped.
+    Returns (people, worst relative pose error)."""
+    import numpy as np
+    worst, people = 0.0, 0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        sr, sg = np.asarray(r['scores']), np.asarray(g['scores'])
+        check(len(sr) == len(sg), (what, 'people', i, len(sr), len(sg)))
+        people += len(sg)
+        if not len(sg):
+            continue
+        check(np.abs(sr - sg).max() <= EVAL_SCORE_TOL, (what, 'scores', i))
+        cut = sr.min() + EVAL_SCORE_TOL
+        for p in range(len(sg)):
+            if sg[p] <= cut:
+                continue
+            near = np.abs(sr - sg[p]) <= EVAL_SCORE_TOL
+            err = np.abs(r['poses'][near] - g['poses'][p]).max(axis=(1, 2))
+            worst = max(worst, float(err.min()) / max(
+                1.0, float(np.abs(g['poses'][p]).max())))
+    check(worst <= EVAL_POSE_RTOL, (what, 'poses', worst))
+    return people, worst
+
+
+def eval_sweep(model, cfg_path, data, expect):
+    """``run_test`` with device preprocessing over the full-width synthetic
+    frames (1920x1080 -> 640x1138, padded to 640x1152, B=4), on ``model``
+    (bf16, on the card) with the pose template of phase 4's NMS check and
+    the cls bias at 0, so that people pass score_thr. Each batch must launch
+    exactly its share of ``expect`` (as ``main_path``); people must be found
+    and MPJPE finite. Returns ({count: launches over the sweep}, images/s)."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import run_test
+    from das_tpu_torch.datasets import build_dataset
+    from das_tpu_torch.tools.profile_kernels import pose_template
+    name = os.path.basename(cfg_path)[:-3]
+    cfg = eval_config(cfg_path, *data)
+    pose_template(model)
+    ds = build_dataset(cfg.data['test'])
+    with per_batch_counts(model, expect) as batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = run_test(model, ds, cfg, batch_size=4, progress=False,
+                        device_preprocess=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    labels = {count_label(k): n for k, n in expect.items()}
+    for i, got in enumerate(batches):
+        check(all(n[0] <= got[k] <= n[1] if isinstance(n, tuple)
+                  else got[k] == n for k, n in labels.items())
+              and sum(v for k, v in got.items() if 'gather' in k)
+              <= K4_PER_REQUEST, (name, 'eval batch', i, got))
+    check(len(batches) == len(ds) // 4, (name, 'batches', len(batches)))
+    people = [len(o['poses']) for o in outs]
+    check(sum(people) > 0, (name, 'no person found'))
+    for o in outs:
+        check(np.isfinite(o['poses']).all() and o['poses'].shape[1:] ==
+              (EVAL_J, 3), (name, 'poses', o['poses'].shape))
+    res = ds.evaluate(outs)
+    check(np.isfinite(res['mpjpe_mm']), (name, 'MPJPE', res))
+    totals = {k: sum(b[k] for b in batches) for k in labels}
+    phase('eval', f'{name}: run_test(device_preprocess=True) over {len(ds)} '
+          f'synthetic 1920x1080 PNGs, {len(batches)} batches of B=4 '
+          f'640x1152 bf16 in {secs * 1e3:.2f} ms ({len(ds) / secs:.2f} '
+          f'images/s, decode and all); people per image {people}; MPJPE '
+          f"{res['mpjpe_mm']:.2f} mm (random weights); launches per batch "
+          + '; '.join(', '.join(f'{v} {k}' for k, v in b.items())
+                      for b in batches))
+    return totals, len(ds) / secs
+
+
+def device_preprocess_vs_float64(data, smi):
+    """The device preprocessing of one B=4 batch of the frames (1080x1920 ->
+    640x1138 -> 640x1152) against a float64 numpy reference of the same
+    half-pixel resize, BGR->RGB, normalisation and padding: within 1e-4 in
+    normalised units (TF32 or a wrong tap would be far off). Returns the
+    preprocessed batch on the card and its scale factors."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.datasets.pipelines import _rescale_size
+    from das_tpu_torch.ops.preprocess import make_preprocess_fn
+    from das_tpu_torch.utils.image import imread, read_png
+    root, ann = data
+    paths = sorted(os.path.join(root, f) for f in os.listdir(root)
+                   if f.endswith('.png'))
+    t = time.perf_counter()
+    raws = [imread(p) for p in paths]
+    decode_ms = (time.perf_counter() - t) * 1e3 / len(paths)
+    t = time.perf_counter()
+    for p, raw in zip(paths, raws):
+        with open(p, 'rb') as fh:
+            check(np.array_equal(read_png(fh.read(), p), raw),
+                  ('the PNG reader differs from imread', p))
+    png_ms = (time.perf_counter() - t) * 1e3 / len(paths)
+    try:
+        import cv2  # noqa: F401
+        decoder = 'cv2'
+    except ImportError:
+        decoder = 'its own PNG reader'
+    h, w = raws[0].shape[:2]
+    nh, nw = _rescale_size(h, w, (1333, 640))
+    ph, pw = -(-nh // 32) * 32, -(-nw // 32) * 32
+    check((nh, nw, ph, pw) == (640, 1138, 640, 1152), (nh, nw, ph, pw))
+    mean = np.array([123.675, 116.28, 103.53])
+    std = np.array([58.395, 57.12, 57.375])
+    pre = make_preprocess_fn((h, w), (nh, nw), (ph, pw), mean, std)
+    raw = torch.from_numpy(np.stack(raws[:4])).cuda()
+    with torch.inference_mode():
+        got = pre(raw).cpu().numpy()
+        ms = cuda_ms(lambda: pre(raw), 10)
+
+    def taps(src, dst):
+        pos = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+        lo = np.floor(pos)
+        return (np.clip(lo, 0, src - 1).astype(np.int64),
+                np.clip(lo + 1, 0, src - 1).astype(np.int64), pos - lo)
+    x = np.stack(raws[:4]).astype(np.float64)
+    lo, hi, wt = taps(h, nh)
+    x = x[:, lo] * (1 - wt)[:, None, None] + x[:, hi] * wt[:, None, None]
+    lo, hi, wt = taps(w, nw)
+    x = x[:, :, lo] * (1 - wt)[:, None] + x[:, :, hi] * wt[:, None]
+    want = np.zeros((4, ph, pw, 3))
+    want[:, :nh, :nw] = (x[..., ::-1] - mean) / std
+    err = float(np.abs(got - want).max())
+    check(got.shape == want.shape and err <= 1e-4,
+          ('device preprocessing vs float64', got.shape, err))
+    phase('eval', f'device preprocessing, B=4 uint8 {h}x{w} -> {nh}x{nw} -> '
+          f'{ph}x{pw} f32 on the card: max error {err:.3g} of the float64 '
+          f'reference (<= 1e-4, normalised units); {ms:.4f} ms a batch '
+          f'(CUDA events); host decode (utils/image.imread, through '
+          f'{decoder}) {decode_ms:.2f} ms an image, the PNG reader '
+          f'(utils/image.read_png, equal bit for bit) {png_ms:.2f} ms; '
+          f'{smi}')
+    sf = torch.tensor([[nw / w, nh / h]] * 4, device=raw.device)
+    return torch.from_numpy(got).to(raw.device), sf, ms, decode_ms
+
+
+def fuse_at_full_width(img, sf, smi):
+    """``fuse_conv_bn`` on the shipped config at full width: an f32 model
+    (seeded, offsets perturbed as phase 4, cls bias 0) against its fused
+    copy on ``img`` (the preprocessed B=4 640x1152 frames), TF32 off: the
+    same people per image, poses within EVAL_POSE_RTOL. Then both in bf16,
+    request times (median of 12, alternating). Returns (pairs, unfused ms,
+    fused ms)."""
+    import copy
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import init_model, make_predict_fn
+    from das_tpu_torch.apis.inference import results_to_host
+    from das_tpu_torch.models.fuse import fuse_conv_bn
+    from das_tpu_torch.models.layers import cast_compute
+    model, cfg = init_model(SERVING_CFG, device='cuda', seed=4)
+    perturb_offsets(model, seed=3)
+    with torch.no_grad():
+        model.bbox_head.conv_cls.bias.zero_()
+    fused, pairs = fuse_conv_bn(copy.deepcopy(model))
+    head = cfg.model.bbox_head
+    args = (cfg.model.test_cfg, head.num_joints, head.strides)
+    paths = [f'image {i}' for i in range(img.shape[0])]
+    with no_tf32():
+        ref = results_to_host(make_predict_fn(model, *args, device='cuda')(
+            img, sf), paths)
+        got = results_to_host(make_predict_fn(fused, *args, device='cuda')(
+            img, sf), paths)
+    people, worst = people_agree(ref, got, 'fused vs unfused')
+    check(people > 0, 'fused vs unfused: no person found')
+    plain16 = cast_compute(copy.deepcopy(model), torch.bfloat16)
+    fused16 = cast_compute(fused, torch.bfloat16)
+    del model
+    runs = {'unfused': make_predict_fn(plain16, *args, device='cuda'),
+            'fused': make_predict_fn(fused16, *args, device='cuda')}
+    times = {k: [] for k in runs}
+    for k, fn in runs.items():
+        fn(img, sf)                                   # warm-up
+    for _ in range(12):
+        for k, fn in runs.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(img, sf)
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    phase('eval', f'fuse_conv_bn: {pairs} conv+bn pairs fused; f32 at B=4 '
+          f'640x1152, fused vs unfused: {people} people on both, poses '
+          f'within {worst:.3g} of their largest coordinate (<= '
+          f'{EVAL_POSE_RTOL:g}); bf16 request (host clock, median of 12, '
+          f'alternating): unfused {med["unfused"]:.2f} ms (min '
+          f'{min(times["unfused"]):.2f}), --fuse-conv-bn {med["fused"]:.2f}'
+          f' ms (min {min(times["fused"]):.2f}); {smi}')
+    return pairs, med['unfused'], med['fused']
+
+
+def eval_card_vs_cpu():
+    """``run_test`` (device preprocessing) at a cut size, the same f32
+    weights on the card (kernels) and on the CPU (plain versions): 2
+    synthetic 320x240 frames at img_scale (320, 256), cls bias 0. The same
+    people per image, poses within phase 5's tolerance."""
+    import torch
+    from das_tpu_torch.apis import init_model, run_test
+    from das_tpu_torch.datasets import build_dataset
+    data = write_eval_data('cut', 2, 240, 320, seed=7)
+    cfg = eval_config(SERVING_CFG, *data, img_scale=(320, 256))
+    cpu, _ = init_model(SERVING_CFG, device='cpu', seed=5)
+    perturb_offsets(cpu, seed=6)
+    with torch.no_grad():
+        cpu.bbox_head.conv_cls.bias.zero_()
+    gpu, _ = init_model(SERVING_CFG, device='cuda', seed=5)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    ds = build_dataset(cfg.data['test'])
+    kw = dict(batch_size=2, progress=False, device_preprocess=True)
+    t = time.perf_counter()
+    ref = run_test(cpu, ds, cfg, **kw)
+    cpu_s = time.perf_counter() - t
+    with no_tf32():
+        got = run_test(gpu, ds, cfg, **kw)
+    people, worst = people_agree(ref, got, 'card vs CPU')
+    check(people > 0, 'card vs CPU: no person found')
+    phase('eval', f'run_test card vs CPU, 2 frames 240x320 at img_scale '
+          f'(320, 256), f32: {people} people on both, scores within '
+          f'{EVAL_SCORE_TOL:g}, poses within {worst:.3g} of their largest '
+          f'coordinate (<= {EVAL_POSE_RTOL:g}); CPU sweep {cpu_s:.1f} s')
+
+
+def eval_cli(data):
+    """``python -m das_tpu_torch.tools.test`` on the shipped config and the
+    synthetic frames, once, as a user runs it: exit 0 and a finite MPJPE."""
+    root, ann = data
+    res = os.path.join(EVAL_DIR, 'cli_results')
+    cmd = [sys.executable, '-m', 'das_tpu_torch.tools.test', SERVING_CFG,
+           '--cfg-options', f'data.test.ann_file={ann}',
+           f'data.test.img_prefix={root}', '--device-preprocess', '--eval',
+           'mpjpe', '--res-folder', res]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    secs = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    mpjpe = [float(x.split()[1]) for x in lines if x.startswith('mpjpe_mm ')]
+    check(proc.returncode == 0 and len(mpjpe) == 1
+          and math.isfinite(mpjpe[0]),
+          ('das_tpu_torch.tools.test', proc.returncode, lines[-5:],
+           proc.stderr[-2000:]))
+    phase('eval', f'python -m das_tpu_torch.tools.test '
+          f'{os.path.relpath(SERVING_CFG, HERE)} --cfg-options ... '
+          f'--device-preprocess --eval mpjpe: exit 0 in {secs:.1f} s, '
+          f'"{next(x for x in lines if x.startswith("MPJPE:"))}"')
+
+
 def main():
     import torch
     name, smi = environment()
@@ -1552,13 +1952,29 @@ def main():
                 (conv_gn, 'launches'): convs, (oks_nms, 'launches'): 1,
                 (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
                 (gather, 'sampler_launches'): K4_SAMPLES}
+    eval_data = write_eval_data('full', 8, 1080, 1920, seed=0)
     model, _, n1, _, _ = main_path(SERVING_CFG, 2, expect(0))
+    e1, ips1 = eval_sweep(model, SERVING_CFG, eval_data, expect(0))
     del model
     model, cfg, n2, img, sf = main_path(FUSED_CFG, 3, expect(36))
     k3 = nms_on_served_request(model, cfg, img, sf)
+    e2, ips2 = eval_sweep(model, FUSED_CFG, eval_data, expect(36))
     del model
     torch.cuda.empty_cache()
+    img, sf, _, _ = device_preprocess_vs_float64(eval_data, smi)
+    fuse_at_full_width(img, sf, smi)
+    del img
+    torch.cuda.empty_cache()
+    eval_card_vs_cpu()
+    eval_cli(eval_data)
+    phase('eval', f'sweep images/s (device preprocessing, B=4 640x1152 bf16,'
+          f' 8 frames): exp_panoptic_tpu {ips1:.2f}, '
+          f'exp_panoptic_tpu_fused_gn {ips2:.2f}; {smi}')
+    torch.cuda.empty_cache()
     fwd, bwd, run = train_full_width()
+    for n, e in ((n1, e1), (n2, e2)):
+        for k in n:
+            n[k] += e[k]
     k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches']
     k2['launches'] = n2['conv_gn.launches']
     k3['launches'] = n1['oks_nms.launches'] + n2['oks_nms.launches']

@@ -3,8 +3,8 @@
 ``init_model`` builds the model from a config on the card (or on the device
 the caller names) and optionally loads a ``.pth``; ``make_predict_fn``
 returns the end-to-end call: backbone -> FPN -> head -> fused decode, on
-the model's device, ending in fixed-shape tensors. ``inference_detector``
-(image file in, needs ``cv2``) waits.
+the model's device, ending in fixed-shape tensors; ``inference_detector``
+runs one image file or array through it.
 """
 
 from __future__ import annotations
@@ -24,16 +24,20 @@ from ..utils.device import resolve_device
 
 def init_model(config, checkpoint: Optional[str] = None,
                dtype: torch.dtype = torch.float32, device=None,
-               seed: int = 0):
+               seed: int = 0, validate_dcn: bool = True,
+               strict: bool = True):
     """Build the model (eval, on ``device``: the card unless the caller
     names another) and optionally load a ``.pth`` checkpoint.
 
-    When the config selects a shift/hybrid DCN mode and weights were
-    loaded, the learned conv_offset fields are bounds-checked once
-    (``validate_dcn_offsets``); if they exceed the configured radius or
-    budget, every DCN layer switches to the exact ``'patch'`` gather and a
-    warning is printed, so a loaded checkpoint never silently serves
-    approximate DCNv2. Returns ``(model, config)``.
+    The checkpoint loads with ``strict`` (``load_checkpoint_report``); the
+    count of model keys it lacks, which keep their init values, is printed
+    as the JAX package prints it. When the config selects a shift/hybrid DCN
+    mode, ``validate_dcn`` is set and weights were loaded, the learned
+    conv_offset fields are bounds-checked once (``validate_dcn_offsets``);
+    if they exceed the configured radius or budget, every DCN layer
+    switches to the exact ``'patch'`` gather and a warning is printed, so a
+    loaded checkpoint never silently serves approximate DCNv2. Returns
+    ``(model, config)``.
     """
     if isinstance(config, str):
         config = Config.fromfile(config)
@@ -41,11 +45,15 @@ def init_model(config, checkpoint: Optional[str] = None,
     model = build_model(dict(config.model), dtype=dtype, device=dev,
                         seed=seed)
     if checkpoint is not None:
-        from ..checkpoint.convert import load_checkpoint
-        load_checkpoint(model, checkpoint)
+        from ..checkpoint.convert import load_checkpoint_report
+        report = load_checkpoint_report(model, checkpoint, strict=strict)
+        if report['missing']:
+            print(f'[das_tpu_torch] checkpoint missing '
+                  f'{len(report["missing"])} keys (kept init values)')
         head = dict(config.model['bbox_head'])
         mode = head.get('dcn_gather_mode', 'patch')
-        if mode in ('shift', 'shift_pallas', 'hybrid', 'hybrid_pallas'):
+        if validate_dcn and mode in ('shift', 'shift_pallas', 'hybrid',
+                                     'hybrid_pallas'):
             radius = int(head.get('dcn_shift_radius', 2))
             budget = int(head.get('dcn_shift_budget', 2048))
             shift_ok, hybrid_ok, worst = validate_dcn_offsets(
@@ -125,6 +133,47 @@ def make_predict_fn(model: DAS, test_cfg: Dict, num_joints: int, strides,
                             sf, num_joints, test_cfg)
 
     return predict
+
+
+def inference_detector(model: DAS, cfg, image, predict_fn=None) -> Dict:
+    """Single-image inference (ref: apis/inference.py:195
+    ``inference_mono_3d_detector``): one image path (decoded by
+    ``utils/image.imread``) or uint8 BGR (H, W, 3) array in, the decoded
+    people dict out.
+
+    The image is resized, normalised and padded on the model's device
+    (``ops/preprocess.make_preprocess_fn``: the keep-ratio bilinear resize
+    in f32 to fit (1333, 640), BGR->RGB, ImageNet mean/std, padding to a
+    multiple of 32) — the device-preprocess semantics of ``run_test``,
+    where the JAX function resizes the uint8 image with ``cv2.resize`` on
+    the host; the two agree up to bilinear-resize rounding.
+    """
+    from ..datasets.pipelines import _rescale_size
+    from ..ops.preprocess import make_preprocess_fn
+    from ..utils.image import imread
+
+    if isinstance(image, str):
+        img = imread(image)
+        path = image
+    else:
+        img = np.asarray(image)
+        path = '<array>'
+    h, w = img.shape[:2]
+    nh, nw = _rescale_size(h, w, (1333, 640))
+    ph, pw = (nh + 31) // 32 * 32, (nw + 31) // 32 * 32
+    dev = next(model.parameters()).device
+    pre = make_preprocess_fn((h, w), (nh, nw), (ph, pw))
+    head = cfg.model.bbox_head
+    if predict_fn is None:
+        predict_fn = make_predict_fn(model, dict(cfg.model.test_cfg),
+                                     int(head.num_joints),
+                                     tuple(head.strides), device=dev)
+    with torch.inference_mode():
+        x = pre(torch.from_numpy(np.ascontiguousarray(img))[None].to(dev))
+        sf = torch.tensor([[nw / w, nh / h]], dtype=torch.float32,
+                          device=dev)
+        decoded = predict_fn(x, sf)
+    return results_to_host(decoded, [path])[0]
 
 
 def results_to_host(decoded, image_paths: List[str]) -> List[Dict]:

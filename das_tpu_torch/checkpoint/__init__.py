@@ -1,3 +1,5 @@
-from .convert import load_checkpoint, state_dict_from_flax, strip_prefixes
+from .convert import (load_checkpoint, load_checkpoint_report,
+                      state_dict_from_flax, strip_prefixes)
 
-__all__ = ['load_checkpoint', 'state_dict_from_flax', 'strip_prefixes']
+__all__ = ['load_checkpoint', 'load_checkpoint_report',
+           'state_dict_from_flax', 'strip_prefixes']

@@ -14,7 +14,7 @@ loads into the port's model with ``strict=True``.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -98,14 +98,30 @@ def strip_prefixes(sd: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
-    """Load a reference ``.pth`` (or one this port saved) with
-    ``strict=True``. ``num_batches_tracked`` and the RealNVP ``mask``
-    buffers are constants the model does not keep as state, so they are
-    dropped first, as the JAX bridge drops them."""
+def load_checkpoint_report(model: nn.Module, path: str,
+                           strict: bool = True) -> Dict[str, List[str]]:
+    """Load a reference ``.pth`` (or one this port saved) into ``model``
+    and return ``{'missing': [...], 'unexpected': [...]}``: the model's keys
+    the checkpoint lacks and the checkpoint's keys the model lacks.
+
+    ``num_batches_tracked`` and the RealNVP ``mask`` buffers are constants
+    the model does not keep as state, so they are dropped first, as the JAX
+    bridge drops them. With ``strict`` any missing or unexpected key raises
+    (nothing is loaded); without it the missing keys keep the model's
+    values and the unexpected ones are ignored, as the JAX bridge's
+    ``merge_into_variables(strict=False)`` does. A shape mismatch always
+    raises."""
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
     sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
     sd = {k: v for k, v in strip_prefixes(sd).items()
           if not (k.endswith('num_batches_tracked') or k.endswith('.mask'))}
-    model.load_state_dict(sd, strict=True)
+    result = model.load_state_dict(sd, strict=strict)
+    return dict(missing=list(result.missing_keys),
+                unexpected=list(result.unexpected_keys))
+
+
+def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
+    """``load_checkpoint_report`` with ``strict=True``; returns the
+    model."""
+    load_checkpoint_report(model, path, strict=True)
     return model

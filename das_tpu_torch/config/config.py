@@ -139,6 +139,18 @@ class Config:
         merged = merge_dict(merged, cfg)
         return merged
 
+    def merge_from_dict(self, options: Dict[str, Any]) -> None:
+        """Apply ``{'a.b.c': v}`` style overrides (``--cfg-options``)."""
+        option_cfg: Dict = {}
+        for full_key, v in options.items():
+            d = option_cfg
+            keys = full_key.split('.')
+            for sub in keys[:-1]:
+                d = d.setdefault(sub, {})
+            d[keys[-1]] = v
+        self._cfg_dict = wrap_cfg(merge_dict(dict(self._cfg_dict),
+                                             option_cfg))
+
     def __getattr__(self, name: str) -> Any:
         if name.startswith('_'):
             raise AttributeError(name)

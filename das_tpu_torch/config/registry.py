@@ -43,8 +43,10 @@ def build_from_cfg(cfg: Dict, registry: Registry):
     return obj_cls(**args)
 
 
-# The registries the serving path builds from.
+# The registries the serving and evaluation paths build from.
 MODELS = Registry('models')          # detectors
 BACKBONES = Registry('backbones')
 NECKS = Registry('necks')
 HEADS = Registry('heads')
+DATASETS = Registry('datasets')
+PIPELINES = Registry('pipelines')

@@ -48,6 +48,11 @@ LIB = CudaLibrary('oks_nms.cu', {
 # reads it.
 launches = 0
 EPS = float(np.spacing(1))
+# The kernel's limits: the candidates whose mask rows the scan's shared
+# memory holds (``oks_nms_max_candidates()`` of oks_nms.cu, held equal to
+# this by the card tests) and the joints (its JMAX)
+MAX_CANDIDATES = 12608
+MAX_JOINTS = 32
 
 COCO17_SIGMAS = np.array([
     .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62, 1.07, 1.07,
@@ -206,6 +211,18 @@ def oks_nms_keep_plain(kpts: torch.Tensor, areas: torch.Tensor,
     return keep
 
 
+def check_kernel_limits(M: int, J: int, n_sigmas: int) -> None:
+    """Raise unless the kernel takes M candidates of J joints with one
+    sigma each: at most ``MAX_CANDIDATES`` and ``MAX_JOINTS``. The plain
+    version, on the CPU, has no such limit."""
+    if n_sigmas != J or not 1 <= J <= MAX_JOINTS:
+        raise ValueError(f'the kernel takes 1..{MAX_JOINTS} joints with one '
+                         f'sigma each (got J={J}, {n_sigmas} sigmas)')
+    if M > MAX_CANDIDATES:
+        raise ValueError(f'{M} candidates exceed the kernel\'s '
+                         f'{MAX_CANDIDATES} (its scan\'s shared memory)')
+
+
 def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
                  valid: torch.Tensor, thr: float, sigmas: np.ndarray,
                  max_keep: Optional[int] = None) -> torch.Tensor:
@@ -218,7 +235,8 @@ def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
     kept; the first ``max_keep`` kept are the same either way.
 
     CPU tensors run ``oks_nms_keep_plain``; CUDA tensors launch the kernel,
-    which takes f32 kpts and areas, a bool valid and J <= 32.
+    which takes f32 kpts and areas, a bool valid, M <= ``MAX_CANDIDATES``
+    and J <= ``MAX_JOINTS`` (``check_kernel_limits``, before the build).
     """
     global launches
     if max_keep is not None and max_keep < 0:
@@ -238,12 +256,8 @@ def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
     check_tensor('kpts', kpts, (B, M, J, 2), torch.float32, dev)
     check_tensor('areas', areas, (B, M), torch.float32, dev)
     check_tensor('valid', valid, (B, M), torch.bool, dev)
-    if len(sigmas) != J or not 1 <= J <= 32:
-        raise ValueError(f'the kernel takes 1..32 joints with one sigma '
-                         f'each (got J={J}, {len(sigmas)} sigmas)')
+    check_kernel_limits(M, J, len(sigmas))
     lib = LIB.load()
-    if M > lib.oks_nms_max_candidates():
-        raise ValueError(f'{M} candidates exceed the scan\'s shared memory')
     var2 = _nms_var2(sigmas, dev)
     nw = (M + 63) // 64
     mask = torch.empty((B, M, nw), dtype=torch.int64, device=dev)

@@ -1,7 +1,7 @@
 """Where a serving request's time goes, on the card.
 
     python -m das_tpu_torch.tools.profile_serving [--config PATH]
-        [--requests 3] [--out DIR]
+        [--requests 3] [--out DIR] [--fuse-conv-bn]
 
 Builds ``--config`` (default ``configs/das/exp_panoptic_tpu.py``; e.g.
 ``configs/das/exp_panoptic_tpu_fused_gn.py`` for the fused conv+GN head) in
@@ -33,6 +33,8 @@ from torch.autograd import DeviceType
 
 from ..apis import init_model
 from ..core.decode import decode_batch
+from ..models.fuse import fuse_conv_bn
+from ..models.layers import cast_compute
 from ..ops import gather, oks_nms
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -95,8 +97,17 @@ def main():
     ap.add_argument('--requests', type=int, default=3)
     ap.add_argument('--out',
                     default=os.path.join('build', 'profile_serving'))
+    ap.add_argument('--fuse-conv-bn', action='store_true',
+                    help='fold the BatchNorms into their convs (built in '
+                         'f32, fused, then cast to bf16)')
     args = ap.parse_args()
-    model, cfg = init_model(args.config, dtype=torch.bfloat16, device='cuda')
+    if args.fuse_conv_bn:
+        model, cfg = init_model(args.config, device='cuda')
+        model, _ = fuse_conv_bn(model)
+        cast_compute(model, torch.bfloat16)
+    else:
+        model, cfg = init_model(args.config, dtype=torch.bfloat16,
+                                device='cuda')
     rng = np.random.RandomState(0)
     img = torch.from_numpy(rng.randn(4, 640, 1152, 3).astype(np.float32)) \
         .cuda()
@@ -136,6 +147,7 @@ def main():
     busy = sum(dev_us(e) for e in kernels) / 1e3
     print(json.dumps(dict(
         config=os.path.relpath(args.config),
+        fuse_conv_bn=args.fuse_conv_bn,
         device=torch.cuda.get_device_name(0),
         stages_ms={k: float(np.median([s[k] for s in stages]))
                    for k in stages[0]},

@@ -312,6 +312,32 @@ def test_oks_nms_kernel_refuses_what_it_does_not_take(cuda):
         oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig, max_keep=-2)
 
 
+def test_oks_nms_sorted_on_the_card_refuses_past_its_cap(cuda):
+    """The kernel's limit is MAX_CANDIDATES (what oks_nms.cu reports):
+    oks_nms_sorted takes that many candidates on the card and raises past
+    it, and past MAX_JOINTS joints, before any launch."""
+    cap = oks_nms.LIB.load().oks_nms_max_candidates()
+    assert cap == oks_nms.MAX_CANDIDATES == 12608
+    sig = oks_nms.default_sigmas(15)
+    for M in (cap, cap + 1):
+        kpts, areas, valid = _nms_inputs(1, M, 15, cuda, seed=4)
+        scores = torch.rand(1, M, device=cuda)
+        before = oks_nms.launches
+        if M > cap:
+            with pytest.raises(ValueError, match='candidates'):
+                oks_nms.oks_nms_sorted(kpts, scores, areas, valid, 0.9, sig,
+                                       max_dets=100)
+            assert oks_nms.launches == before
+        else:
+            _, ok = oks_nms.oks_nms_sorted(kpts, scores, areas, valid, 0.9,
+                                           sig, max_dets=100)
+            assert oks_nms.launches == before + 1 and int(ok.sum()) == 100
+    kpts, areas, valid = _nms_inputs(1, 64, 33, cuda)
+    with pytest.raises(ValueError, match='joints'):
+        oks_nms.oks_nms_sorted(kpts, torch.rand(1, 64, device=cuda), areas,
+                               valid, 0.9, np.full(33, 0.05), max_dets=10)
+
+
 # (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's, the
 # RU's at level 1 of a served request and of a train step, the repair's at
 # level 1, and indices past both ends

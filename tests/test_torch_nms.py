@@ -162,3 +162,18 @@ def test_decode_routes_hard_nms_through_the_sorted_scan(monkeypatch):
     decode.decode_batch(cls, pose, ctr, strides, sf, J,
                         dict(cfg, nms_type='soft'))
     assert calls == []
+
+
+def test_kernel_limits_are_checked_before_the_build():
+    """The card's hard NMS takes at most MAX_CANDIDATES candidates and
+    MAX_JOINTS joints with one sigma each; check_kernel_limits, which the
+    wrapper calls before it builds or launches the kernel, raises past
+    either (the plain version, on a CPU tensor, has no such limit)."""
+    assert (oks_nms.MAX_CANDIDATES, oks_nms.MAX_JOINTS) == (12608, 32)
+    oks_nms.check_kernel_limits(12608, 32, 32)
+    with pytest.raises(ValueError, match='12609 candidates'):
+        oks_nms.check_kernel_limits(12609, 15, 15)
+    with pytest.raises(ValueError, match='joints'):
+        oks_nms.check_kernel_limits(64, 33, 33)
+    with pytest.raises(ValueError, match='joints'):
+        oks_nms.check_kernel_limits(64, 15, 14)
