@@ -58,7 +58,22 @@ nonzero and prints no result:
    batch against a float64 reference (<= 1e-4); ``fuse_conv_bn`` at full
    width, fused against unfused in f32, and both timed in bf16; run_test
    on the card against the CPU at 240x320; and ``python -m
-   das_tpu_torch.tools.test`` once as a subprocess.
+   das_tpu_torch.tools.test`` once as a subprocess;
+8. the training entry point ("trainrun"): a synthetic shipped mix on disk
+   under ``build/`` (8 CMU-Panoptic-format 1920x1080 JPEG frames with 3-4
+   people each and 8 COCO-17 keypoint frames at 640x480); the TrainLoader
+   alone (images/s); ``apis/train.py::train_model`` on
+   ``configs/das/exp_panoptic_tpu.py`` from those files through the shipped
+   random pipelines, B=4 640x1344 bf16 on f32 master weights, 6 steps of 4
+   an epoch (every loss finite, 12 + 12 K4 launches and no K1 or K3 each
+   step; one profiled step for the device's busy and idle share), the
+   epoch-end save, DCN-offset check and eval hook on phase 7's frames (the
+   served launch counts per batch), the final save; a resume from
+   ``latest`` for one step (restored tensors, ``count`` and ``step`` bit for
+   bit; its losses against the same step from the run's own final state);
+   and ``python -m das_tpu_torch.tools.train`` once as a subprocess for 2
+   steps. The counts are set to 0 just before the first ``train_model`` run
+   and read just after; those launches go into the kernels line.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1338,7 +1353,7 @@ def train_full_width(steps=5):
                 for i in range(len(head.strides))]
     return gather.launches, gather.backward_launches, dict(
         model=model, cfg=cfg, batch=host_batch, featmaps=featmaps,
-        max_pos=max_pos)
+        max_pos=max_pos, median_ms=float(np.median(times)))
 
 
 def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
@@ -1934,6 +1949,435 @@ def eval_cli(data):
           f'"{next(x for x in lines if x.startswith("MPJPE:"))}"')
 
 
+TRAIN_DIR = os.path.join(HERE, 'build', 'chip_smoke_train')
+# 16 frames at B=4 are 4 steps an epoch: 6 steps cross one epoch end (a
+# save, the DCN-offset check and the eval hook), then the final save
+TRAIN_STEPS = 6
+# the losses of the resumed step against the same step from the run's own
+# final state in memory, on the same batch, relative to each loss
+RESUME_RTOL = 1e-3
+
+
+def write_train_data(seed=0):
+    """The shipped mix on disk: 8 CMU-Panoptic-format 1920x1080 JPEG frames
+    with 3-4 people each (the layout of tests/test_train_api.py's
+    make_train_dataset, roots well inside the frame so that the random warp
+    keeps at least 2) and 8 COCO-17 keypoint frames at 640x480 with 3
+    people each. Returns the --cfg-options that point exp_panoptic_tpu's
+    data.train at them."""
+    import cv2
+    import numpy as np
+    root = os.path.join(TRAIN_DIR, 'data')
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(seed)
+
+    def frame(h, w):
+        blocks = rng.randint(0, 256, (h // 40 + 1, w // 40 + 1, 3))
+        img = np.kron(blocks, np.ones((40, 40, 1), np.int64))[:h, :w]
+        return (img + rng.randint(0, 16, (h, w, 3))).clip(0, 255) \
+            .astype(np.uint8)
+
+    def dump(name, images, anns):
+        path = os.path.join(root, name)
+        with open(path, 'w') as fh:
+            json.dump(dict(images=images, annotations=anns,
+                           categories=[dict(id=1, name='person')]), fh)
+        return path
+
+    h, w, f = 1080, 1920, EVAL_F
+    images, anns = [], []
+    for i in range(8):
+        fname = f'panoptic_{i:02d}.jpg'
+        cv2.imwrite(os.path.join(root, fname), frame(h, w))
+        images.append(dict(
+            id=i + 1, file_name=fname, width=w, height=h,
+            cam=dict(K=[[f, 0, w / 2], [0, f, h / 2], [0, 0, 1.]],
+                     R=np.eye(3).tolist(), t=[[0.], [0.], [0.]])))
+        n = 3 + i % 2
+        for p in range(n):
+            root_uvz = np.array([w * (0.32 + 0.36 * p / (n - 1)),
+                                 h * (0.45 + 0.04 * p), 300.0 + 30 * p])
+            joints = root_uvz + rng.randn(EVAL_J, 3) * [w / 40, h / 12, 15]
+            joints[2] = root_uvz                      # mid-hip, the root
+            u, v, z = joints.T
+            world = np.stack([(u - w / 2) / f * z, (v - h / 2) / f * z, z],
+                             1)
+            bbox = [float(u.min()), float(v.min()), float(np.ptp(u)),
+                    float(np.ptp(v))]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
+                area=bbox[2] * bbox[3], iscrowd=0,
+                joints3d_img=joints.tolist(), joints3d=world.tolist(),
+                joints2d_vis=[[1, 1]] * EVAL_J,
+                joints3d_vis=[[1, 1, 1]] * EVAL_J))
+    pan = dump('panoptic_train.json', images, anns)
+    h, w = 480, 640
+    images, anns = [], []
+    for i in range(8):
+        fname = f'coco_{i:02d}.jpg'
+        cv2.imwrite(os.path.join(root, fname), frame(h, w))
+        images.append(dict(id=i + 1, file_name=fname, width=w, height=h))
+        for p in range(3):
+            cx, cy = w * (0.3 + 0.2 * p), h * (0.48 + 0.03 * p)
+            kp = np.array([cx, cy]) + rng.randn(17, 2) * [w / 40, h / 10]
+            kp[11], kp[12] = [cx - 8, cy], [cx + 8, cy + 2]
+            vis = np.where(rng.rand(17) < 0.15, 1, 2)
+            u, v = kp.T
+            bbox = [float(u.min() - 4), float(v.min() - 4),
+                    float(np.ptp(u) + 8), float(np.ptp(v) + 8)]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
+                area=bbox[2] * bbox[3], iscrowd=0, num_keypoints=17,
+                keypoints=np.concatenate([kp, vis[:, None]], 1)
+                .reshape(-1).tolist()))
+    coco = dump('coco_train.json', images, anns)
+    return {'data.train.0.data_root': root, 'data.train.0.ann_file': pan,
+            'data.train.0.img_prefix': root,
+            'data.train.1.data_root': root, 'data.train.1.ann_file': coco,
+            'data.train.1.img_prefix': root,
+            'checkpoint_config.max_keep_ckpts': 2}
+
+
+class TrainWatch:
+    """Wraps the step that ``train_model`` builds (``apis/train.py``'s
+    ``make_train_step``), its checkpoint manager's save and restore, the
+    DCN-offset check, the eval hook's ``run_test`` and its decode, for the
+    block. Each step: the K4 counts read just before and just after (12 row
+    gathers and 12 adjoint launches, no K1 and no K3), CUDA events around
+    it, a sync, every metric finite; the step ``profile_at`` under
+    ``torch.profiler``. The eval model's forward (a module hook: a DAS in
+    eval mode) marks the counts, its decode reads what each rose by since
+    the mark (a batch's launches; the run's counts are never reset). With ``resume_ref`` (a state), the first step is
+    also run from that state on the same batch first, its losses kept."""
+
+    def __init__(self, expect, profile_at=None, resume_ref=None):
+        self.expect, self.profile_at = expect, profile_at
+        self.resume_ref = resume_ref
+        self.steps, self.host_ms, self.gap_ms, self.losses = [], [], [], []
+        self.saves, self.restored, self.dcn, self.evals = [], [], [], []
+        self.batches, self.ref_losses, self.busy_ms = [], None, None
+        self.mark = {}
+        self.profiled_ms = None
+
+    @contextlib.contextmanager
+    def watching(self):
+        import torch
+        import das_tpu_torch.apis.inference as inf_api
+        import das_tpu_torch.apis.test as test_api
+        import das_tpu_torch.apis.train as train_api
+        from das_tpu_torch.checkpoint import CheckpointManager
+        from das_tpu_torch.models import DAS
+        saved = (train_api.make_train_step, CheckpointManager.save,
+                 CheckpointManager.restore, inf_api.validate_dcn_offsets,
+                 test_api.run_test, test_api.decode_batch,
+                 inf_api.decode_batch)
+        real_make, real_save, real_restore, real_dcn, real_run, \
+            real_decode, _ = saved
+        watch = self
+
+        def make(*a, **k):
+            return watch.step(real_make(*a, **k))
+
+        def save(mgr, state, step):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = real_save(mgr, state, step)
+            watch.saves.append((step, (time.perf_counter() - t) * 1e3,
+                                os.path.getsize(path)))
+            return path
+
+        def restore(mgr, state, step_or_path=None):
+            got = real_restore(mgr, state, step_or_path)
+            watch.restored.append(restored_equal(mgr, got))
+            return got
+
+        def dcn(*a, **k):
+            out = real_dcn(*a, **k)
+            watch.dcn.append(out)
+            return out
+
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_run(*a, **k)
+            torch.cuda.synchronize()
+            watch.evals.append(dict(secs=time.perf_counter() - t,
+                                    batches=watch.batches))
+            watch.batches = []
+            return out
+
+        def decode(*a, **k):
+            out = real_decode(*a, **k)
+            watch.batches.append({count_label(key): getattr(*key)
+                                  - watch.mark[key] for key in watch.expect})
+            return out
+
+        def start(mod, inp):
+            if isinstance(mod, DAS) and not mod.training:
+                watch.mark = {key: getattr(*key) for key in watch.expect}
+
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(
+            start)
+        # the eval hook's sweep decodes through make_predict_fn (the host
+        # pipeline) or through apis/test.py (device preprocessing)
+        (train_api.make_train_step, CheckpointManager.save,
+         CheckpointManager.restore, inf_api.validate_dcn_offsets,
+         test_api.run_test, test_api.decode_batch,
+         inf_api.decode_batch) = (make, save, restore, dcn, run, decode,
+                                  decode)
+        try:
+            yield self
+        finally:
+            hook.remove()
+            (train_api.make_train_step, CheckpointManager.save,
+             CheckpointManager.restore, inf_api.validate_dcn_offsets,
+             test_api.run_test, test_api.decode_batch,
+             inf_api.decode_batch) = saved
+
+    def step(self, real):
+        import torch
+        from das_tpu_torch.ops import dcn_shift, gather, oks_nms
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        last = [None]
+
+        def counted(state, batch):
+            i = len(self.steps)
+            if i == 0 and self.resume_ref is not None:
+                _, m = real(self.resume_ref, batch)
+                self.ref_losses = {k: float(v) for k, v in m.items()}
+            before = (gather.launches, gather.backward_launches,
+                      dcn_shift.launches, oks_nms.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if last[0] is not None:
+                self.gap_ms.append((t - last[0]) * 1e3)
+            prof = None
+            if i == self.profile_at:
+                prof = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA])
+                prof.__enter__()
+            ev[0].record()
+            state, metrics = real(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            host = (time.perf_counter() - t) * 1e3
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                self.busy_ms = device_busy_ms(prof)
+                self.profiled_ms = host
+            last[0] = time.perf_counter()
+            after = (gather.launches, gather.backward_launches,
+                     dcn_shift.launches, oks_nms.launches)
+            m = {k: float(v) for k, v in metrics.items()}
+            check(all(math.isfinite(v) for v in m.values()),
+                  ('trainrun step', state.step, m))
+            counts = [b - a for a, b in zip(before, after)]
+            check(counts == [K4_PER_STEP, K4_PER_STEP, 0, 0],
+                  ('trainrun step launches (K4, K4 backward, K1, K3)',
+                   state.step, counts))
+            self.steps.append(ev[0].elapsed_time(ev[1]))
+            self.host_ms.append(host)
+            self.losses.append(m)
+            return state, metrics
+        return counted
+
+
+def device_busy_ms(prof):
+    """The device time of a profiled block: its kernels' self device
+    time."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, 'self_device_time_total',
+                       getattr(e, 'self_cuda_time_total', 0.0))
+    return sum(dev_us(e) for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU) / 1e3
+
+
+def restored_equal(mgr, state):
+    """The restored state against its file: every model tensor, the
+    momentum by name, ``count`` and ``step`` equal bit for bit. Returns
+    (step, tensors compared)."""
+    import torch
+    path = mgr.path(mgr.latest_step())
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    sd = state.model.state_dict()
+    check(sorted(sd) == sorted(ckpt['model']), 'restore: model keys')
+    n = 0
+    for k, v in ckpt['model'].items():
+        check(torch.equal(sd[k].cpu(), v), ('restore: model tensor', k))
+        n += 1
+    mom = state.opt_state['momentum']
+    check(sorted(mom) == sorted(ckpt['momentum']), 'restore: momentum keys')
+    for k, v in ckpt['momentum'].items():
+        check(torch.equal(mom[k].cpu(), v), ('restore: momentum', k))
+        n += 1
+    check(state.opt_state['count'] == ckpt['count'] and
+          state.step == ckpt['step'], ('restore: count, step',
+                                       state.opt_state['count'],
+                                       state.step))
+    return state.step, n
+
+
+def loader_images_per_s(cfg, batches=6):
+    """The training loader alone, as train_model builds it (the shipped
+    mix, its train bucket, workers_per_gpu threads, seed 0): images/s over
+    ``batches`` batches after the first."""
+    from das_tpu_torch.datasets import build_dataset
+    from das_tpu_torch.datasets.loader import (TrainLoader,
+                                               train_pad_hw_from_cfg)
+    train = cfg.data['train']
+    loader = TrainLoader(build_dataset(train), int(cfg.data.samples_per_gpu),
+                         train_pad_hw_from_cfg(train[0]['pipeline']),
+                         int(cfg.model.bbox_head.num_joints),
+                         num_workers=int(cfg.data.workers_per_gpu), seed=0)
+    it = iter(loader)
+    first = next(it)
+    t = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    secs = time.perf_counter() - t
+    it.close()
+    return batches * loader.batch_size / secs, first['img'].shape
+
+
+def trainrun(eval_data, synthetic_median, smi):
+    """Phase 8: ``train_model`` on exp_panoptic_tpu from the shipped mix on
+    disk, B=4 640x1344 bf16 on f32 master weights, TRAIN_STEPS steps with
+    an epoch end inside (save, DCN-offset check, eval hook on phase 7's
+    frames), a resume from 'latest' for one step, and ``python -m
+    das_tpu_torch.tools.train`` for 2 steps. Returns the launches of the
+    run (counts set to 0 just before, read just after)."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import train_model
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.ops import dcn_shift, gather, oks_nms
+    opts = write_train_data()
+    opts.update({'data.val.ann_file': eval_data[1],
+                 'data.val.img_prefix': eval_data[0],
+                 'data.val.data_root': eval_data[0]})
+    cfg = Config.fromfile(SERVING_CFG)
+    cfg.merge_from_dict(opts)
+    ips, shape = loader_images_per_s(cfg)
+    phase('trainrun', f'TrainLoader alone (8 Panoptic 1920x1080 + 8 COCO '
+          f'640x480 JPEGs, the shipped random pipelines, '
+          f'{cfg.data.workers_per_gpu} threads): {ips:.2f} images/s, '
+          f'batches {tuple(shape)}')
+    work = os.path.join(TRAIN_DIR, 'work')
+    if os.path.isdir(work):
+        import shutil
+        shutil.rmtree(work)
+    # the eval hook's model keeps the trained offsets, which need not leave
+    # radius 1 (phase 4 perturbs them so that some DCN calls repair): 8
+    # fused samples a batch and one more per DCN call that repairs
+    expect = {(dcn_shift, 'launches'): 16, (dcn_shift, 'wgmma_launches'): 16,
+              (oks_nms, 'launches'): 1, (gather, 'launches'): 3,
+              (gather, 'backward_launches'): 0,
+              (gather, 'sampler_launches'): (8, K4_SAMPLES[1])}
+    counts = [(dcn_shift, 'launches'), (oks_nms, 'launches'),
+              (gather, 'launches'), (gather, 'backward_launches'),
+              (gather, 'sampler_launches')]
+    for mod, attr in counts:
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with TrainWatch(expect, profile_at=3).watching() as w:
+        state = train_model(cfg, work_dir=work, max_steps=TRAIN_STEPS,
+                            log_interval=2)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {count_label(k): getattr(*k) for k in counts}
+    check(state.step == TRAIN_STEPS and len(w.steps) == TRAIN_STEPS,
+          ('trainrun steps', state.step, len(w.steps)))
+    check([s for s, _, _ in w.saves] == [4, TRAIN_STEPS],
+          ('trainrun saves', w.saves))
+    check(len(w.dcn) == 2, ('trainrun DCN-offset checks', w.dcn))
+    check(len(w.evals) == 1 and len(w.evals[0]['batches']) == 2,
+          ('trainrun eval hook', w.evals))
+    labels = {count_label(k): n for k, n in expect.items()}
+    for i, got in enumerate(w.evals[0]['batches']):
+        check(all(n[0] <= got[k] <= n[1] if isinstance(n, tuple)
+                  else got[k] == n for k, n in labels.items()),
+              ('trainrun eval batch', i, got))
+    text = ''.join(open(os.path.join(work, x)).read()
+                   for x in os.listdir(work) if x.endswith('.log'))
+    check('eval @ step 4: MPJPE' in text and 'dcn offsets @ step 4' in text,
+          'trainrun: the eval and DCN lines missing from the log')
+    ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')))
+    check(ckpts == ['meta.json', 'step_00000004.pt', 'step_00000006.pt'],
+          ('trainrun checkpoints', ckpts))
+    phase('trainrun', f'train_model exp_panoptic_tpu, B=4 640x1344 bf16 on '
+          f'f32 master weights from the disk mix: {TRAIN_STEPS} steps in '
+          f'{secs:.1f} s (build, loader, saves, checks, eval included); '
+          f'every loss finite; K4 launches {K4_PER_STEP} + {K4_PER_STEP} '
+          f'each step and no K1 or K3; losses '
+          + ', '.join(f"{m['loss']:.5g}" for m in w.losses))
+    # the profiler's overhead stretches the profiled step several times
+    # over: its device busy time is held against the other steps' median
+    plain = np.median([x for i, x in enumerate(w.steps) if i != w.profile_at])
+    phase('trainrun', f'step ms from the disk loader (CUDA events) '
+          + ', '.join(f'{x:.2f}' for x in w.steps)
+          + f'; median of the unprofiled steps {plain:.2f} (phase 6 '
+          f'synthetic median {synthetic_median:.2f}); host interval between '
+          f'steps median {np.median(w.gap_ms):.2f} ms; step {w.profile_at} '
+          f'under the profiler {w.profiled_ms:.2f} ms host, device busy '
+          f'{w.busy_ms:.2f} ms, idle share against the median '
+          f'{1 - w.busy_ms / plain:.3f}; {smi}')
+    phase('trainrun', 'saves (step, ms, bytes): ' + '; '.join(
+          f'{s}, {ms:.1f}, {n}' for s, ms, n in w.saves)
+          + f"; DCN-offset checks {[(bool(a), bool(b), c) for a, b, c in w.dcn]}"
+          + f"; eval hook {w.evals[0]['secs']:.2f} s, launches per batch "
+          + '; '.join(', '.join(f'{v} {k}' for k, v in b.items())
+                      for b in w.evals[0]['batches'])
+          + f'; peak memory {peak:.2f} GiB (train step, eval model, pinned '
+          f'ring); {smi}')
+
+    # resume from the latest save for one step; the same step from the
+    # first run's final state in memory on the same batch is the reference
+    with TrainWatch(expect, resume_ref=state).watching() as r:
+        again = train_model(cfg, work_dir=work, resume_from='latest',
+                            max_steps=TRAIN_STEPS + 1, log_interval=2)
+        torch.cuda.synchronize()
+    check(again.step == TRAIN_STEPS + 1 and len(r.steps) == 1,
+          ('trainrun resume', again.step, len(r.steps)))
+    check(len(r.restored) == 1 and r.restored[0][0] == TRAIN_STEPS,
+          ('trainrun restore', r.restored))
+    worst = max(abs(r.losses[0][k] - v) / max(abs(v), 1e-12)
+                for k, v in r.ref_losses.items() if 'loss' in k)
+    check(worst <= RESUME_RTOL, ('trainrun resumed losses', worst,
+                                 r.losses[0], r.ref_losses))
+    phase('trainrun', f'resume from latest: step {TRAIN_STEPS} restored bit '
+          f'for bit ({r.restored[0][1]} tensors, count and step); the '
+          f'resumed step\'s losses within {worst:.3g} (<= {RESUME_RTOL:g}) '
+          f'of the same step from the run\'s own final state on the same '
+          f'batch; step {again.step} saved')
+    del state, again
+    torch.cuda.empty_cache()
+
+    cli_work = os.path.join(TRAIN_DIR, 'cli')
+    cmd = [sys.executable, '-m', 'das_tpu_torch.tools.train', SERVING_CFG,
+           '--work-dir', cli_work, '--max-steps', '2', '--cfg-options'] + [
+        f'{k}={v}' for k, v in opts.items()]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    secs = time.perf_counter() - t
+    check(proc.returncode == 0 and
+          '[das_tpu_torch] trained to step 2' in proc.stdout and
+          os.path.exists(os.path.join(cli_work, 'ckpts',
+                                      'step_00000002.pt')),
+          ('das_tpu_torch.tools.train', proc.returncode,
+           proc.stdout[-2000:], proc.stderr[-2000:]))
+    phase('trainrun', f'python -m das_tpu_torch.tools.train '
+          f'{os.path.relpath(SERVING_CFG, HERE)} --max-steps 2 --cfg-options'
+          f' ...: exit 0 in {secs:.1f} s, step 2 saved')
+    return launches
+
+
 def main():
     import torch
     name, smi = environment()
@@ -1982,10 +2426,23 @@ def main():
     k4b['launches'] = bwd
     k4s['launches'] = n1['gather.sampler_launches'] \
         + n2['gather.sampler_launches']
+    train_k4_vs_plain_on_card(run, ('bf16', 'f32'))
+    synthetic_median = run['median_ms']
+    del run
+    torch.cuda.empty_cache()
+    n8 = trainrun(eval_data, synthetic_median, smi)
     for k in (k1, k2, k3, k4, k4b, k4s):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
-    train_k4_vs_plain_on_card(run, ('bf16', 'f32'))
-    del run
+    k1['launches'] += n8['dcn_shift.launches']
+    k3['launches'] += n8['oks_nms.launches']
+    k4['launches'] += n8['gather.launches']
+    k4b['launches'] += n8['gather.backward_launches']
+    k4s['launches'] += n8['gather.sampler_launches']
+    check(n8['gather.launches'] > 0 and n8['gather.backward_launches'] > 0
+          and n8['dcn_shift.launches'] > 0 and n8['oks_nms.launches'] > 0
+          and n8['gather.sampler_launches'] > 0,
+          ('the training entry point left a kernel of its path unlaunched',
+           n8))
     torch.cuda.empty_cache()
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))

@@ -14,7 +14,7 @@ loads into the port's model with ``strict=True``.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -98,26 +98,49 @@ def strip_prefixes(sd: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_checkpoint_report(model: nn.Module, path: str,
-                           strict: bool = True) -> Dict[str, List[str]]:
+def _read_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth``'s state dict with mmcv's prefixes stripped, less the
+    constants the model does not keep as state (``num_batches_tracked``,
+    the RealNVP ``mask`` buffers), which the JAX bridge drops too."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
+    return {k: v for k, v in strip_prefixes(sd).items()
+            if not (k.endswith('num_batches_tracked') or k.endswith('.mask'))}
+
+
+def _load_report(model: nn.Module, sd: Dict[str, torch.Tensor], strict: bool,
+                 allow_missing_prefixes: Tuple[str, ...] = ()
+                 ) -> Dict[str, List[str]]:
+    allow = tuple(allow_missing_prefixes)
+    result = model.load_state_dict(sd, strict=strict and not allow)
+    missing = [k for k in result.missing_keys if not k.startswith(allow)] \
+        if allow else list(result.missing_keys)
+    unexpected = list(result.unexpected_keys)
+    if strict and (missing or unexpected):
+        raise RuntimeError(f'Missing key(s): {missing[:8]}; unexpected '
+                           f'key(s): {unexpected[:8]}')
+    return dict(missing=missing, unexpected=unexpected)
+
+
+def load_checkpoint_report(model: nn.Module, path: str, strict: bool = True,
+                           allow_missing_prefixes: Tuple[str, ...] = ()
+                           ) -> Dict[str, List[str]]:
     """Load a reference ``.pth`` (or one this port saved) into ``model``
     and return ``{'missing': [...], 'unexpected': [...]}``: the model's keys
     the checkpoint lacks and the checkpoint's keys the model lacks.
 
     ``num_batches_tracked`` and the RealNVP ``mask`` buffers are constants
     the model does not keep as state, so they are dropped first, as the JAX
-    bridge drops them. With ``strict`` any missing or unexpected key raises
-    (nothing is loaded); without it the missing keys keep the model's
-    values and the unexpected ones are ignored, as the JAX bridge's
-    ``merge_into_variables(strict=False)`` does. A shape mismatch always
-    raises."""
-    ckpt = torch.load(path, map_location='cpu', weights_only=False)
-    sd = ckpt.get('state_dict', ckpt) if isinstance(ckpt, dict) else ckpt
-    sd = {k: v for k, v in strip_prefixes(sd).items()
-          if not (k.endswith('num_batches_tracked') or k.endswith('.mask'))}
-    result = model.load_state_dict(sd, strict=strict)
-    return dict(missing=list(result.missing_keys),
-                unexpected=list(result.unexpected_keys))
+    bridge drops them. With ``strict`` any missing or unexpected key raises;
+    without it the missing keys keep the model's values and the unexpected
+    ones are ignored, as the JAX bridge's ``merge_into_variables(strict=
+    False)`` does. Model keys that start with one of
+    ``allow_missing_prefixes`` may be missing even under ``strict`` and are
+    left out of the report, as in the JAX bridge (whose prefixes name flax
+    paths where these name the port's state-dict keys). A shape mismatch
+    always raises."""
+    return _load_report(model, _read_state_dict(path), strict,
+                        allow_missing_prefixes)
 
 
 def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
@@ -125,3 +148,31 @@ def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
     model."""
     load_checkpoint_report(model, path, strict=True)
     return model
+
+
+def load_mspn_pretrained(model: nn.Module, path: str
+                         ) -> Dict[str, List[str]]:
+    """Load an MSPN COCO pretrained backbone into ``model.backbone`` (ref
+    mspn_mmpose.py:669-680): only the checkpoint's ``backbone.`` keys,
+    non-strict; the report's ``missing`` lists what stays at init."""
+    sd = {k: v for k, v in _read_state_dict(path).items()
+          if k.startswith('backbone.')}
+    return _load_report(model, sd, strict=False)
+
+
+def export_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The model's state dict in the reference's keys and layouts, on the
+    CPU, floating tensors in f32 (what the JAX bridge reads into its f32
+    tree); 0-d ``Scale`` parameters keep their () shape."""
+    return {k: (v.detach().float() if v.is_floating_point()
+                else v.detach()).cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def save_torch_checkpoint(model: nn.Module, path: str, meta: Dict = None):
+    """Write a ``.pth`` of ``{'state_dict', 'meta'}`` with the reference
+    layout (JAX ``torch_bridge.save_torch_checkpoint``): what the JAX
+    package's ``load_torch_checkpoint`` and this port's ``load_checkpoint``
+    read."""
+    torch.save(dict(state_dict=export_state_dict(model), meta=meta or {}),
+               path)

@@ -164,3 +164,11 @@ class Config:
             super().__setattr__(name, value)
         else:
             self._cfg_dict[name] = value
+
+    def to_dict(self) -> Dict:
+        return copy.deepcopy(dict(self._cfg_dict))
+
+    def dump(self) -> str:
+        """The config as text (the checkpoint meta's ``config``)."""
+        import pprint
+        return pprint.pformat(self.to_dict(), width=100, sort_dicts=False)

@@ -139,12 +139,13 @@ class BasePoseDataset:
         results['img_fields'] = []
         results['pose3d_fields'] = []
 
-    def prepare_train_img(self, idx: int):
+    def prepare_train_img(self, idx: int, rng: np.random.RandomState):
         ann_info = self.get_ann_info(idx)
         if ann_info is None or len(ann_info['gt_poses_3d']) == 0:
             return None
         results = dict(img_info=self.data_infos[idx], ann_info=ann_info)
         self.pre_pipeline(results)
+        results['rng'] = rng
         return self.pipeline(results)
 
     def prepare_test_img(self, idx: int):
@@ -213,14 +214,23 @@ class BasePoseDataset:
         return entries, res_file
 
     def __getitem__(self, idx: int):
+        return self.sample(idx)
+
+    def sample(self, idx: int, rng: Optional[np.random.RandomState] = None):
+        """Sample ``idx``. In train mode every random draw comes from
+        ``rng`` (``RandomState(idx)`` when none is given): the transforms'
+        draws, then, where the pipeline rejects the sample, the index of
+        the one drawn in its place (mmdet's ``_rand_another``), in the JAX
+        dataset's order."""
         if self.test_mode:
             return self.prepare_test_img(idx)
-        # resample on invalid, like mmdet's _rand_another
+        if rng is None:
+            rng = np.random.RandomState(idx)
         for _ in range(64):
-            data = self.prepare_train_img(idx)
+            data = self.prepare_train_img(idx, rng)
             if data is not None:
                 return data
-            idx = np.random.randint(len(self))
+            idx = rng.randint(len(self))
         raise RuntimeError('failed to draw a valid training sample')
 
 
@@ -235,9 +245,12 @@ class ConcatDataset:
         return int(self.cum[-1])
 
     def __getitem__(self, idx):
+        return self.sample(idx)
+
+    def sample(self, idx, rng=None):
         d = int(np.searchsorted(self.cum, idx, side='right'))
         base = 0 if d == 0 else int(self.cum[d - 1])
-        return self.datasets[d][idx - base]
+        return self.datasets[d].sample(idx - base, rng)
 
 
 class RepeatDataset:
@@ -249,4 +262,7 @@ class RepeatDataset:
         return len(self.dataset) * self.times
 
     def __getitem__(self, idx):
-        return self.dataset[idx % len(self.dataset)]
+        return self.sample(idx)
+
+    def sample(self, idx, rng=None):
+        return self.dataset.sample(idx % len(self.dataset), rng)

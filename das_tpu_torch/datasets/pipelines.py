@@ -1,23 +1,36 @@
-"""Host test-pipeline transforms (numpy), mmdet-pipeline protocol; the
-port's copy of the evaluation transforms of ``das_tpu/datasets/pipelines.py``
-(ref: configs/das/exp_panoptic.py:59-155 and
+"""Host pipeline transforms (numpy, cv2), mmdet-pipeline protocol; the
+port's copy of ``das_tpu/datasets/pipelines.py`` (ref:
+configs/das/exp_panoptic.py:59-155 and
 mmdet3d/datasets/pipelines/transforms_3d.py):
 
 * ``LoadImageFromFile`` (through ``utils/image.imread``) /
   ``LoadAnnotationsPose3D``            (ref loading.py:672-736)
-* ``Resize``                           (mmdet Resize, keep_ratio)
+* ``Resize`` / ``ResizePose``          (mmdet Resize, keep_ratio; ref
+  transforms_3d.py:20-61)
 * ``RandomFlipPose3D``                 (ref transforms_3d.py:236-356)
+* ``PhotoMetricDistortion``            (mmdet semantics)
+* ``GlobalRotScaleTransPose``          (ref transforms_3d.py:864-1130)
 * ``Normalize`` / ``Pad`` / ``DefaultFormatBundlePose3D`` / ``Collect3D``
   / ``MultiScaleFlipAug``
 
-``Resize`` is ``cv2.resize`` on the image as loaded (uint8 for the test
-pipelines), imported where it runs: on a host without ``cv2`` the host
-pipeline raises there, and evaluation takes the device path
-(``apis/test.py``, ``device_preprocess``), which needs only a decode.
+Every random draw comes from the sample's own generator,
+``results['rng']`` (an ``np.random.RandomState`` that the dataset puts into
+each training sample), in the JAX transforms' order draw for draw: a
+transform seeded ``RandomState(s)`` gives what the JAX one gives after
+``np.random.seed(s)``. A transform that needs no draw (one scale, ``flip``
+already set) reads no generator.
+
+``cv2`` is imported where it runs (``Resize``, ``PhotoMetricDistortion``'s
+HSV round trip, ``GlobalRotScaleTransPose``'s warp): on a host without it
+the host pipeline raises there, and evaluation takes the device path
+(``apis/test.py``, ``device_preprocess``), which needs only a decode. The
+JAX transforms take their ``native`` C++ resize and warp when
+``das_tpu/libdas_host.so`` loads; the port runs the ``cv2`` path.
 """
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Sequence, Tuple
 
@@ -25,6 +38,17 @@ import numpy as np
 
 from ..config.registry import PIPELINES, build_from_cfg
 from ..utils.image import imread
+
+
+def _rng(results) -> np.random.RandomState:
+    """The sample's generator, ``results['rng']``; every random draw of a
+    transform comes from it."""
+    rng = results.get('rng')
+    if rng is None:
+        raise KeyError("a random transform needs results['rng'], the "
+                       "sample's np.random.RandomState (the dataset puts "
+                       'one into every training sample)')
+    return rng
 
 
 class Compose:
@@ -124,23 +148,24 @@ class Resize:
             self.img_scale = [tuple(img_scale)]
         self.multiscale_mode = multiscale_mode
 
-    def _pick_scale(self):
+    def _pick_scale(self, results):
         if len(self.img_scale) == 1:
             return self.img_scale[0]
+        rng = _rng(results)
         if self.multiscale_mode == 'range':
             longs = [max(s) for s in self.img_scale]
             shorts = [min(s) for s in self.img_scale]
-            long_edge = np.random.randint(min(longs), max(longs) + 1)
-            short_edge = np.random.randint(min(shorts), max(shorts) + 1)
+            long_edge = rng.randint(min(longs), max(longs) + 1)
+            short_edge = rng.randint(min(shorts), max(shorts) + 1)
             return (long_edge, short_edge)
-        idx = np.random.randint(len(self.img_scale))
+        idx = rng.randint(len(self.img_scale))
         return self.img_scale[idx]
 
     def __call__(self, results):
         import cv2
 
         if 'scale' not in results:
-            results['scale'] = self._pick_scale()
+            results['scale'] = self._pick_scale(results)
         img = results['img']
         h, w = img.shape[:2]
         new_h, new_w = _rescale_size(h, w, results['scale'])
@@ -160,6 +185,41 @@ class Resize:
 
 
 @PIPELINES.register_module()
+class ResizePose(Resize):
+    """Resize + pose rescale (ref transforms_3d.py:20-61)."""
+
+    def __init__(self, scale_depth=False, abs_dz=False, **kwargs):
+        super().__init__(**kwargs)
+        self.scale_depth = scale_depth
+        self.abs_dz = abs_dz
+        if self.abs_dz:
+            assert scale_depth
+
+    def __call__(self, results):
+        super().__call__(results)
+        scale_factor = results['scale_factor'][:2]
+        num_joints = (results['gt_poses_3d'].shape[-1] - 3) // 4
+        centers2d = results['centers2d'] * scale_factor
+        depths = results['depths']
+        joints = results['gt_poses_3d'][:, 3:3 + num_joints * 3] \
+            .reshape(-1, num_joints, 3).copy()
+        joints_vis = results['gt_poses_3d'][:, 3 + num_joints * 3:]
+        joints[..., :2] = joints[..., :2] * scale_factor
+        if self.scale_depth:
+            depth_scale = np.sqrt(scale_factor.prod())
+            depths = depths / depth_scale
+            if not self.abs_dz:
+                joints[..., 2] = joints[..., 2] / depth_scale
+        results['centers2d'] = centers2d
+        results['depths'] = depths
+        results['gt_poses_3d'] = np.concatenate([
+            centers2d, depths.reshape(-1, 1),
+            joints.reshape(-1, num_joints * 3), joints_vis
+        ], axis=-1).astype(np.float32)
+        return results
+
+
+@PIPELINES.register_module()
 class RandomFlipPose3D:
     """Horizontal flip of image + pose with left/right joint swapping
     (ref transforms_3d.py:236-356)."""
@@ -172,7 +232,7 @@ class RandomFlipPose3D:
 
     def __call__(self, results):
         if 'flip' not in results:
-            results['flip'] = bool(np.random.rand() < self.flip_ratio)
+            results['flip'] = bool(_rng(results).rand() < self.flip_ratio)
         results['flip_direction'] = 'horizontal'
         results['pcd_horizontal_flip'] = results['flip']
         if not results['flip']:
@@ -206,6 +266,214 @@ class RandomFlipPose3D:
                 joints.reshape(-1, J * 3), joints_vis
             ], axis=-1).astype(np.float32)
         return results
+
+
+@PIPELINES.register_module()
+class PhotoMetricDistortion:
+    """mmdet photometric distortion: random brightness/contrast/HSV."""
+
+    def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
+                 saturation_range=(0.5, 1.5), hue_delta=18):
+        self.brightness_delta = brightness_delta
+        self.contrast_lower, self.contrast_upper = contrast_range
+        self.saturation_lower, self.saturation_upper = saturation_range
+        self.hue_delta = hue_delta
+
+    def __call__(self, results):
+        import cv2
+
+        rng = _rng(results)
+        img = results['img'].astype(np.float32)
+        if rng.randint(2):
+            img += rng.uniform(-self.brightness_delta, self.brightness_delta)
+        mode = rng.randint(2)
+        if mode == 1 and rng.randint(2):
+            img *= rng.uniform(self.contrast_lower, self.contrast_upper)
+        # saturation / hue in HSV; the second integer is drawn only when the
+        # first is 0, as the JAX transform's ``or`` draws it
+        if rng.randint(2) or rng.randint(2):
+            hsv = cv2.cvtColor(np.clip(img, 0, 255).astype(np.uint8),
+                               cv2.COLOR_BGR2HSV).astype(np.float32)
+            if rng.randint(2):
+                hsv[..., 1] *= rng.uniform(self.saturation_lower,
+                                           self.saturation_upper)
+            if rng.randint(2):
+                hsv[..., 0] += rng.uniform(-self.hue_delta, self.hue_delta)
+                hsv[..., 0][hsv[..., 0] > 360] -= 360
+                hsv[..., 0][hsv[..., 0] < 0] += 360
+            hsv[..., 1] = np.clip(hsv[..., 1], 0, 255)
+            img = cv2.cvtColor(hsv.astype(np.uint8),
+                               cv2.COLOR_HSV2BGR).astype(np.float32)
+        if mode == 0 and rng.randint(2):
+            img *= rng.uniform(self.contrast_lower, self.contrast_upper)
+        results['img'] = img
+        return results
+
+
+def get_3rd_point(a, b):
+    direct = a - b
+    return b + np.array([-direct[1], direct[0]], dtype=np.float32)
+
+
+def get_dir(src_point, rot_rad):
+    sn, cs = np.sin(rot_rad), np.cos(rot_rad)
+    return [src_point[0] * cs - src_point[1] * sn,
+            src_point[0] * sn + src_point[1] * cs]
+
+
+def get_affine_transform(center, scale, rot, output_size,
+                         shift=np.array([0, 0], np.float32), inv=0):
+    """The affine matrix (ref transforms_3d.py:864-898)."""
+    import cv2
+
+    if not isinstance(scale, (np.ndarray, list)):
+        scale = np.array([scale, scale])
+    src_w = scale[0]
+    dst_w, dst_h = output_size[0], output_size[1]
+    rot_rad = np.pi * rot / 180
+    src_dir = get_dir([0, src_w * -0.5], rot_rad)
+    dst_dir = np.array([0, dst_w * -0.5], np.float32)
+    src = np.zeros((3, 2), np.float32)
+    dst = np.zeros((3, 2), np.float32)
+    src[0, :] = center + scale * shift
+    src[1, :] = center + src_dir + scale * shift
+    dst[0, :] = [dst_w * 0.5, dst_h * 0.5]
+    dst[1, :] = np.array([dst_w * 0.5, dst_h * 0.5]) + dst_dir
+    src[2:, :] = get_3rd_point(src[0, :], src[1, :])
+    dst[2:, :] = get_3rd_point(dst[0, :], dst[1, :])
+    if inv:
+        return cv2.getAffineTransform(np.float32(dst), np.float32(src))
+    return cv2.getAffineTransform(np.float32(src), np.float32(dst))
+
+
+@PIPELINES.register_module()
+class GlobalRotScaleTransPose:
+    """Random rot/scale/translate as a 2D affine warp of image + poses
+    (ref transforms_3d.py:902-1130), incl. joint-visibility filtering.
+    Returns ``None`` (the dataset draws another sample) when fewer than 2
+    roots stay in the image."""
+
+    def __init__(self, rot_range=(-0.78539816, 0.78539816),
+                 scale_ratio_range=(0.95, 1.05), translation_std=(0, 0),
+                 num_joints=None, scale_depth=False, abs_dz=False,
+                 img_norm_cfg=None, use_bbox_center=False,
+                 abs_dz_ref_compat=False, **kwargs):
+        if not isinstance(rot_range, (list, tuple, np.ndarray)):
+            rot_range = [-rot_range, rot_range]
+        self.rot_range = rot_range
+        self.scale_ratio_range = scale_ratio_range
+        self.translation_std = translation_std
+        self.num_joints = num_joints
+        self.scale_depth = scale_depth
+        self.abs_dz = abs_dz
+        # the JAX package's recorded deviation, kept as it is: the reference
+        # (transforms_3d.py:1000-1003) writes ``joints_depth[0] *= scale`` on
+        # a (batch, J+1, 1) array, which scales every joint depth of the
+        # FIRST PERSON only, against its own abs_dz intent (root depth
+        # absolute, joint dz relative). The ROOT depth of EVERY person is
+        # scaled (``joints_depth[:, 0]``); abs_dz_ref_compat=True gives the
+        # reference's literal behaviour.
+        self.abs_dz_ref_compat = abs_dz_ref_compat
+        if abs_dz:
+            assert scale_depth
+        if img_norm_cfg is not None:
+            mean = list(img_norm_cfg['mean'])
+            self.img_mean = mean[::-1] if img_norm_cfg.get('to_rgb') \
+                else mean
+        else:
+            self.img_mean = [127.5, 127.5, 127.5]
+        self.use_bbox_center = use_bbox_center
+
+    def __call__(self, input_dict):
+        import cv2
+
+        rng = _rng(input_dict)
+        rot = rng.uniform(*self.rot_range) / math.pi * 180
+        scale = rng.uniform(*self.scale_ratio_range)
+        trans_factor = rng.normal(
+            scale=np.array(self.translation_std, np.float32), size=2)
+
+        h, w = input_dict['img_shape'][:2]
+        J = self.num_joints
+        center = np.array([w / 2, h / 2], np.float64) * (1 + trans_factor)
+        new_scale = np.array([w, h], np.float64) * scale
+        trans = get_affine_transform(center, new_scale, rot, [w, h])
+
+        for key in input_dict.get('img_fields', ['img']):
+            input_dict[key] = cv2.warpAffine(
+                input_dict[key], trans, (int(w), int(h)),
+                flags=cv2.INTER_LINEAR, borderValue=self.img_mean)
+
+        # warp centers + joints through the same affine
+        joints = input_dict['gt_poses_3d'][:, :3 + J * 3].copy()
+        batch = len(joints)
+        joints_vis = input_dict['gt_poses_3d'][:, 3 + J * 3:] \
+            .reshape(batch, J).copy()
+        joints = joints.reshape(batch, J + 1, 3)
+        joints_depth = joints[..., [2]].copy()
+        if self.scale_depth:
+            if not self.abs_dz:
+                joints_depth = joints_depth * scale
+            elif self.abs_dz_ref_compat:
+                # reference-literal: first PERSON's depths (see __init__)
+                joints_depth[0] = joints_depth[0] * scale
+            else:
+                # abs_dz: only the root (index 0 = center) depth scales
+                joints_depth[:, 0] = joints_depth[:, 0] * scale
+
+        hom = joints.copy()
+        hom[..., 2] = 1
+        warped = hom.reshape(-1, 3) @ trans.T
+        warped = warped.reshape(batch, J + 1, 2)
+        new_joints = np.concatenate([warped, joints_depth], axis=-1)
+
+        # warp bboxes via their 4 corners
+        gt_bboxes = input_dict['gt_bboxes']
+        corners = gt_bboxes.reshape(batch, 2, 2)
+        corners_rev = corners.copy()
+        corners_rev[..., 1] = corners[..., 1][:, ::-1]
+        corners4 = np.concatenate([corners, corners_rev], axis=1)
+        corners4 = np.concatenate(
+            [corners4, np.ones([batch, 4, 1])], axis=-1).reshape(-1, 3)
+        corners4 = (corners4 @ trans.T)[:, :2].reshape(batch, 4, 2)
+        new_bboxes = np.concatenate(
+            [corners4.min(axis=1), corners4.max(axis=1)], axis=-1)
+        new_bboxes[:, 0::2] = new_bboxes[:, 0::2].clip(0, w - 1)
+        new_bboxes[:, 1::2] = new_bboxes[:, 1::2].clip(0, h - 1)
+
+        # out-of-bound joints -> invisible; root out -> drop the person
+        out_of_bound = (warped[..., 0] < 0) | (warped[..., 0] > w - 1) | \
+                       (warped[..., 1] < 0) | (warped[..., 1] > h - 1)
+        joints_vis[out_of_bound[:, 1:]] = 0
+        if not self.use_bbox_center:
+            valid = ~out_of_bound[:, 0]
+            gt_poses_3d = np.concatenate([
+                new_joints.reshape(batch, -1), joints_vis
+            ], axis=-1).astype(np.float32)
+            if valid.sum() < 2:
+                return None
+        else:
+            new_centers = np.stack(
+                [new_bboxes[:, 0::2].mean(-1), new_bboxes[:, 1::2].mean(-1),
+                 new_joints[:, 0, -1]], axis=-1)
+            gt_poses_3d = np.concatenate([
+                new_centers, new_joints[:, 1:].reshape(batch, -1),
+                joints_vis
+            ], axis=-1).astype(np.float32)
+            valid = (joints_vis.sum(-1) >= 3) & \
+                ((gt_bboxes[:, 2:] - gt_bboxes[:, :2]).prod() > 64)
+
+        input_dict['gt_poses_3d'] = gt_poses_3d[valid].copy()
+        input_dict['gt_bboxes'] = new_bboxes[valid]
+        input_dict['centers2d'] = gt_poses_3d[:, :2][valid].copy()
+        input_dict['depths'] = gt_poses_3d[:, 2][valid].copy()
+        input_dict['gt_labels'] = input_dict['gt_labels'][valid]
+        input_dict['gt_labels_3d'] = input_dict['gt_labels_3d'][valid]
+        input_dict['transform_mat'] = trans
+        input_dict['pcd_rot'] = rot
+        input_dict['pcd_scale_factor'] = scale
+        input_dict['pcd_trans'] = trans_factor
+        return input_dict
 
 
 @PIPELINES.register_module()

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import time
 from typing import Dict, Sequence, Tuple
@@ -32,6 +31,7 @@ import torch
 from torch.autograd import DeviceType
 
 from ..config import Config
+from ..datasets.loader import train_pad_hw_from_cfg
 from ..models import build_trainable_model
 from ..ops import gather
 from ..parallel import (TrainState, make_lr_fn, make_optimizer,
@@ -46,23 +46,18 @@ REACH = (40.0, 120.0, 240.0, 480.0)
 
 
 def train_pad_hw(pipeline) -> Tuple[int, int]:
-    """The fixed train bucket of a train pipeline: the largest short side
-    and long side of its resize scales, each padded to a multiple of 32
-    (as the JAX loader's ``train_pad_hw_from_cfg``). A pipeline without a
-    ``Resize``/``ResizePose`` step with ``img_scale`` raises ``ValueError``
-    where the loader falls back to 640x1344: a profile at a guessed size
-    would report the shipped config's numbers under another config's
-    name."""
-    for t in pipeline:
-        if t.get('type') in ('ResizePose', 'Resize') and 'img_scale' in t:
-            scales = t['img_scale']
-            if not isinstance(scales[0], (list, tuple)):
-                scales = [scales]
-            h = max(min(s) for s in scales)
-            w = max(max(s) for s in scales)
-            return 32 * math.ceil(h / 32), 32 * math.ceil(w / 32)
-    raise ValueError('the train pipeline has no Resize/ResizePose step with '
-                     'img_scale, so no train bucket')
+    """The fixed train bucket of a train pipeline, as the loader's
+    ``train_pad_hw_from_cfg`` gives it: the largest short side and long
+    side of its resize scales, each padded to a multiple of 32. A pipeline
+    without a ``Resize``/``ResizePose`` step with ``img_scale`` raises
+    ``ValueError`` where the loader falls back to 640x1344: a profile at a
+    guessed size would report the shipped config's numbers under another
+    config's name."""
+    if not any(t.get('type') in ('ResizePose', 'Resize') and 'img_scale' in t
+               for t in pipeline):
+        raise ValueError('the train pipeline has no Resize/ResizePose step '
+                         'with img_scale, so no train bucket')
+    return train_pad_hw_from_cfg(pipeline)
 
 
 def synthetic_batch(B: int, H: int, W: int, num_joints: int,

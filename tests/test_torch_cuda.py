@@ -617,3 +617,28 @@ def test_train_gradients_k4_vs_plain_on_the_card(cuda, monkeypatch):
         if own < 1e-6 * top:
             tol = max(tol, 1e-6 * top)
         assert float((gk[k] - want).abs().max()) <= tol, k
+
+
+def test_prefetch_to_device_pinned_ring_matches_the_host(cuda):
+    """train_model's prefetch on the card: each batch (the loader's keys
+    and dtypes, a ragged last image) arrives on the card equal to the host
+    arrays, in order, through a ring of two pinned buffers refilled while
+    the compute stream still reads the earlier copies; a kernel on the
+    compute stream between batches does not disturb them."""
+    from das_tpu_torch.apis import prefetch_to_device
+    rng = np.random.RandomState(0)
+    host = [dict(img=rng.rand(4, 64, 96, 3).astype(np.float32),
+                 gt_poses_3d=rng.rand(4, 8, 3 + 4 * J).astype(np.float32),
+                 gt_valid=rng.rand(4, 8) < 0.5) for _ in range(7)]
+    seen = []
+    for i, b in enumerate(prefetch_to_device(iter(host), cuda)):
+        assert all(t.device.type == 'cuda' for t in b.values())
+        # work on the compute stream while the next copy is under way
+        seen.append({k: (t.float() * 1.0).to(t.dtype) for k, t in b.items()})
+        torch.cuda._sleep(1_000_000)
+    torch.cuda.synchronize()
+    assert len(seen) == len(host)
+    for got, want in zip(seen, host):
+        for k, v in want.items():
+            assert got[k].dtype == torch.from_numpy(v).dtype, k
+            assert np.array_equal(got[k].cpu().numpy(), v), k
