@@ -73,7 +73,22 @@ nonzero and prints no result:
    bit; its losses against the same step from the run's own final state);
    and ``python -m das_tpu_torch.tools.train`` once as a subprocess for 2
    steps. The counts are set to 0 just before the first ``train_model`` run
-   and read just after; those launches go into the kernels line.
+   and read just after; those launches go into the kernels line;
+9. data parallelism ("dataparallel", ``parallel/mesh.py``): a NCCL process
+   group of this process alone (world of one, the card's own NCCL path):
+   the cut fp32 step of phase 6 at B=4 through the group path against the
+   same step with no group, a full-width bf16 step over NCCL, and
+   ``run_test`` through the group against phase 7's results; then two ranks
+   spawned on the one card over gloo (NCCL takes one rank a card): the cut
+   fp32 step at B=2 a rank against one process at B=4, ``train_model`` on
+   phase 8's mix at B=2 a rank for one epoch (4 steps; 12 + 12 K4 launches
+   a step on each rank, replicas bit-equal, one checkpoint by rank 0, the
+   DCN check and the sharded eval hook), the sharded ``run_test`` against
+   phase 7's results; ``python -m torch.distributed.run --nproc-per-node 2
+   -m das_tpu_torch.tools.train ... --launcher pytorch --dist-backend
+   gloo``; and, on a host with two cards or more, ``train_model`` over
+   NCCL, one card a rank. The ranks' launches go into the kernels line as
+   ``phase9_launches_per_rank``.
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1454,6 +1469,34 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     keep_master_weights(model, torch.bfloat16)
 
 
+def cut_train_cfg():
+    """exp_panoptic_tpu with the backbone cut to one stage of one block per
+    unit, widths kept: a random-init train-mode forward at full depth
+    amplifies two devices' (or two reduction orders') rounding to ~1e-2 at
+    the FPN outputs (see train_kernel_vs_plain)."""
+    from das_tpu_torch.config import Config
+    cfg = Config.fromfile(SERVING_CFG)
+    cfg.model.backbone.update(num_stages=1, num_blocks=[1, 1, 1, 1])
+    return cfg
+
+
+def leaves_close(got, want, what, rtol=CARD_CPU_RTOL):
+    """Each leaf of ``got`` within ``rtol`` of the largest value of its leaf
+    in ``want``, a leaf that is zero to rounding (below ZERO_GRAD of the
+    largest of all) within 10 x ZERO_GRAD of that largest; returns the
+    worst error / tolerance of each kind and the tolerances."""
+    top = max(float(w.abs().max()) for w in want.values())
+    worst, tols = [0.0, 0.0], {}
+    for k, w in want.items():
+        own = float(w.abs().max())
+        zero = own < ZERO_GRAD * top
+        tol = 10 * ZERO_GRAD * top if zero else rtol * own
+        err = float((got[k] - w).abs().max())
+        check(err <= tol, (what, k, err, own, top))
+        worst[zero], tols[k] = max(worst[zero], err / tol), tol
+    return worst, tols
+
+
 def train_kernel_vs_plain():
     """One fp32 step of exp_panoptic_tpu at B=2 128x160 on the card (K4
     live) and on the CPU (plain), same weights and batch, TF32 off: first
@@ -1478,7 +1521,6 @@ def train_kernel_vs_plain():
     outputs. ``train_k4_vs_plain_on_card`` holds K4 in the full model, where
     both sides run on the card."""
     import torch
-    from das_tpu_torch.config import Config
     from das_tpu_torch.ops import gather
     from das_tpu_torch.parallel import (frozen_mask, mspn_frozen_prefixes,
                                         param_groups)
@@ -1486,8 +1528,7 @@ def train_kernel_vs_plain():
                                                    synthetic_batch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = Config.fromfile(SERVING_CFG)
-    cfg.model.backbone.update(num_stages=1, num_blocks=[1, 1, 1, 1])
+    cfg = cut_train_cfg()
     head = cfg.model.bbox_head
     B, H, W = 2, 128, 160
     cpu, cpu_step, lr_fn, max_pos = make_trainer(cfg, torch.float32, 'cpu',
@@ -1508,24 +1549,7 @@ def train_kernel_vs_plain():
     check(sorted(gg) == sorted(gc) and min(gathers) > 0,
           ('gradient keys or K4 launches', gathers))
     p0 = {k: v.clone() for k, v in cpu.model.state_dict().items()}
-
-    def close(got, want, what):
-        """Each leaf within CARD_CPU_RTOL of its largest, a leaf that is
-        zero to rounding within 10 x ZERO_GRAD of the largest of all;
-        returns the worst error / tolerance of each kind and the
-        tolerances."""
-        top = max(float(w.abs().max()) for w in want.values())
-        worst, tols = [0.0, 0.0], {}
-        for k, w in want.items():
-            own = float(w.abs().max())
-            zero = own < ZERO_GRAD * top
-            tol = 10 * ZERO_GRAD * top if zero else CARD_CPU_RTOL * own
-            err = float((got[k] - w).abs().max())
-            check(err <= tol, (what, k, err, own, top))
-            worst[zero], tols[k] = max(worst[zero], err / tol), tol
-        return worst, tols
-
-    g_worst, _ = close(gg, gc, 'gradient')
+    g_worst, _ = leaves_close(gg, gc, 'gradient')
     cpu, mc = cpu_step(cpu, batch)
     gpu, mg = gpu_step(gpu, {k: torch.from_numpy(v).cuda()
                              for k, v in batch.items()})
@@ -1540,7 +1564,7 @@ def train_kernel_vs_plain():
     f = {k: -lr_fn(0) * lr_mult[k] * trainable[k] for k in trainable}
     uc = {k: f[k] * m for k, m in cpu.opt_state['momentum'].items()}
     ug = {k: f[k] * m.cpu() for k, m in gpu.opt_state['momentum'].items()}
-    u_worst, u_tol = close(ug, uc, 'update')
+    u_worst, u_tol = leaves_close(ug, uc, 'update')
     sc, sg = cpu.model.state_dict(), gpu.model.state_dict()
     for k in uc:
         p = sc[k]
@@ -1730,7 +1754,8 @@ def eval_sweep(model, cfg_path, data, expect):
     (bf16, on the card) with the pose template of phase 4's NMS check and
     the cls bias at 0, so that people pass score_thr. Each batch must launch
     exactly its share of ``expect`` (as ``main_path``); people must be found
-    and MPJPE finite. Returns ({count: launches over the sweep}, images/s)."""
+    and MPJPE finite. Returns ({count: launches over the sweep}, images/s,
+    the sweep's results)."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import run_test
@@ -1769,7 +1794,7 @@ def eval_sweep(model, cfg_path, data, expect):
           f"{res['mpjpe_mm']:.2f} mm (random weights); launches per batch "
           + '; '.join(', '.join(f'{v} {k}' for k, v in b.items())
                       for b in batches))
-    return totals, len(ds) / secs
+    return totals, len(ds) / secs, outs
 
 
 def device_preprocess_vs_float64(data, smi):
@@ -2248,7 +2273,8 @@ def trainrun(eval_data, synthetic_median, smi):
     an epoch end inside (save, DCN-offset check, eval hook on phase 7's
     frames), a resume from 'latest' for one step, and ``python -m
     das_tpu_torch.tools.train`` for 2 steps. Returns the launches of the
-    run (counts set to 0 just before, read just after)."""
+    run (counts set to 0 just before, read just after), the run's
+    ``--cfg-options`` (the data on disk) and its median step ms."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import train_model
@@ -2375,7 +2401,525 @@ def trainrun(eval_data, synthetic_median, smi):
     phase('trainrun', f'python -m das_tpu_torch.tools.train '
           f'{os.path.relpath(SERVING_CFG, HERE)} --max-steps 2 --cfg-options'
           f' ...: exit 0 in {secs:.1f} s, step 2 saved')
-    return launches
+    return launches, opts, float(plain)
+
+
+# ------------------------------------------------------- 9. data parallel
+
+DP_DIR = os.path.join(HERE, 'build', 'chip_smoke_dp')
+# phase 8's 16 frames at a global batch of 4, 2 a rank, are one epoch
+DP_STEPS = 4
+DP_BATCH = 2
+DP_RANK_TIMEOUT = 600
+# the card the gloo ranks share (and the one-process reference's)
+DP_DEVICE = 'cuda:0'
+KERNEL_COUNTS = ('dcn_shift.launches', 'conv_gn.launches',
+                 'oks_nms.launches', 'gather.launches',
+                 'gather.backward_launches', 'gather.sampler_launches')
+
+
+def kernel_counts():
+    """Every kernel's launch count in this process, by label."""
+    from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
+    mods = dict(dcn_shift=dcn_shift, conv_gn=conv_gn, oks_nms=oks_nms,
+                gather=gather)
+    return {k: getattr(mods[k.split('.')[0]], k.split('.')[1])
+            for k in KERNEL_COUNTS}
+
+
+def replica_mismatches(tensors, group):
+    """Elements of ``tensors`` that differ from rank 0's copy (broadcast
+    through the same flat buffers as ``replicate``)."""
+    import torch
+    import torch.distributed as dist
+    from das_tpu_torch.parallel import mesh
+    tensors = [t.detach() for t in tensors]
+    copies = [t.clone() for t in tensors]
+    src = dist.get_global_rank(group, 0)
+    mesh._flat_collective(copies, lambda t: dist.broadcast(t, src=src,
+                                                           group=group))
+    return sum(int((a != b).sum()) for a, b in zip(copies, tensors))
+
+
+def dp_parity_job(rank, group, dev, ref_path):
+    """The cut fp32 step of ``dp_parity_reference`` on this rank's share of
+    its B=4 batch, through the group path (TF32 off): the summed metrics,
+    the state after it (rank 0) and the elements that differ from rank
+    0's replica."""
+    import torch
+    import torch.distributed as dist
+    from das_tpu_torch.tools.profile_train import make_trainer
+    ref = torch.load(ref_path, weights_only=False)
+    B, H, W = ref['batch']['img'].shape[:3]
+    share = B // dist.get_world_size(group)
+    state, step, _, max_pos = make_trainer(cut_train_cfg(), torch.float32,
+                                           dev, share, (H, W), seed=3,
+                                           group=group)
+    state.model.load_state_dict(ref['sd0'], strict=True)
+    batch = {k: torch.from_numpy(v[rank * share:(rank + 1) * share]).to(dev)
+             for k, v in ref['batch'].items()}
+    with no_tf32():
+        state, metrics = step(state, batch)
+    mom = state.opt_state['momentum']
+    out = dict(metrics={k: float(v) for k, v in metrics.items()},
+               max_pos=max_pos, mismatches=replica_mismatches(
+                   [*state.model.state_dict().values(), *mom.values()],
+                   group))
+    if rank == 0:
+        out.update(sd={k: v.cpu() for k, v in state.model.state_dict()
+                       .items()}, momentum={k: v.cpu()
+                                            for k, v in mom.items()})
+    return out
+
+
+def dp_train_job(rank, group, dev, opts, work):
+    """``train_model`` on exp_panoptic_tpu from phase 8's mix on disk, this
+    rank's DP_BATCH a step of the global batch, bf16 on f32 master weights,
+    DP_STEPS steps (one epoch: the save, the DCN-offset check, the sharded
+    eval hook). Each step: 12 + 12 K4 launches and no K1 or K3, every
+    metric finite, host ms around it (synchronised) and around its gradient
+    all-reduce. Returns those, the run's launches, this rank's peak memory
+    and its elements that differ from rank 0's replica."""
+    import numpy as np
+    import torch
+    import das_tpu_torch.apis.train as train_api
+    import das_tpu_torch.parallel.train_step as step_api
+    from das_tpu_torch.apis import train_model
+    from das_tpu_torch.config import Config
+    cfg = Config.fromfile(SERVING_CFG)
+    cfg.merge_from_dict(dict(opts, **{'data.samples_per_gpu': DP_BATCH}))
+    real_make, real_reduce = train_api.make_train_step, \
+        step_api.all_reduce_grads
+    steps, reduce_ms, losses = [], [], []
+
+    def timed_reduce(grads, group_):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        real_reduce(grads, group_)
+        torch.cuda.synchronize(dev)
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+
+    def make(*a, **k):
+        real = real_make(*a, **k)
+
+        def counted(state, batch):
+            before = kernel_counts()
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            state, metrics = real(state, batch)
+            torch.cuda.synchronize(dev)
+            steps.append((time.perf_counter() - t) * 1e3)
+            after = kernel_counts()
+            got = [after[k] - before[k] for k in (
+                'gather.launches', 'gather.backward_launches',
+                'dcn_shift.launches', 'oks_nms.launches')]
+            check(got == [K4_PER_STEP, K4_PER_STEP, 0, 0],
+                  ('dataparallel step launches (K4, K4 backward, K1, K3)',
+                   rank, state.step, got))
+            m = {k: float(v) for k, v in metrics.items()}
+            check(all(math.isfinite(v) for v in m.values()),
+                  ('dataparallel step', rank, state.step, m))
+            losses.append(m)
+            return state, metrics
+        return counted
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    start = kernel_counts()
+    train_api.make_train_step, step_api.all_reduce_grads = make, \
+        timed_reduce
+    try:
+        state = train_model(cfg, work_dir=work, max_steps=DP_STEPS,
+                            log_interval=2, device=dev, group=group)
+        torch.cuda.synchronize(dev)
+    finally:
+        train_api.make_train_step, step_api.all_reduce_grads = real_make, \
+            real_reduce
+    end = kernel_counts()
+    mism = replica_mismatches(
+        [*state.model.state_dict().values(),
+         *state.opt_state['momentum'].values()], group)
+    return dict(step=state.step, steps_ms=steps, reduce_ms=reduce_ms,
+                losses=losses, median_ms=float(np.median(steps)),
+                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                launches={k: end[k] - start[k] for k in KERNEL_COUNTS},
+                mismatches=mism, tensors=len(state.model.state_dict()))
+
+
+def served_model(served_path, dev):
+    """Phase 7's served exp_panoptic_tpu model (its bf16 state on disk) on
+    ``dev``, in the config's DCN mode."""
+    import torch
+    from das_tpu_torch.apis import init_model
+    model, _ = init_model(SERVING_CFG, dtype=torch.bfloat16, device=dev,
+                          validate_dcn=False)
+    model.load_state_dict(torch.load(served_path, map_location=dev),
+                          strict=True)
+    return model
+
+
+def dp_eval_job(rank, group, dev, served_path, eval_data):
+    """``run_test`` of phase 7's served model over the group: this rank
+    sweeps frames rank, rank + W, ...; every rank returns all 8."""
+    from das_tpu_torch.apis import run_test
+    from das_tpu_torch.datasets import build_dataset
+    cfg = eval_config(SERVING_CFG, *eval_data)
+    return run_test(served_model(served_path, dev),
+                    build_dataset(cfg.data['test']), cfg, batch_size=4,
+                    progress=False, device_preprocess=True, group=group)
+
+
+def dp_rank_main(rank, world, backend, devices, store, jobs, out):
+    """A spawned rank: join the group through the FileStore at ``store``,
+    run each job ``(name, fn, kwargs)`` as ``fn(rank, group, device,
+    **kwargs)``, save the results to ``out.<rank>``; on an error save the
+    traceback to ``out.<rank>.err`` and exit nonzero."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, HERE)
+    from das_tpu_torch.parallel import init_distributed
+    try:
+        dev = init_distributed('pytorch', backend, devices[rank],
+                               init_method=f'file://{store}')
+        results = {name: fn(rank, dist.group.WORLD, dev, **kw)
+                   for name, fn, kw in jobs}
+        torch.save(results, f'{out}.{rank}')
+    except BaseException:
+        with open(f'{out}.{rank}.err', 'w') as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dp_spawn(tag, backend, devices, jobs):
+    """Spawn one rank per entry of ``devices`` that runs ``jobs``; their
+    results by rank. A rank that fails ends the others and the run."""
+    import multiprocessing as mp
+    import torch
+    out = os.path.join(DP_DIR, f'{tag}.result')
+    store = os.path.join(DP_DIR, f'{tag}.store')
+    for f in os.listdir(DP_DIR):
+        if f.startswith(f'{tag}.'):
+            os.remove(os.path.join(DP_DIR, f))
+    ctx = mp.get_context('spawn')
+    procs = [ctx.Process(target=dp_rank_main, args=(
+        r, len(devices), backend, devices, store, jobs, out))
+        for r in range(len(devices))]
+    for p in procs:
+        p.start()
+    end = time.monotonic() + DP_RANK_TIMEOUT
+    while any(p.is_alive() for p in procs) and time.monotonic() < end:
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.5)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    codes = [p.exitcode for p in procs]
+    errs = [open(os.path.join(DP_DIR, f)).read()[-3000:]
+            for f in sorted(os.listdir(DP_DIR))
+            if f.startswith(f'{tag}.result.') and f.endswith('.err')]
+    check(codes == [0] * len(devices), (tag, 'ranks', codes, errs))
+    return [torch.load(f'{out}.{r}', weights_only=False)
+            for r in range(len(devices))]
+
+
+def dp_parity_reference(path):
+    """One process's cut fp32 step at B=4 128x160 on the card (TF32 off):
+    the weights before it, its batch, metrics, momentum and weights after,
+    saved to ``path`` for the ranks. Returns them and the lr schedule."""
+    import torch
+    from das_tpu_torch.tools.profile_train import (make_trainer,
+                                                   synthetic_batch)
+    cfg = cut_train_cfg()
+    head = cfg.model.bbox_head
+    B, H, W = 4, 128, 160
+    state, step, lr_fn, max_pos = make_trainer(cfg, torch.float32,
+                                               DP_DEVICE, B, (H, W), seed=3)
+    sd0 = {k: v.detach().cpu().clone()
+           for k, v in state.model.state_dict().items()}
+    batch = synthetic_batch(B, H, W, int(head.num_joints),
+                            int(head.root_idx), seed=1)
+    with no_tf32():
+        state, metrics = step(state, {k: torch.from_numpy(v).to(DP_DEVICE)
+                                      for k, v in batch.items()})
+    ref = dict(sd0=sd0, batch=batch, max_pos=max_pos,
+               metrics={k: float(v) for k, v in metrics.items()},
+               momentum={k: v.cpu()
+                         for k, v in state.opt_state['momentum'].items()},
+               sd={k: v.cpu() for k, v in state.model.state_dict().items()})
+    torch.save(ref, path)
+    return ref, lr_fn
+
+
+def hold_step(got, ref, lr_fn, what):
+    """A step through the group path against ``ref``'s one-process step
+    from the same weights: metrics rtol 1e-4 (grad_norm 1e-3), each update
+    (-lr * lr_mult * trainable * momentum) within CARD_CPU_RTOL of its
+    leaf's largest (``leaves_close``), the weights within that plus one f32
+    rounding, frozen weights unchanged. Returns the worst update error /
+    tolerance (leaves, zero leaves)."""
+    import torch
+    from das_tpu_torch.models import build_trainable_model
+    from das_tpu_torch.parallel import (frozen_mask, mspn_frozen_prefixes,
+                                        param_groups)
+    check(got['max_pos'] == ref['max_pos'], (what, 'max_pos'))
+    for k, v in ref['metrics'].items():
+        rtol = 1e-3 if k == 'grad_norm' else 1e-4
+        check(abs(got['metrics'][k] - v) <= rtol * abs(v) + 1e-7,
+              (what, 'metric', k, got['metrics'][k], v))
+    cfg = cut_train_cfg()
+    model = build_trainable_model(cfg.model, device='cpu')
+    lr_mult, _ = param_groups(model)
+    trainable = frozen_mask(model, mspn_frozen_prefixes(
+        int(cfg.model.backbone.frozen_stages)))
+    f = {k: -lr_fn(0) * lr_mult[k] * trainable[k] for k in trainable}
+    worst, tol = leaves_close(
+        {k: f[k] * m for k, m in got['momentum'].items()},
+        {k: f[k] * m for k, m in ref['momentum'].items()}, (what, 'update'))
+    for k in trainable:
+        p = ref['sd'][k]
+        check(bool(((got['sd'][k] - p).abs()
+                    <= tol[k] + torch.finfo(torch.float32).eps * p.abs())
+                   .all()), (what, 'weight after the step', k))
+        if trainable[k] == 0.0:
+            check(torch.equal(got['sd'][k], ref['sd0'][k]),
+                  (what, 'frozen weight moved', k))
+    return worst
+
+
+@contextlib.contextmanager
+def nccl_world_of_one():
+    """A process group of this process alone over NCCL (through a FileStore
+    under DP_DIR), on the card; the group within the block."""
+    import torch.distributed as dist
+    from das_tpu_torch.parallel import init_distributed
+    store = os.path.join(DP_DIR, 'nccl1.store')
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', LOCAL_WORLD_SIZE='1')
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        dev = init_distributed('pytorch', 'nccl',
+                               init_method=f'file://{store}')
+        check(dist.get_backend() == 'nccl', 'NCCL world of one: backend')
+        yield dist.group.WORLD, dev
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_full_width_nccl(group, dev):
+    """One full-width B=4 640x1344 bf16 step of exp_panoptic_tpu through
+    the group path over NCCL (the 266 MB gradient all-reduce, the BN
+    all-reduces) beside the same step without a group from the same seed:
+    K4's 12 + 12 launches and finite metrics on both. Returns each loss
+    term's relative difference (not held: at full depth a random-init
+    train-mode forward amplifies the BN sums' order of summation, as it
+    amplifies the card's and the CPU's rounding)."""
+    import torch
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.tools.profile_train import (make_trainer,
+                                                   synthetic_batch,
+                                                   train_pad_hw)
+    cfg = Config.fromfile(SERVING_CFG)
+    head = cfg.model.bbox_head
+    H, W = train_pad_hw(cfg.train_pipeline)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
+        4, H, W, int(head.num_joints), int(head.root_idx)).items()}
+    got = {}
+    for name, g in (('none', None), ('nccl', group)):
+        state, step, _, _ = make_trainer(cfg, torch.bfloat16, dev, 4, (H, W),
+                                         group=g)
+        before = kernel_counts()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize(dev)
+        after = kernel_counts()
+        n = [after[k] - before[k] for k in ('gather.launches',
+                                            'gather.backward_launches')]
+        m = {k: float(v) for k, v in metrics.items()}
+        check(n == [K4_PER_STEP, K4_PER_STEP] and
+              all(math.isfinite(v) for v in m.values()),
+              ('full-width step', name, n, m))
+        got[name] = m
+        del state, step
+        torch.cuda.empty_cache()
+    return {k: abs(got['nccl'][k] - v) / max(abs(v), 1e-30)
+            for k, v in got['none'].items() if 'loss' in k}
+
+
+def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
+                 smi):
+    """Phase 9: the data-parallel path on the card. A NCCL group of this
+    process alone (the cut fp32 step and a full-width bf16 step through
+    the group path, ``run_test`` through it against phase 7's results);
+    two ranks sharing the card over gloo (the cut fp32 step at W=2, B=2 a
+    rank, against one process at B=4; ``train_model`` at full width for
+    one epoch; the sharded ``run_test`` against phase 7's results); the CLI
+    under ``torch.distributed.run``; and, with two cards or more,
+    ``train_model`` over NCCL, one card a rank. Returns the per-rank
+    launches of the gloo ``train_model`` run."""
+    import shutil
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import run_test
+    from das_tpu_torch.datasets import build_dataset
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    if os.path.isdir(DP_DIR):
+        shutil.rmtree(DP_DIR)
+    os.makedirs(DP_DIR)
+    served_path = os.path.join(DP_DIR, 'served.pt')
+    torch.save(served_sd, served_path)
+    ref_path = os.path.join(DP_DIR, 'parity_ref.pt')
+    ref, lr_fn = dp_parity_reference(ref_path)
+    torch.cuda.empty_cache()
+    phase('dataparallel', f'{cards} card(s): {torch.cuda.get_device_name(0)}'
+          f'; {smi}; reference: one process, cut fp32 step, B=4 128x160, '
+          f"max_pos {ref['max_pos']}")
+
+    with nccl_world_of_one() as (group, dev):
+        one = dp_parity_job(0, group, dev, ref_path)
+        check(one['mismatches'] == 0, 'NCCL world of one: replica')
+        w1 = hold_step(one, ref, lr_fn, 'NCCL world of one, cut step')
+        torch.cuda.empty_cache()
+        full = dp_full_width_nccl(group, dev)
+        cfg = eval_config(SERVING_CFG, *eval_data)
+        outs = run_test(served_model(served_path, dev),
+                        build_dataset(cfg.data['test']), cfg, batch_size=4,
+                        progress=False, device_preprocess=True, group=group)
+        people, worst = people_agree(served_outs, outs,
+                                     'run_test, NCCL world of one')
+    torch.cuda.empty_cache()
+    phase('dataparallel', f'NCCL world of one on the card: the cut fp32 '
+          f'step through the group path vs group=None, metrics within '
+          f'1e-4 (grad_norm 1e-3), updates within {w1[0]:.3g} of their '
+          f'tolerance ({CARD_CPU_RTOL:g} of each leaf\'s largest; zero '
+          f'leaves {w1[1]:.3g}); full width bf16 B=4 640x1344 step over '
+          f'NCCL: 12 + 12 K4 launches, finite, loss terms vs group=None '
+          + ', '.join(f'{k} {v:.3g}' for k, v in full.items())
+          + ' (relative, not held: full depth amplifies the order of the '
+          f'BN sums); run_test through the group: {people} people, poses '
+          f'within {worst:.3g} of phase 7\'s')
+
+    work = os.path.join(DP_DIR, 'work')
+    gloo = dp_spawn('gloo2', 'gloo', [DP_DEVICE, DP_DEVICE], [
+        ('parity', dp_parity_job, dict(ref_path=ref_path)),
+        ('train', dp_train_job, dict(opts=train_opts, work=work)),
+        ('eval', dp_eval_job, dict(served_path=served_path,
+                                   eval_data=eval_data))])
+    par = [r['parity'] for r in gloo]
+    check([p['mismatches'] for p in par] == [0, 0] and
+          par[0]['metrics'] == par[1]['metrics'], 'W=2 cut step: replicas')
+    w2 = hold_step(par[0], ref, lr_fn, 'W=2 gloo, cut step')
+    tr = [r['train'] for r in gloo]
+    check([t['step'] for t in tr] == [DP_STEPS] * 2 and
+          all(len(t['steps_ms']) == DP_STEPS for t in tr),
+          ('W=2 train_model steps', [t['step'] for t in tr]))
+    check([t['mismatches'] for t in tr] == [0, 0],
+          ('W=2 train_model: replicas differ', [t['mismatches'] for t in tr]))
+    check(tr[0]['losses'] == tr[1]['losses'],
+          'W=2 train_model: the ranks logged different metrics')
+    ckpts = sorted(os.listdir(os.path.join(work, 'ckpts')))
+    check(ckpts == ['meta.json', f'step_{DP_STEPS:08d}.pt'],
+          ('W=2 train_model checkpoints', ckpts))
+    logs = [x for x in os.listdir(work) if x.endswith('.log')]
+    text = ''.join(open(os.path.join(work, x)).read() for x in logs)
+    check(len(logs) == 1 and f'eval @ step {DP_STEPS}: MPJPE' in text and
+          f'dcn offsets @ step {DP_STEPS}' in text,
+          ('W=2 train_model: rank 0\'s log', logs))
+    for t in tr:
+        n = t['launches']
+        check(n['dcn_shift.launches'] > 0 and n['oks_nms.launches'] > 0 and
+              n['gather.launches'] > 0 and
+              n['gather.backward_launches'] == K4_PER_STEP * DP_STEPS and
+              n['gather.sampler_launches'] > 0,
+              ('W=2 train_model launches', n))
+    evals = [r['eval'] for r in gloo]
+    people2, worst2 = people_agree(served_outs, evals[0],
+                                   'run_test, 2 ranks over gloo')
+    for a, b in zip(*evals):
+        check(all(np.array_equal(a[k], b[k]) for k in ('poses', 'centers'))
+              and a['scores'] == b['scores'], 'run_test: the ranks differ')
+    phase('dataparallel', f'2 ranks on the one card over gloo: the cut fp32 '
+          f'step at B=2 a rank vs one process at B=4, metrics within 1e-4 '
+          f'(grad_norm 1e-3), updates within {w2[0]:.3g} of their '
+          f'tolerance (zero leaves {w2[1]:.3g}), replicas bit-equal; '
+          f'train_model exp_panoptic_tpu at B={DP_BATCH} a rank (global '
+          f'{2 * DP_BATCH}) 640x1344 bf16, {DP_STEPS} steps: every loss '
+          f'finite, K4 {K4_PER_STEP} + {K4_PER_STEP} a step on each rank, '
+          f"{tr[0]['tensors']} tensors and the momentum bit-equal across "
+          f'ranks, one checkpoint ({ckpts[1]}), the eval hook and DCN check '
+          f'in rank 0\'s log; losses '
+          + ', '.join(f"{m['loss']:.5g}" for m in tr[0]['losses'])
+          + f'; sharded run_test: {people2} people, poses within '
+          f"{worst2:.3g} of phase 7's, both ranks' lists equal")
+    phase('dataparallel', f'step ms at W=2 over gloo (host clock, '
+          f'synchronised; harness numbers, gloo stages CUDA tensors through '
+          f'the host): rank 0 ' + ', '.join(f'{x:.1f}' for x in
+                                            tr[0]['steps_ms'])
+          + f"; medians {tr[0]['median_ms']:.2f} / {tr[1]['median_ms']:.2f}"
+          f' ms beside phase 8\'s one card at B=4 {median8:.2f} ms; '
+          f'gradient all-reduce ms a step (266 MB, 2 flat buffers) median '
+          f"{np.median(tr[0]['reduce_ms']):.2f} / "
+          f"{np.median(tr[1]['reduce_ms']):.2f}; peak memory "
+          f"{tr[0]['peak_gib']:.2f} / {tr[1]['peak_gib']:.2f} GiB a rank; "
+          f'launches a rank ' + '; '.join(
+              ', '.join(f'{v} {k}' for k, v in t['launches'].items() if v)
+              for t in tr))
+
+    cli_work = os.path.join(DP_DIR, 'cli')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc-per-node', '2', '-m', 'das_tpu_torch.tools.train',
+           SERVING_CFG, '--work-dir', cli_work, '--launcher', 'pytorch',
+           '--dist-backend', 'gloo', '--device', DP_DEVICE, '--max-steps',
+           '2', '--cfg-options', f'data.samples_per_gpu={DP_BATCH}'] + [
+        f'{k}={v}' for k, v in train_opts.items()]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=400)
+    secs = time.perf_counter() - t
+    check(proc.returncode == 0 and
+          '[das_tpu_torch] trained to step 2 on 2 rank(s)' in proc.stdout
+          and os.path.exists(os.path.join(cli_work, 'ckpts',
+                                          'step_00000002.pt')),
+          ('torchrun das_tpu_torch.tools.train', proc.returncode,
+           proc.stdout[-2000:], proc.stderr[-3000:]))
+    phase('dataparallel', f'python -m torch.distributed.run --standalone '
+          f'--nproc-per-node 2 -m das_tpu_torch.tools.train '
+          f'{os.path.relpath(SERVING_CFG, HERE)} --launcher pytorch '
+          f'--dist-backend gloo --device cuda:0 --max-steps 2: exit 0 in '
+          f'{secs:.1f} s, step 2 saved by rank 0')
+
+    if cards >= 2:
+        nccl = dp_spawn('nccl2', 'nccl', [None, None], [
+            ('train', dp_train_job, dict(
+                opts=train_opts, work=os.path.join(DP_DIR, 'work_nccl')))])
+        tn = [r['train'] for r in nccl]
+        check([t['mismatches'] for t in tn] == [0, 0] and
+              [t['step'] for t in tn] == [DP_STEPS] * 2,
+              ('NCCL train_model', [t['mismatches'] for t in tn]))
+        phase('dataparallel', f'train_model over NCCL, one card a rank: '
+              f'{DP_STEPS} steps, replicas bit-equal; step medians '
+              f"{tn[0]['median_ms']:.2f} / {tn[1]['median_ms']:.2f} ms, "
+              f"gradient all-reduce {np.median(tn[0]['reduce_ms']):.2f} ms")
+    else:
+        phase('dataparallel', f'train_model over NCCL with one card a rank: '
+              f'not run, this host has {cards} card (NCCL takes one rank a '
+              f'card)')
+    phase('dataparallel', f'phase 9 in {time.perf_counter() - t0:.1f} s')
+    return [t['launches'] for t in tr]
 
 
 def main():
@@ -2398,11 +2942,12 @@ def main():
                 (gather, 'sampler_launches'): K4_SAMPLES}
     eval_data = write_eval_data('full', 8, 1080, 1920, seed=0)
     model, _, n1, _, _ = main_path(SERVING_CFG, 2, expect(0))
-    e1, ips1 = eval_sweep(model, SERVING_CFG, eval_data, expect(0))
+    e1, ips1, outs1 = eval_sweep(model, SERVING_CFG, eval_data, expect(0))
+    served_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     del model
     model, cfg, n2, img, sf = main_path(FUSED_CFG, 3, expect(36))
     k3 = nms_on_served_request(model, cfg, img, sf)
-    e2, ips2 = eval_sweep(model, FUSED_CFG, eval_data, expect(36))
+    e2, ips2, _ = eval_sweep(model, FUSED_CFG, eval_data, expect(36))
     del model
     torch.cuda.empty_cache()
     img, sf, _, _ = device_preprocess_vs_float64(eval_data, smi)
@@ -2430,7 +2975,7 @@ def main():
     synthetic_median = run['median_ms']
     del run
     torch.cuda.empty_cache()
-    n8 = trainrun(eval_data, synthetic_median, smi)
+    n8, train_opts, median8 = trainrun(eval_data, synthetic_median, smi)
     for k in (k1, k2, k3, k4, k4b, k4s):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     k1['launches'] += n8['dcn_shift.launches']
@@ -2444,6 +2989,13 @@ def main():
           ('the training entry point left a kernel of its path unlaunched',
            n8))
     torch.cuda.empty_cache()
+    n9 = dataparallel(eval_data, served_sd, outs1, train_opts, median8, smi)
+    del served_sd
+    for k, key in ((k1, 'dcn_shift.launches'), (k2, 'conv_gn.launches'),
+                   (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
+                   (k4b, 'gather.backward_launches'),
+                   (k4s, 'gather.sampler_launches')):
+        k['phase9_launches_per_rank'] = [n[key] for n in n9]
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()

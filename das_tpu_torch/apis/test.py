@@ -9,8 +9,10 @@ normalise, pad); ``_device_pre_sweep`` only decodes the images on the host
 and resizes, normalises, pads (and mirrors, for the flip test) on the
 device.
 
-One process on the model's device. A sweep sharded over several processes
-(the JAX package's multi-host path) is not ported.
+One process on the model's device, or several (a process group, one
+model's device each): rank r sweeps the images ``r, r + W, r + 2W, ...``
+and every rank returns the whole list in dataset order, as the JAX
+package's multi-host path does.
 """
 
 from __future__ import annotations
@@ -21,8 +23,10 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.decode import decode_batch
+from ..parallel.mesh import rank, world_size
 from .inference import make_predict_fn, results_to_host
 
 
@@ -156,11 +160,12 @@ def _sweep(model, get_sample, n: int, cfg, batch_size: int,
 
 
 def _device_pre_sweep(model, dataset, cfg, batch_size: int,
-                      progress: bool) -> List[Dict]:
+                      progress: bool, subset=None) -> List[Dict]:
     """Device-preprocessing sweep: the host only decodes the images
     (``utils/image.imread``); the uint8 batch goes to the model's device as
     uint8, where keep-ratio resize, BGR->RGB, normalize, pad (and the
-    flip-test mirror) run before the model.
+    flip-test mirror) run before the model. ``subset`` (dataset indices;
+    default all) are the images swept, in that order.
 
     Equivalent to the host pipeline path up to bilinear-resize rounding:
     the host path resizes the uint8 image with ``cv2.resize`` in fixed
@@ -189,9 +194,10 @@ def _device_pre_sweep(model, dataset, cfg, batch_size: int,
 
     prefix = getattr(dataset, 'img_prefix', '') or ''
     infos = dataset.data_infos
-    n = len(infos)
+    subset = range(len(infos)) if subset is None else subset
+    n = len(subset)
     buckets = defaultdict(list)
-    for i in range(n):
+    for i in subset:
         info = infos[i]
         buckets[(int(info['height']), int(info['width']))].append(i)
 
@@ -234,30 +240,42 @@ def _device_pre_sweep(model, dataset, cfg, batch_size: int,
                       flush=True)
     if progress:
         print()
-    return [results[i] for i in range(n)]
+    return [results[i] for i in subset]
 
 
 def run_test(model, dataset, cfg, batch_size: int = 4,
              progress: bool = True,
-             device_preprocess: bool = None) -> List[Dict]:
+             device_preprocess: bool = None, group=None) -> List[Dict]:
     """Test sweep on the model's device; returns reference-style output
     dicts in dataset order.
 
     ``device_preprocess`` (default: ``cfg.data.test.device_preprocess``)
     moves resize/normalize/pad/flip onto the device — the host only
-    decodes the images. Raises under ``torch.distributed`` with more than
-    one process: each would evaluate the whole dataset."""
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized() and \
-            torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            'run_test evaluates in one process; a sweep sharded over '
-            f'{torch.distributed.get_world_size()} processes is not ported '
-            '(ROADMAP.md, Queue 1, item 8)')
+    decodes the images. With a process group (``group``) every rank sweeps
+    its interleaved shard and the per-image results are gathered
+    (``all_gather_object``): every rank returns the list that one process
+    returns. Without one, this process sweeps the whole dataset."""
     if device_preprocess is None:
         device_preprocess = bool(
             cfg.data['test'].get('device_preprocess', False))
+    if group is None:
+        if device_preprocess:
+            return _device_pre_sweep(model, dataset, cfg, batch_size,
+                                     progress)
+        return _sweep(model, lambda i: dataset[i], len(dataset), cfg,
+                      batch_size, progress)
+    r, w = rank(group), world_size(group)
+    mine = list(range(r, len(dataset), w))
     if device_preprocess:
-        return _device_pre_sweep(model, dataset, cfg, batch_size, progress)
-    return _sweep(model, lambda i: dataset[i], len(dataset), cfg,
-                  batch_size, progress)
+        part = _device_pre_sweep(model, dataset, cfg, batch_size,
+                                 progress and r == 0, subset=mine)
+    else:
+        part = _sweep(model, lambda i: dataset[mine[i]], len(mine), cfg,
+                      batch_size, progress and r == 0)
+    parts = [None] * w
+    dist.all_gather_object(parts, part, group=group)
+    results: List[Any] = [None] * len(dataset)
+    for p, got in enumerate(parts):
+        for idx, res in zip(range(p, len(dataset), w), got):
+            results[idx] = res
+    return results

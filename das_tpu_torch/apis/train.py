@@ -2,11 +2,19 @@
 mmdet3d/apis/train.py:6-35 + mmcv EpochBasedRunner with its hook set —
 SURVEY.md §1 layer 3).
 
-The mmcv runner/hook machinery collapses into one explicit loop on one
-card: the LR schedule and the gradient clip live in the optimizer; logging,
+The mmcv runner/hook machinery collapses into one explicit loop: the LR
+schedule and the gradient clip live in the optimizer; logging,
 checkpointing, the DCN-offset check and evaluation are plain host-side
 calls between steps. State is checkpointed by ``checkpoint/manager.py``
 (replacing mmcv CheckpointHook).
+
+On one card, or data-parallel over a process group (``group``; one process
+a card, as ``torchrun`` starts them): each rank loads its shard of every
+epoch, steps on ``samples_per_gpu`` images of the global batch of
+``samples_per_gpu x world size``, and keeps a bit-equal replica of the
+model (``parallel/mesh.py``). Rank 0 writes the checkpoints, ``meta.json``
+and the logs; every rank runs the DCN-offset check and its shard of the
+eval hook. Every rank enters the same collectives in the same order.
 
 The loop keeps the card fed as the JAX one does: the step counter lives on
 the host (reading ``state.step`` from the card every step would wait for
@@ -33,10 +41,11 @@ from ..config import Config
 from ..datasets import build_dataset
 from ..datasets.loader import TrainLoader, train_pad_hw_from_cfg
 from ..models import build_model, build_trainable_model
+from ..parallel.mesh import replicate, shard_args
 from ..parallel.train_step import (TrainState, make_lr_fn, make_optimizer,
                                    make_train_step, mspn_frozen_prefixes)
 from ..utils.device import resolve_device
-from ..utils.logging import MetricLogger
+from ..utils.logging import MetricLogger, NullLogger
 
 
 def device_normalize(train_data_cfg):
@@ -138,16 +147,22 @@ def train_model(cfg: Config,
                 log_interval: Optional[int] = None,
                 seed: int = 0,
                 dtype: torch.dtype = torch.bfloat16,
-                device=None) -> TrainState:
-    """A whole training run of the config's recipe on one card (``device``:
-    the card unless the caller names another): ``dtype`` compute on f32
-    master weights. Returns the final state; checkpoints go to
-    ``work_dir/ckpts``, logs to ``work_dir``."""
+                device=None, group=None) -> TrainState:
+    """A whole training run of the config's recipe (``device``: the card
+    unless the caller names another; this rank's device with a ``group``):
+    ``dtype`` compute on f32 master weights. Returns the final state;
+    checkpoints go to ``work_dir/ckpts``, logs to ``work_dir``.
+
+    With a process group (``parallel.init_distributed``), the run is
+    data-parallel over its ranks; without one it is this process's alone,
+    whatever else the process has joined."""
     dev = resolve_device(device)
+    rank_, world = shard_args(group) if group is not None else (0, 1)
     os.makedirs(work_dir, exist_ok=True)
-    logger = MetricLogger(work_dir,
-                          interval=log_interval or
-                          int(cfg.get('log_config', {}).get('interval', 50)))
+    interval = log_interval or int(cfg.get('log_config', {}).get(
+        'interval', 50))
+    logger = MetricLogger(work_dir, interval=interval) if rank_ == 0 \
+        else NullLogger()
 
     # ---------------- data
     img_norm = None
@@ -158,11 +173,12 @@ def train_model(cfg: Config,
     train_pipe = train_data_cfg[0]['pipeline'] if isinstance(
         train_data_cfg, (list, tuple)) else train_data_cfg['pipeline']
     pad_hw = train_pad_hw_from_cfg(train_pipe)
-    batch_size = int(cfg.data.get('samples_per_gpu', 4))       # one card
+    batch_size = int(cfg.data.get('samples_per_gpu', 4))   # this rank's
+    global_batch = batch_size * world
     J = int(cfg.model.bbox_head.num_joints)
     loader = TrainLoader(dataset, batch_size, pad_hw, J,
                          num_workers=int(cfg.data.get('workers_per_gpu', 4)),
-                         seed=seed,
+                         seed=seed, shard_id=rank_, num_shards=world,
                          worker_type=cfg.data.get('worker_type', 'thread'),
                          dataset_cfg=train_data_cfg)
     steps_per_epoch = loader.steps_per_epoch
@@ -203,32 +219,36 @@ def train_model(cfg: Config,
     manager = CheckpointManager(
         os.path.join(work_dir, 'ckpts'),
         max_keep=int(cfg.get('checkpoint_config', {}).get(
-            'max_keep_ckpts', 20)))
+            'max_keep_ckpts', 20)), group=group)
     # checkpoint meta (ref tools/train.py:200-210: version + config text +
     # CLASSES embedded in every checkpoint); one sidecar per run dir
     classes = getattr(dataset, 'CLASSES', None)
-    with open(os.path.join(work_dir, 'ckpts', 'meta.json'), 'w') as f:
-        json.dump(dict(
-            das_tpu_torch_version=__version__,
-            time=time.asctime(),
-            CLASSES=list(classes) if classes else None,
-            config=cfg.dump()), f, indent=1)
+    if rank_ == 0:
+        with open(os.path.join(work_dir, 'ckpts', 'meta.json'), 'w') as f:
+            json.dump(dict(
+                das_tpu_torch_version=__version__,
+                time=time.asctime(),
+                CLASSES=list(classes) if classes else None,
+                config=cfg.dump()), f, indent=1)
     if resume_from:
         state = manager.restore(state, resume_from)
         logger.text(f'resumed from {resume_from} at step {state.step}')
+    if group is not None:
+        replicate(model, group)
 
     head = cfg.model.bbox_head
     featmap_sizes = [(pad_hw[0] // (4 * 2 ** i), pad_hw[1] // (4 * 2 ** i))
                      for i in range(4)]
     # positive budget: ~9 center-sampled points per person per level;
-    # generous default scaled by batch, overridable via train_cfg.max_pos
+    # generous default scaled by the global batch, overridable via
+    # train_cfg.max_pos; with a group each rank takes it from its own points
     max_pos = int((cfg.model.get('train_cfg') or {}).get(
-        'max_pos', 128 * batch_size))
+        'max_pos', 128 * global_batch))
     step_fn = make_train_step(
         tx_update, featmap_sizes, tuple(head.strides),
         tuple(tuple(r) for r in head.regress_ranges), J,
         center_sample_radius=float(head.get('center_sample_radius', 1.5)),
-        max_pos=max_pos, img_norm=img_norm)
+        max_pos=max_pos, img_norm=img_norm, group=group)
 
     total_epochs = int(runner_cfg.get('max_epochs', 22))
     total_steps = max_steps or total_epochs * steps_per_epoch
@@ -280,12 +300,15 @@ def train_model(cfg: Config,
                    '  <-- WARNING: repair budget exceeded, hybrid lowering '
                    'is now approximate'))
         if evaluate:
-            # EvalHook equivalent (ref exp_panoptic.py:218)
+            # EvalHook equivalent (ref exp_panoptic.py:218): each rank
+            # sweeps its shard, rank 0 evaluates the gathered results
             from .test import run_test
-            outputs = run_test(m, eval_dataset, cfg, progress=False)
-            metrics = eval_dataset.evaluate(outputs)
-            logger.text(f'eval @ step {step}: '
-                        + ', '.join(f'{k} {v}' for k, v in metrics.items()))
+            outputs = run_test(m, eval_dataset, cfg, progress=False,
+                               group=group)
+            if rank_ == 0:
+                metrics = eval_dataset.evaluate(outputs)
+                logger.text(f'eval @ step {step}: ' + ', '.join(
+                    f'{k} {v}' for k, v in metrics.items()))
 
     # ---------------- loop
     host_step = state.step              # resume-aware
@@ -298,7 +321,7 @@ def train_model(cfg: Config,
                 break
             state, metrics = step_fn(state, batch)
             host_step += 1
-            logger.log(host_step, metrics, batch_size,
+            logger.log(host_step, metrics, global_batch,
                        time.perf_counter() - t_last)
             t_last = time.perf_counter()
             if host_step % steps_per_epoch == 0:

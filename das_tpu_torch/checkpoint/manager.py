@@ -9,6 +9,11 @@ there is whole. It holds the model's state dict (the f32 master weights and
 the BatchNorm statistics, as the model keeps them), the momentum by
 parameter name, the optimizer's ``count`` and the ``step``. At most
 ``max_keep`` files stay; a save past that removes the oldest.
+
+With a process group (data parallelism) rank 0 writes and evicts, and every
+rank waits at a barrier after each save, so that no rank reads the
+directory before the file is there; every rank restores from the same
+file.
 """
 
 from __future__ import annotations
@@ -19,16 +24,18 @@ from typing import List, Optional, Union
 
 import torch
 
+from ..parallel.mesh import barrier, rank
 from ..parallel.train_step import TrainState
 
 _NAME = re.compile(r'^step_(\d+)\.pt$')
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, max_keep: int = 20):
+    def __init__(self, directory: str, max_keep: int = 20, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_keep = max_keep
+        self.group = group
 
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f'step_{int(step):08d}.pt')
@@ -42,7 +49,12 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, state: TrainState, step: int) -> str:
-        """Write ``state`` as step ``step``; returns the file's path."""
+        """Write ``state`` as step ``step`` (rank 0 of the group, then a
+        barrier); returns the file's path."""
+        path = self.path(step)
+        if self.group is not None and rank(self.group) != 0:
+            barrier(self.group)
+            return path
         payload = dict(
             step=int(state.step),
             model={k: v.detach().cpu()
@@ -50,13 +62,13 @@ class CheckpointManager:
             momentum={k: v.detach().cpu()
                       for k, v in state.opt_state['momentum'].items()},
             count=int(state.opt_state['count']))
-        path = self.path(step)
         tmp = path + '.tmp'
         torch.save(payload, tmp)
         os.replace(tmp, path)
         steps = self.all_steps()
         for old in steps[:max(len(steps) - self.max_keep, 0)]:
             os.remove(self.path(old))
+        barrier(self.group)
         return path
 
     def restore(self, state: TrainState,

@@ -651,8 +651,9 @@ cudaError_t launch_wgmma(const void* x, const void* weight, float* ws,
       !bf16_map(&wmap, weight, 3, wd, wst, wb, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   constexpr int smem = wgmma_smem_bytes(BN);
-  // above 48 KB a kernel has to be allowed its shared memory, once
-  static const cudaError_t allowed = cudaFuncSetAttribute(
+  // above 48 KB a kernel has to be allowed its shared memory; the
+  // attribute belongs to the current device, so it is set at every launch
+  const cudaError_t allowed = cudaFuncSetAttribute(
       conv_gn_wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (allowed != cudaSuccess) return allowed;

@@ -265,8 +265,9 @@ extern "C" int oks_nms_keep_forward(const void* kpts, const void* areas,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int nw = (M + TB - 1) / TB;
   const size_t scan_smem = scan_smem_bytes(nw);
-  // above 48 KB a kernel has to be allowed its shared memory, once
-  static const cudaError_t allowed = cudaFuncSetAttribute(
+  // above 48 KB a kernel has to be allowed its shared memory; the
+  // attribute belongs to the current device, so it is set at every launch
+  const cudaError_t allowed = cudaFuncSetAttribute(
       oks_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SCAN_SMEM_MAX);
   if (allowed != cudaSuccess) return (int)allowed;

@@ -17,11 +17,15 @@ _AMP = 1.0 / math.sqrt(2.0 * math.pi)
 
 def rle_loss(nf_loss: torch.Tensor, uvd: torch.Tensor, sigma: torch.Tensor,
              gt_uvd: torch.Tensor, gt_uv_weight: torch.Tensor,
-             weight=None, residual: bool = True) -> torch.Tensor:
+             weight=None, residual: bool = True,
+             vis_count=None) -> torch.Tensor:
     """RLE loss; every input (P, J, 3) but ``weight`` (a broadcastable
-    code weight). Returns a scalar, 0 with fewer than one visible joint."""
+    code weight). Returns a scalar, 0 with fewer than one visible joint.
+    ``vis_count`` (default: the visible joints of these inputs) is the
+    divisor: the global batch's count, where a rank holds a share."""
     nf_loss = nf_loss.float() * gt_uv_weight
-    vis_count = gt_uv_weight[..., 0].sum()
+    if vis_count is None:
+        vis_count = gt_uv_weight[..., 0].sum()
     loss = nf_loss
     if residual:
         log_q = torch.log(sigma / _AMP) + (gt_uvd - uvd).abs() \

@@ -28,6 +28,7 @@ import torch.nn as nn
 from ..config.registry import HEADS
 from ..losses import (binary_cross_entropy, rle_loss, sigmoid_focal_loss,
                       smooth_l1_loss)
+from ..parallel.mesh import sum_over
 from .layers import ConvModule, DeformConv2d, Scale, conv2d, he_normal_, \
     normal_
 from .real_nvp import RealNVP
@@ -274,8 +275,8 @@ class DASHead(nn.Module):
             list(ref_uvds)
 
     def loss(self, cls_scores, pose_preds, centernesses, aux_pose_preds,
-             targets: Dict[str, torch.Tensor], max_pos: int = 1024
-             ) -> Dict[str, torch.Tensor]:
+             targets: Dict[str, torch.Tensor], max_pos: int = 1024,
+             group=None) -> Dict[str, torch.Tensor]:
         """Training loss (JAX das_head.py:296-432, ref das_head.py:283-486),
         fixed-shape, in f32.
 
@@ -284,6 +285,13 @@ class DASHead(nn.Module):
         and images. The positives are gathered into a fixed ``max_pos`` set,
         first by flat index (a stable sort, as ``jax.lax.top_k`` orders
         ties); ``pos_overflow`` counts those the budget drops.
+
+        With a process group this rank's batch is a shard of the global
+        one: every normaliser (the positive and image counts, the 3D
+        positives, the selected positives, the visible joints) is summed
+        over the ranks in one all-reduce, so each term is this rank's share
+        and the ranks' terms add up to the global batch's loss. ``max_pos``
+        is then the global budget, taken by each rank from its own points.
         """
         J = self.num_joints
         num_imgs = cls_scores[0].shape[0]
@@ -300,8 +308,6 @@ class DASHead(nn.Module):
 
         pos_mask = labels < self.bg_label
         num_pos = pos_mask.sum()
-        loss_cls = sigmoid_focal_loss(flat_cls, labels,
-                                      avg_factor=num_pos + num_imgs)
 
         # a fixed-size positive set: positives first, by flat index
         k = min(max_pos, labels.shape[0])
@@ -322,14 +328,23 @@ class DASHead(nn.Module):
         gt_uvd_full = p_t[:, 3:3 + 3 * J]
         is_2d = (gt_uvd_full[:, 2::3] == 0).all(dim=1)
         is_3d = ~is_2d & sel
+        depth_w = is_3d.float()
+        gt_w = (p_t[:, 3 + 3 * J:].reshape(k, J, 1)
+                * selF[:, None, None]).expand(k, J, 3)
+        gt_w_all = gt_w.repeat(1, 2, 1) if self.prev_loss else gt_w
+
+        # the normalisers: over the global batch with a group
+        num_pos_all, num_imgs_all, num_3d, num_sel, vis_count = sum_over(
+            group, num_pos, torch.tensor(num_imgs, device=labels.device),
+            depth_w.sum(), selF.sum(), gt_w_all[..., 0].sum())
+        loss_cls = sigmoid_focal_loss(flat_cls, labels,
+                                      avg_factor=num_pos_all + num_imgs_all)
 
         # depth loss, 3D positives only (ref :366-381)
-        depth_w = is_3d.float()
         loss_depth = smooth_l1_loss(
             p_pose[:, 2], p_t[:, 2] * self.depth_factor,
-            weight=depth_w * cw_depth,
-            avg_factor=depth_w.sum().clamp_min(1.0))
-        loss_depth = torch.where(is_3d.sum() > 0, loss_depth,
+            weight=depth_w * cw_depth, avg_factor=num_3d.clamp_min(1.0))
+        loss_depth = torch.where(num_3d > 0, loss_depth,
                                  torch.zeros_like(loss_depth))
 
         # RLE pose loss; 2D samples carry no depth (ref :387-390) and their
@@ -353,8 +368,6 @@ class DASHead(nn.Module):
         real_gt = torch.cat(
             [real_gt[..., :2] * (1.0 / p_strides)[:, None, None],
              real_gt[..., 2:] * (1.0 / self.z_norm)], -1)
-        gt_w = (p_t[:, 3 + 3 * J:].reshape(k, J, 1)
-                * selF[:, None, None]).expand(k, J, 3)
 
         def flow_logphi(bar_mu, f3d, f2d):
             lp3 = f3d(bar_mu.reshape(-1, 3)).reshape(k, J)
@@ -369,26 +382,25 @@ class DASHead(nn.Module):
             uvd_all = torch.cat([uvd_update, uvd], dim=1)
             real_gt_all = real_gt.repeat(1, 2, 1)
             sigma_all = sigma.repeat(1, 2, 1)
-            gt_w_all = gt_w.repeat(1, 2, 1)
             log_phi = torch.cat([lp_upd, lp_raw], dim=1)[..., None]
         else:
             log_phi = flow_logphi((uvd_update - real_gt) / sigma,
                                   self.flow3d, self.flow2d)[..., None]
-            uvd_all, real_gt_all, sigma_all, gt_w_all = \
-                uvd_update, real_gt, sigma, gt_w
+            uvd_all, real_gt_all, sigma_all = uvd_update, real_gt, sigma
         nf_loss = torch.log(sigma_all) - log_phi
         loss_pose = rle_loss(nf_loss, uvd_all, sigma_all, real_gt_all,
-                             gt_w_all, weight=cw_pose)
+                             gt_w_all, weight=cw_pose, vis_count=vis_count)
 
         # centerness (ref :470)
-        loss_ctr = binary_cross_entropy(p_ctr, p_ctr_t, weight=selF)
+        loss_ctr = binary_cross_entropy(p_ctr, p_ctr_t, weight=selF,
+                                        avg_factor=num_sel.clamp_min(1e-12))
 
-        has_pos = (num_pos > 0).float()
+        has_pos = (num_pos_all > 0).float()
         return dict(loss_cls=loss_cls,
                     loss_depth=loss_depth * has_pos,
                     loss_pose=loss_pose * has_pos,
                     loss_centerness=loss_ctr * has_pos,
-                    # positives dropped by the fixed max_pos gather
+                    # positives dropped by this rank's max_pos gather
                     pos_overflow=(num_pos - k).clamp_min(0).float())
 
 

@@ -53,8 +53,10 @@ class DAS(nn.Module):
         return self.bbox_head(self.extract_feat(img), select_idx)
 
     def loss(self, img: torch.Tensor, targets: Dict[str, torch.Tensor],
-             max_pos: int = 1024) -> Dict[str, torch.Tensor]:
-        """Training forward + loss (JAX detector.py:66-100).
+             max_pos: int = 1024, group=None) -> Dict[str, torch.Tensor]:
+        """Training forward + loss (JAX detector.py:66-100); with a process
+        group, this rank's share of the global batch's loss
+        (``DASHead.loss``).
 
         With ``train_cfg.sparse_refine`` the RU re-sampling runs only at
         each level's first ``max_pos`` positives per image (by flat index);
@@ -76,7 +78,8 @@ class DAS(nn.Module):
                     lab < head.bg_label, max_pos))
         cls_scores, pose_preds, centernesses, ref_uvds = self(img, select)
         return self.bbox_head.loss(cls_scores, pose_preds, centernesses,
-                                   ref_uvds, targets, max_pos=max_pos)
+                                   ref_uvds, targets, max_pos=max_pos,
+                                   group=group)
 
     def init_weights(self, seed: int = 0):
         """Seeded init: flax's defaults (LeCun-normal kernels, zero biases,

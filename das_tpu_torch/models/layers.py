@@ -20,6 +20,7 @@ import math
 from typing import Optional, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -45,13 +46,58 @@ def he_normal_(t: torch.Tensor, gen: torch.Generator):
     normal_(t, math.sqrt(2.0 / fan_in), gen)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm of f32 NCHW ``x`` with its moments over every
+    rank of ``group``: the global batch's, as the JAX step's SPMD BatchNorm
+    takes them. Returns (y, mean, biased var).
+
+    Forward: one all-reduce of the per-channel sums and the count (the
+    global mean), one of the sums of squared deviations from it (the
+    variance, two passes as on one card). Backward: one all-reduce of the
+    concatenated per-channel ``[sum g, sum g * xhat]``, then the global
+    batch's input gradient; the weight's and bias's gradients stay this
+    rank's sums, which the step's gradient all-reduce adds up."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, group):
+        dims = (0, 2, 3)
+        s = torch.cat([x.sum(dims), x.new_full((1,), x.numel() / x.shape[1])])
+        dist.all_reduce(s, group=group)
+        count = s[-1]
+        mean = s[:-1] / count
+        d = x - mean[:, None, None]
+        sq = (d * d).sum(dims)
+        dist.all_reduce(sq, group=group)
+        var = sq / count
+        invstd = torch.rsqrt(var + 1e-5)
+        xhat = d * invstd[:, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, count)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return xhat * weight[:, None, None] + bias[:, None, None], mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _mean, _var):
+        xhat, weight, invstd, count = ctx.saved_tensors
+        dims = (0, 2, 3)
+        g_sum, gx_sum = gy.sum(dims), (gy * xhat).sum(dims)
+        tot = torch.cat([g_sum, gx_sum])
+        dist.all_reduce(tot, group=ctx.group)
+        g_mean, gx_mean = (tot / count).chunk(2)
+        dx = (weight * invstd)[:, None, None] * (
+            gy - g_mean[:, None, None] - xhat * gx_mean[:, None, None])
+        return dx, gx_sum, g_sum, None
+
+
 class BatchNorm(nn.Module):
-    """BatchNorm (BN and SyncBN alike; one card, so SyncBN is BN), eps
-    1e-5, f32 math. Eval normalises with the running statistics. Training
-    normalises with the batch's and updates the running ones as flax does
-    (``momentum=0.9``): ``running = 0.9 running + 0.1 batch``, with the
-    biased batch variance. Its keys are those the reference checkpoints
-    carry, less ``num_batches_tracked``."""
+    """BatchNorm (BN and SyncBN alike), eps 1e-5, f32 math. Eval
+    normalises with the running statistics. Training normalises with the
+    batch's and updates the running ones as flax does (``momentum=0.9``):
+    ``running = 0.9 running + 0.1 batch``, with the biased batch variance.
+    With a process group (``group``, which ``parallel.replicate`` sets) the
+    training moments are the global batch's, over every rank, as SyncBN's;
+    without one, this process's batch's. Its keys are those the reference
+    checkpoints carry, less ``num_batches_tracked``."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -59,6 +105,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -66,6 +113,13 @@ class BatchNorm(nn.Module):
             return F.batch_norm(xf, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 1e-5).to(x.dtype)
+        if self.group is not None:
+            y, mean, var = _GlobalBatchNorm.apply(xf, self.weight,
+                                                  self.bias, self.group)
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+                self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            return y.to(x.dtype)
         # no running buffers here: F.batch_norm would update them with the
         # unbiased variance
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,

@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import (FLOAT, INT, PTR, CudaLibrary, check_launch,
-                         check_tensor, raw_stream)
+                         check_tensor, on_device, raw_stream)
 
 LIB = CudaLibrary('conv_gn.cu', {
     'conv_gn_relu_slots': [INT] * 6,
@@ -111,11 +111,8 @@ def conv_gn_relu(x: torch.Tensor, weight: torch.Tensor, gamma: torch.Tensor,
     args = (x.data_ptr(), w.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             out.data_ptr(), ws.data_ptr(), part.data_ptr(), stats.data_ptr(),
             N, H, W, Cin, Cout, groups, float(eps), is_bf16)
-    if dev.index == torch.cuda.current_device():
+    with on_device(dev):
         err = lib.conv_gn_relu_forward(*args, raw_stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.conv_gn_relu_forward(*args, raw_stream(dev))
     check_launch('conv_gn_relu', err)
     launches += 1
     return out

@@ -10,6 +10,7 @@ starts one ``nvcc`` per source, all at once, and waits for them together.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -140,6 +141,16 @@ def raw_stream(device: torch.device) -> int:
     if get is not None:
         return get(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(dev: torch.device):
+    """The context of a ctypes launch on ``dev``: the CUDA runtime launches
+    on its current device whatever stream it is handed, so ``dev`` is made
+    current for the call where it is not already (a bare check where it
+    is: K4's host time a call counts)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def check_launch(name: str, err: int):

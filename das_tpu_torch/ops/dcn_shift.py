@@ -30,7 +30,8 @@ from typing import Optional
 
 import torch
 
-from .cuda_build import INT, PTR, CudaLibrary, check_launch, check_tensor
+from .cuda_build import (INT, PTR, CudaLibrary, check_launch, check_tensor,
+                         on_device, raw_stream)
 
 LIB = CudaLibrary('dcn_shift.cu', {
     'dcn_shift_takes_wgmma': [INT] * 4,
@@ -133,8 +134,8 @@ def deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
     is_bf16 = int(dt == torch.bfloat16)
     aligned = int((x.data_ptr() | w.data_ptr()) % 16 == 0)
     wgmma = lib.dcn_shift_takes_wgmma(Cin, Cout, is_bf16, aligned)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = raw_stream(dev)
         err = lib.dcn_shift_forward(
             x.data_ptr(), offset.data_ptr(), mask.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),

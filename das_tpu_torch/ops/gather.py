@@ -33,7 +33,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from .cuda_build import INT, LONG, PTR, CudaLibrary, check_launch, \
-    raw_stream
+    on_device, raw_stream
 
 LIB = CudaLibrary('gather_rows.cu', {
     'gather_rows_grouped': [PTR, INT, LONG, INT, PTR],
@@ -123,12 +123,8 @@ def _check_segment(what: str, t: torch.Tensor, idx: torch.Tensor, dev):
 def _launch_grouped(desc: List[int], n: int, N: int, backward: int, dev):
     lib = LIB.load()
     arr = (ctypes.c_longlong * len(desc))(*desc)
-    if dev.index == torch.cuda.current_device():
+    with on_device(dev):
         err = lib.gather_rows_grouped(arr, n, N, backward, raw_stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.gather_rows_grouped(arr, n, N, backward,
-                                          raw_stream(dev))
     check_launch('gather_rows_grouped', err)
 
 
@@ -379,11 +375,8 @@ def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
     lib = LIB.load()
     args = (flat.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), N,
             H, W, P, C, int(flat.dtype == torch.bfloat16))
-    if dev.index == torch.cuda.current_device():
+    with on_device(dev):
         err = lib.sample_rows_bilinear(*args, raw_stream(dev))
-    else:
-        with torch.cuda.device(dev):
-            err = lib.sample_rows_bilinear(*args, raw_stream(dev))
     check_launch('sample_rows_bilinear', err)
     sampler_launches += 1
     return out

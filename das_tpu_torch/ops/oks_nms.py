@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .cuda_build import (FLOAT, INT, PTR, CudaLibrary, check_launch,
-                         check_tensor)
+                         check_tensor, on_device, raw_stream)
 
 LIB = CudaLibrary('oks_nms.cu', {
     'oks_nms_max_candidates': [],
@@ -262,8 +262,8 @@ def oks_nms_keep(kpts: torch.Tensor, areas: torch.Tensor,
     nw = (M + 63) // 64
     mask = torch.empty((B, M, nw), dtype=torch.int64, device=dev)
     keep = torch.empty((B, M), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = raw_stream(dev)
         err = lib.oks_nms_keep_forward(
             kpts.data_ptr(), areas.data_ptr(), var2.data_ptr(),
             valid.data_ptr(), mask.data_ptr(), keep.data_ptr(), B, M, J,

@@ -1,4 +1,4 @@
-"""The training step on one card, port of ``das_tpu/parallel/train_step.py``.
+"""The training step, port of ``das_tpu/parallel/train_step.py``.
 
 Optimizer of the reference recipe (ref exp_panoptic.py:201-212,
 mmdet_schedule_1x.py), with the JAX step's semantics exactly: a global-norm
@@ -15,6 +15,16 @@ The parameters and batch statistics live in the model, which the step
 updates in place (the JAX step returns new trees); ``TrainState`` carries
 the model, the step count and the optimizer state. One call does
 ``(state, batch) -> (state, metrics)``.
+
+With a process group (``make_train_step(..., group)``) each rank steps on
+its shard of the global batch, as the JAX step's SPMD program does over its
+mesh: BatchNorm and the loss take their moments and normalisers over the
+global batch (``parallel/mesh.py``), so each rank's loss is its share of
+the global loss, and the gradients are SUMMED over the ranks
+(``all_reduce_grads``) before the global-norm clip. ``DistributedDataParallel``
+is not used: it averages gradients (the loss would have to be scaled by the
+world size) and overlaps its buckets with the backward where this step
+needs every gradient summed before the clip anyway.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import torch.nn as nn
 
 from ..core.targets import get_targets
 from ..models.layers import BatchNorm, GroupNorm
+from .mesh import all_reduce_grads, sum_over
 
 
 @dataclass
@@ -137,7 +148,7 @@ def make_optimizer(model: nn.Module, lr_fn: Callable[[int], float],
 def make_train_step(tx_update, featmap_sizes, strides, regress_ranges,
                     num_joints: int, center_sample_radius: float = 1.5,
                     centerness_alpha: float = 2.5, bg_label: int = 1,
-                    max_pos: int = 1024, img_norm=None):
+                    max_pos: int = 1024, img_norm=None, group=None):
     """The step ``(state, batch) -> (state, metrics)``.
 
     ``batch`` is the TrainLoader's: NHWC images plus padded GT arrays,
@@ -147,6 +158,11 @@ def make_train_step(tx_update, featmap_sizes, strides, regress_ranges,
     there. Only ``loss*`` terms are summed and optimised; ``metrics`` holds
     the total, ``grad_norm`` and every term the loss returns (``pos_overflow``
     too), as 0-d tensors on the device.
+
+    With ``group`` the batch is this rank's shard, ``max_pos`` the global
+    budget, and the metrics are sums over the ranks (``grad_norm``, of the
+    summed gradients, is the same on every rank); the model must have been
+    ``replicate``d over ``group``.
     """
     featmap_sizes = [tuple(s) for s in featmap_sizes]
 
@@ -170,18 +186,22 @@ def make_train_step(tx_update, featmap_sizes, strides, regress_ranges,
             num_joints, center_sample_radius, centerness_alpha, bg_label)
         for p in params.values():
             p.grad = None
-        losses = model.loss(img, targets, max_pos)
+        losses = model.loss(img, targets, max_pos, group=group)
         total = sum(v for k, v in losses.items() if 'loss' in k)
         total.backward()
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
+        if group is not None:
+            all_reduce_grads(grads.values(), group)
         with torch.no_grad():
             updates, opt_state, gnorm = tx_update(grads, state.opt_state,
                                                   params)
             for k, p in params.items():
                 p.add_(updates[k])
-        metrics = dict(loss=total.detach(), grad_norm=gnorm,
-                       **{k: v.detach() for k, v in losses.items()})
+        summed = dict(loss=total.detach(),
+                      **{k: v.detach() for k, v in losses.items()})
+        summed = dict(zip(summed, sum_over(group, *summed.values())))
+        metrics = dict(loss=summed.pop('loss'), grad_norm=gnorm, **summed)
         return TrainState(state.step + 1, model, opt_state), metrics
 
     return train_step

@@ -35,7 +35,8 @@ from ..datasets.loader import train_pad_hw_from_cfg
 from ..models import build_trainable_model
 from ..ops import gather
 from ..parallel import (TrainState, make_lr_fn, make_optimizer,
-                        make_train_step, mspn_frozen_prefixes)
+                        make_train_step, mspn_frozen_prefixes, replicate,
+                        world_size)
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'configs', 'das', 'exp_panoptic_tpu.py')
@@ -96,13 +97,17 @@ def synthetic_batch(B: int, H: int, W: int, num_joints: int,
 
 
 def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
-                 hw: Sequence[int], seed: int = 0):
+                 hw: Sequence[int], seed: int = 0, group=None):
     """(state, step_fn, lr_fn, max_pos) for ``cfg`` as ``train_model`` would
     set it up: the schedule of ``cfg.optimizer`` and ``cfg.lr_config`` with
     1000 steps per epoch, the MSPN frozen prefixes, ``train_cfg.max_pos`` or
-    128 per image, and the config's image normalisation on the device."""
+    128 per image of the global batch, and the config's image normalisation
+    on the device. With ``group``, ``batch`` is this rank's share: the model
+    is replicated over the group and the step is data-parallel."""
     model = build_trainable_model(cfg.model, dtype=dtype, device=device,
                                   seed=seed)
+    if group is not None:
+        replicate(model, group)
     head = cfg.model.bbox_head
     opt = dict(cfg.get('optimizer') or {})
     lr_cfg = dict(cfg.get('lr_config') or {})
@@ -120,13 +125,13 @@ def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
     H, W = hw
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
-    max_pos = int((cfg.model.get('train_cfg') or {}).get('max_pos',
-                                                         128 * batch))
+    max_pos = int((cfg.model.get('train_cfg') or {}).get(
+        'max_pos', 128 * batch * (1 if group is None else world_size(group))))
     step = make_train_step(
         tx_update, featmaps, tuple(head.strides),
         tuple(tuple(r) for r in head.regress_ranges), int(head.num_joints),
         center_sample_radius=float(head.get('center_sample_radius', 1.5)),
-        max_pos=max_pos, img_norm=cfg.get('img_norm_cfg'))
+        max_pos=max_pos, img_norm=cfg.get('img_norm_cfg'), group=group)
     state = TrainState(0, model, tx_init(dict(model.named_parameters())))
     return state, step, lr_fn, max_pos
 

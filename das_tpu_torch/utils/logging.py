@@ -78,3 +78,17 @@ class MetricLogger:
         self.jsonl.close()
         if self.tb is not None:
             self.tb.close()
+
+
+class NullLogger:
+    """What a rank other than 0 logs through: nothing (rank 0 writes the
+    text log, the metrics and the event file for the whole group)."""
+
+    def text(self, msg: str):
+        pass
+
+    def log(self, step: int, metrics: Dict, batch_size: int, dt: float):
+        pass
+
+    def close(self):
+        pass

@@ -642,3 +642,62 @@ def test_prefetch_to_device_pinned_ring_matches_the_host(cuda):
         for k, v in want.items():
             assert got[k].dtype == torch.from_numpy(v).dtype, k
             assert np.array_equal(got[k].cpu().numpy(), v), k
+
+
+def _launches_with_plain(name, dev):
+    """(kernel call, plain call, launch count) of one wrapper on small
+    inputs on ``dev``; the bf16 shapes take the wgmma passes (K1, K2), whose
+    shared memory is allowed per device."""
+    if name == 'dcn_shift':
+        a = list(_inputs(1, 20, 36, 64, 64, torch.bfloat16, dev, spread=0.8))
+        a[3] = a[3] * 0.25
+        return (lambda: dcn_shift.deform_conv_shift(*a, radius=1),
+                lambda: dcn_shift.deform_conv_shift_plain(*a, radius=1),
+                lambda: dcn_shift.launches)
+    if name == 'conv_gn':
+        a = _convgn_inputs(1, 20, 36, 64, 64, torch.bfloat16, dev)
+        return (lambda: conv_gn.conv_gn_relu(*a, groups=32),
+                lambda: conv_gn.conv_gn_relu_plain(*a, groups=32),
+                lambda: conv_gn.launches)
+    if name == 'oks_nms':
+        kpts, areas, valid = _nms_inputs(2, 130, 17, dev)
+        sig = oks_nms.default_sigmas(17)
+        return (lambda: oks_nms.oks_nms_keep(kpts, areas, valid, 0.9, sig),
+                lambda: oks_nms.oks_nms_keep_plain(kpts, areas, valid, 0.9,
+                                                   sig),
+                lambda: oks_nms.launches)
+    g = torch.Generator().manual_seed(0)
+    table = torch.randn(2, 1000, 8, generator=g).to(dev)
+    idx = torch.randint(0, 1000, (2, 300), generator=g).to(dev)
+    return (lambda: gather.gather_rows(table, idx),
+            lambda: gather.gather_rows_plain(table, idx),
+            lambda: gather.launches)
+
+
+@pytest.mark.parametrize('name', ['dcn_shift', 'conv_gn', 'oks_nms',
+                                  'gather_rows'])
+def test_kernel_launches_on_its_tensors_card(cuda, monkeypatch, name):
+    """A wrapper called while another card is the current device launches
+    on its tensors' card (``cuda_build.on_device``) and agrees with the
+    plain version there (bf16 within 1e-2 x max|ref|, the rest equal). With
+    two cards: tensors on cuda:1, current device 0. With one: the current
+    device reads as another index, so the wrapper takes the same switch."""
+    if torch.cuda.device_count() >= 2:
+        dev = torch.device('cuda', 1)
+        current = torch.cuda.device(0)
+    else:
+        dev = torch.device('cuda', 0)
+        monkeypatch.setattr(torch.cuda, 'current_device', lambda: 1)
+        current = torch.cuda.device(0)
+    kernel, plain, count = _launches_with_plain(name, dev)
+    with current:
+        before = count()
+        got = kernel()
+        torch.cuda.synchronize(dev)
+    assert count() == before + 1 and got.device == dev
+    want = plain()
+    if got.dtype == torch.bfloat16:
+        err = (got.float() - want.float()).abs().max()
+        assert err <= 1e-2 * want.float().abs().max()
+    else:
+        assert torch.equal(got, want)

@@ -441,18 +441,6 @@ def test_init_model_switches_and_missing_key_report(tmp_path, capsys):
         init_model(cfg, checkpoint=path, device='cpu')
 
 
-def test_run_test_refuses_several_processes(tiny, data, monkeypatch):
-    """Under torch.distributed with a world size above 1, run_test raises
-    instead of evaluating the whole dataset in every process."""
-    _, _, _, model = tiny
-    root, ann = data
-    cfg = Config(_cfg_dict(root, ann))
-    monkeypatch.setattr(torch.distributed, 'is_initialized', lambda: True)
-    monkeypatch.setattr(torch.distributed, 'get_world_size', lambda: 2)
-    with pytest.raises(NotImplementedError, match='Queue 1, item 8'):
-        run_test(model, build_dataset(cfg.data['test']), cfg)
-
-
 def test_cli_evaluates_on_the_cpu(tiny, data, tmp_path):
     """python -m das_tpu_torch.tools.test on a config file of the tiny
     model, --device cpu, --device-preprocess and --fuse-conv-bn, with a
