@@ -6,13 +6,15 @@ Run from the repository root, on a machine with one card:
 
     python3 chip_smoke.py
 
-Phases, one line of output each (``[phase] ...``); any failure exits
-nonzero and prints no result:
+Phases, one line of output each (``[phase +seconds since the start] ...``);
+any failure exits nonzero and prints no result:
 
 1. environment: torch/CUDA versions, the card and its capability (9, 0)
-   required, ``nvidia-smi`` name and power limit, nvcc and triton;
-2. build: every kernel of the path from the repository's sources, one
-   ``nvcc`` per source, all started together;
+   required, ``nvidia-smi`` name and power limit, nvcc and triton, and
+   ``utils/collect_env.py``'s report;
+2. build: the host library with g++, then every kernel of the path from
+   the repository's sources, one ``nvcc`` per source, all started
+   together;
 3. each kernel against its plain PyTorch version on the card, and timed at
    the serving shapes against its bound: ``dcn_shift`` (K1: its wgmma pass
    at the four levels at r=1 and at level 1 at r=2, two runs equal bit for
@@ -62,7 +64,8 @@ nonzero and prints no result:
 8. the training entry point ("trainrun"): a synthetic shipped mix on disk
    under ``build/`` (8 CMU-Panoptic-format 1920x1080 JPEG frames with 3-4
    people each and 8 COCO-17 keypoint frames at 640x480); the TrainLoader
-   alone (images/s); ``apis/train.py::train_model`` on
+   alone (images/s, and its resizes and warps all through the host
+   library, none through cv2); ``apis/train.py::train_model`` on
    ``configs/das/exp_panoptic_tpu.py`` from those files through the shipped
    random pipelines, B=4 640x1344 bf16 on f32 master weights, 6 steps of 4
    an epoch (every loss finite, 12 + 12 K4 launches and no K1 or K3 each
@@ -88,7 +91,23 @@ nonzero and prints no result:
    -m das_tpu_torch.tools.train ... --launcher pytorch --dist-backend
    gloo``; and, on a host with two cards or more, ``train_model`` over
    NCCL, one card a rank. The ranks' launches go into the kernels line as
-   ``phase9_launches_per_rank``.
+   ``phase9_launches_per_rank``;
+10. the remaining entry points and tools ("tools"): the C++ host library
+   (``datasets/native.py``, built with g++ in phase 2) on a smooth
+   1920x1080 float32 frame, timed beside cv2: the resize within 0.51 of
+   cv2, the warp within 1e-3 of an exact float64 warp and within 0.5 of
+   cv2 inside the frame; ``python -m
+   das_tpu_torch.tools.demo`` on exp_panoptic_tpu with phase 7's weights on
+   a 640x480 frame, in bf16 on the card (the request's launches asserted as
+   phase 4's: 16 K1, 1 K3, 3 grouped gathers, fused samples within
+   K4_SAMPLES) and in f32 on the card against the CPU (the same people);
+   ``validate_hybrid`` on the card against the CPU (the same flagged pixels
+   per DCN call, max|off| within VALIDATE_RTOL, the same exit code); phase
+   8's checkpoints through ``export_torch``, ``publish_model`` and
+   ``fuse_conv_bn``, each file loaded strictly by ``init_model``; and one
+   request under ``utils/profiling.trace``, whose trace names K1's kernel.
+   The demo's card launches go into the kernels line (and
+   ``phase10_launches``).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -133,8 +152,13 @@ K4_SAMPLES = (9, 24)
 K4_PER_STEP = 12
 
 
+STARTED = time.perf_counter()
+
+
 def phase(name, msg):
-    print(f'[{name}] {msg}', flush=True)
+    """One line of a phase, with the seconds since the script started."""
+    print(f'[{name} +{time.perf_counter() - STARTED:.1f}s] {msg}',
+          flush=True)
 
 
 def check(ok, what):
@@ -269,16 +293,28 @@ def environment():
     except ImportError:
         cv = 'absent'
     phase('env', f'nvcc {nvcc or "absent"}; triton {tri}; cv2 {cv}')
+    from das_tpu_torch.utils.collect_env import collect_env
+    phase('env', 'collect_env: ' + '; '.join(
+        f'{k}: {v}' for k, v in collect_env().items()))
     return name, smi[0]
 
 
 def build():
-    from das_tpu_torch.ops import (conv_gn, cuda_build, dcn_shift, gather,
-                                   oks_nms)
+    """The host library (g++, ``datasets/native.py``), then every CUDA
+    source (one nvcc each, started together)."""
+    from das_tpu_torch.datasets import native
+    from das_tpu_torch.ops import conv_gn, cuda_build, dcn_shift, gather, \
+        oks_nms
     libs = [dcn_shift.LIB, conv_gn.LIB, oks_nms.LIB, gather.LIB]
+    t = time.perf_counter()
+    so = native.build()
+    check(native.available(), 'the host library did not load')
+    host_s = time.perf_counter() - t
     secs = cuda_build.build_all(libs)
     phase('build', ', '.join(lib.source.name for lib in libs)
-          + f' built (one nvcc each, in parallel) and loaded in {secs:.2f} s')
+          + f' built (one nvcc each, in parallel) and loaded in {secs:.2f} s;'
+          f' host library {os.path.relpath(so, HERE)} (g++ '
+          f'{" ".join(native.GXX_FLAGS)}) built and loaded in {host_s:.2f} s')
     for lib in libs:
         phase('build', f'{lib.source.name}: {lib.registers()}')
 
@@ -2245,10 +2281,38 @@ def restored_equal(mgr, state):
     return state.step, n
 
 
+@contextlib.contextmanager
+def resize_and_warp_calls():
+    """Counts, for the block, the training transforms' resizes and warps
+    through the host library (``datasets/native.py``) and through cv2.
+    Yields the dict of counts."""
+    import cv2
+    from das_tpu_torch.datasets import native
+    calls = {}
+    targets = [(native, 'resize_bilinear'), (native, 'affine_warp'),
+               (cv2, 'resize'), (cv2, 'warpAffine')]
+    real = {t: getattr(*t) for t in targets}
+
+    def counted(t):
+        def call(*a, **kw):
+            calls[t[1]] = calls.get(t[1], 0) + 1
+            return real[t](*a, **kw)
+        return call
+    for t in targets:
+        setattr(*t, counted(t))
+    try:
+        yield calls
+    finally:
+        for t in targets:
+            setattr(*t, real[t])
+
+
 def loader_images_per_s(cfg, batches=6):
     """The training loader alone, as train_model builds it (the shipped
     mix, its train bucket, workers_per_gpu threads, seed 0): images/s over
-    ``batches`` batches after the first."""
+    ``batches`` batches after the first, this process's CPU seconds an
+    image over them (all threads), and the resizes and warps of the run
+    through the host library and through cv2."""
     from das_tpu_torch.datasets import build_dataset
     from das_tpu_torch.datasets.loader import (TrainLoader,
                                                train_pad_hw_from_cfg)
@@ -2257,14 +2321,17 @@ def loader_images_per_s(cfg, batches=6):
                          train_pad_hw_from_cfg(train[0]['pipeline']),
                          int(cfg.model.bbox_head.num_joints),
                          num_workers=int(cfg.data.workers_per_gpu), seed=0)
-    it = iter(loader)
-    first = next(it)
-    t = time.perf_counter()
-    for _ in range(batches):
-        next(it)
-    secs = time.perf_counter() - t
-    it.close()
-    return batches * loader.batch_size / secs, first['img'].shape
+    with resize_and_warp_calls() as calls:
+        it = iter(loader)
+        first = next(it)
+        t, cpu = time.perf_counter(), time.process_time()
+        for _ in range(batches):
+            next(it)
+        secs = time.perf_counter() - t
+        cpu = time.process_time() - cpu
+        it.close()
+    images = batches * loader.batch_size
+    return images / secs, cpu / images, first['img'].shape, calls
 
 
 def trainrun(eval_data, synthetic_median, smi):
@@ -2286,11 +2353,18 @@ def trainrun(eval_data, synthetic_median, smi):
                  'data.val.data_root': eval_data[0]})
     cfg = Config.fromfile(SERVING_CFG)
     cfg.merge_from_dict(opts)
-    ips, shape = loader_images_per_s(cfg)
+    ips, cpu, shape, calls = loader_images_per_s(cfg)
+    check(calls.get('resize_bilinear', 0) > 0
+          and calls.get('affine_warp', 0) > 0
+          and not calls.get('resize') and not calls.get('warpAffine'),
+          ('the training transforms left the native path', calls))
     phase('trainrun', f'TrainLoader alone (8 Panoptic 1920x1080 + 8 COCO '
           f'640x480 JPEGs, the shipped random pipelines, '
           f'{cfg.data.workers_per_gpu} threads): {ips:.2f} images/s, '
-          f'batches {tuple(shape)}')
+          f'{cpu * 1e3:.1f} ms of host CPU an image, batches '
+          f'{tuple(shape)}; the transforms took the native path: '
+          f'{calls["resize_bilinear"]} resizes and {calls["affine_warp"]} '
+          f'warps through the host library, none through cv2; {smi}')
     work = os.path.join(TRAIN_DIR, 'work')
     if os.path.isdir(work):
         import shutil
@@ -2922,6 +2996,343 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
     return [t['launches'] for t in tr]
 
 
+# ------------------------------------------------------------- 10. tools
+
+TOOLS_DIR = os.path.join(HERE, 'build', 'chip_smoke_tools')
+# the card the phase runs on (the CPU runs of the demo and validate_hybrid
+# are its references)
+TOOLS_DEVICE = 'cuda'
+# validate_hybrid's max|off| on the card against the CPU, relative
+VALIDATE_RTOL = 1e-5
+
+
+def warp_reference(src, trans, out_hw, border):
+    """cv2.warpAffine's INTER_LINEAR with a constant border, exactly, in
+    float64: (the warped image, the mask of output pixels whose four taps
+    all lie inside the source)."""
+    import numpy as np
+    (a, b, c), (d, e, f) = np.asarray(trans, np.float64)[:2]
+    det = a * e - b * d
+    h, w = src.shape[:2]
+    ys, xs = np.mgrid[0:out_hw[0], 0:out_hw[1]].astype(np.float64)
+    sx = (e * (xs - c) - b * (ys - f)) / det
+    sy = (-d * (xs - c) + a * (ys - f)) / det
+    x0, y0 = np.floor(sx), np.floor(sy)
+    wx, wy = (sx - x0)[..., None], (sy - y0)[..., None]
+    pad = np.empty((h + 2, w + 2, 3), np.float64)
+    pad[:] = np.asarray(border, np.float64)
+    pad[1:-1, 1:-1] = src
+    # every tap outside the frame reads the border: clip to one past it
+    xi, xj = (np.clip(x, -1, w).astype(np.int64) + 1 for x in (x0, x0 + 1))
+    yi, yj = (np.clip(y, -1, h).astype(np.int64) + 1 for y in (y0, y0 + 1))
+    out = ((pad[yi, xi] * (1 - wx) + pad[yi, xj] * wx) * (1 - wy)
+           + (pad[yj, xi] * (1 - wx) + pad[yj, xj] * wx) * wy)
+    inside = (x0 >= 0) & (x0 + 1 <= w - 1) & (y0 >= 0) & (y0 + 1 <= h - 1)
+    return out, inside
+
+
+def host_library_vs_cv2(smi):
+    """The port's C++ host library (``datasets/native.py``) on a smooth
+    1920x1080 float32 frame (a 27x48 random grid upsampled bilinearly, as
+    smooth as a camera's): the resize to the serving scale (640x1138)
+    within 0.51 of ``cv2.resize``, the native tests' tolerance; the
+    training warp (GlobalRotScaleTransPose's affine at a 20 degree rotation,
+    scale 1.1, the config's border) within 1e-3 of the exact warp in
+    float64 everywhere, and within 0.5 of ``cv2.warpAffine`` where all four
+    taps lie inside the frame. cv2 4.x rounds each sample position to 1/32
+    of a pixel, so at the frame's edge, where the border colour meets the
+    image, it is off the exact warp by more (printed, not held). Each is
+    timed beside cv2 (host clock, median of 5)."""
+    import cv2
+    import numpy as np
+    from das_tpu_torch.datasets import native
+    from das_tpu_torch.datasets.pipelines import get_affine_transform
+    check(native.available(), 'the host library did not load')
+    rng = np.random.RandomState(0)
+    src = cv2.resize((rng.rand(27, 48, 3) * 255).astype(np.float32),
+                     (1920, 1080), interpolation=cv2.INTER_LINEAR)
+    trans = get_affine_transform(np.array([960.0, 540.0]) * 1.05,
+                                 np.array([1920.0, 1080.0]) * 1.1, 20.0,
+                                 [1920, 1080])
+    border = [103.53, 116.28, 123.675]
+    resized = native.resize_bilinear(src, (640, 1138))
+    err = float(np.abs(resized - cv2.resize(
+        src, (1138, 640), interpolation=cv2.INTER_LINEAR)).max())
+    check(err <= 0.51, ('host library resize vs cv2', err))
+    warped = native.affine_warp(src, trans, (1080, 1920), border)
+    exact, inside = warp_reference(src, trans, (1080, 1920), border)
+    vs_exact = float(np.abs(warped - exact).max())
+    diff = np.abs(warped - cv2.warpAffine(
+        src, trans, (1920, 1080), flags=cv2.INTER_LINEAR,
+        borderValue=border)).max(-1)
+    vs_cv2, edge = float(diff[inside].max()), float(diff.max())
+    check(vs_exact <= 1e-3 and vs_cv2 <= 0.5,
+          ('host library warp', vs_exact, vs_cv2))
+    ms = {}
+    for name, fn in (
+            ('native resize', lambda: native.resize_bilinear(src,
+                                                             (640, 1138))),
+            ('cv2 resize', lambda: cv2.resize(
+                src, (1138, 640), interpolation=cv2.INTER_LINEAR)),
+            ('native warp', lambda: native.affine_warp(
+                src, trans, (1080, 1920), border)),
+            ('cv2 warp', lambda: cv2.warpAffine(
+                src, trans, (1920, 1080), flags=cv2.INTER_LINEAR,
+                borderValue=border))):
+        runs = []
+        for _ in range(5):
+            t = time.perf_counter()
+            fn()
+            runs.append((time.perf_counter() - t) * 1e3)
+        ms[name] = float(np.median(runs))
+    phase('tools', f'host library (g++ -O3 -march=native, '
+          f'{native.so_path().name}), a smooth 1920x1080 float32 frame: '
+          f'resize to 640x1138 within {err:.3g} of cv2 '
+          f'{cv2.__version__}; warp within {vs_exact:.3g} of the exact '
+          f'float64 warp, within {vs_cv2:.3g} of cv2 inside the frame '
+          f'({edge:.3g} at its edge); host clock, median of 5, ms a frame: '
+          + ', '.join(f'{k} {v:.2f}' for k, v in ms.items()) + f'; {smi}')
+    return ms
+
+
+def demo_people(res):
+    """The demo's JSON -> run_test's per-image dict, for people_agree."""
+    import numpy as np
+    people = res['people']
+    return [dict(scores=[p['score'] for p in people], poses=np.array(
+        [p['joints_uvd'] for p in people], np.float32).reshape(-1, EVAL_J,
+                                                             3))]
+
+
+def run_cli(tool, argv):
+    """A port CLI's ``main(argv)`` in this process: (stdout, exit code)."""
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = tool.main(argv)
+    return out.getvalue(), code
+
+
+def demo_on_card_and_cpu(ckpt, expect):
+    """``python -m das_tpu_torch.tools.demo`` on exp_panoptic_tpu with
+    phase 7's weights, a synthetic 640x480 frame (resized to 853x640,
+    padded to 864x640), ``--score-thr`` at the config's decode threshold
+    (every decoded person is listed): in bf16 on the card as a user runs it, the request
+    launching exactly its share of ``expect`` (as phase 4's, counted around
+    the CLI's predict call); then in f32 on the card (TF32 off) and on the
+    CPU, whose people must agree (people_agree). Returns (the CLI's
+    launches over its bf16 run, counts set to 0 just before and read just
+    after, the f32 card run's launches, seconds of the three runs)."""
+    import cv2
+    import numpy as np
+    import das_tpu_torch.apis.inference as inf_api
+    from das_tpu_torch.tools import demo
+    rng = np.random.RandomState(4)
+    blocks = rng.randint(0, 256, (480 // 40 + 1, 640 // 40 + 1, 3))
+    frame = np.kron(blocks, np.ones((40, 40, 1), np.int64))[:480, :640]
+    frame = (frame + rng.randint(0, 16, (480, 640, 3))).clip(0, 255)
+    img = os.path.join(TOOLS_DIR, 'frame_640x480.png')
+    cv2.imwrite(img, frame.astype(np.uint8))
+    from das_tpu_torch.config import Config
+    thr = str(Config.fromfile(SERVING_CFG).model.test_cfg.score_thr)
+    real = inf_api.make_predict_fn
+    requests = []
+
+    def counted(*args, **kwargs):
+        predict = real(*args, **kwargs)
+
+        def call(*a):
+            before = {key: getattr(*key) for key in expect}
+            out = predict(*a)
+            requests.append({count_label(key): getattr(*key) - before[key]
+                             for key in expect})
+            return out
+        return call
+
+    out = {}
+    secs = {}
+    inf_api.make_predict_fn = counted
+    try:
+        for name, dev, dtype in (('bf16', TOOLS_DEVICE, 'bfloat16'),
+                                 ('f32', TOOLS_DEVICE, 'float32'),
+                                 ('cpu', 'cpu', 'float32')):
+            argv = [SERVING_CFG, ckpt, img, '--device', dev, '--dtype',
+                    dtype, '--score-thr', thr, '--out',
+                    os.path.join(TOOLS_DIR, f'demo_{name}.png')]
+            for mod, attr in expect:
+                setattr(mod, attr, 0)
+            t = time.perf_counter()
+            with no_tf32() if name == 'f32' else contextlib.nullcontext():
+                text, code = run_cli(demo, argv)
+            secs[name] = time.perf_counter() - t
+            check(code == 0, ('demo', name, code))
+            out[name] = (json.loads(text[:text.rindex('}') + 1]),
+                         {count_label(key): getattr(*key)
+                          for key in expect})
+    finally:
+        inf_api.make_predict_fn = real
+    labels = {count_label(k): n for k, n in expect.items()}
+    got = requests[0]
+    check(len(requests) == 3 and all(
+        n[0] <= got[k] <= n[1] if isinstance(n, tuple) else got[k] == n
+        for k, n in labels.items())
+        and sum(v for k, v in got.items() if 'gather' in k)
+        <= K4_PER_REQUEST, ('demo request launches', requests))
+    check(requests[2] == {k: 0 for k in labels},
+          ('the CPU demo launched a kernel', requests[2]))
+    bf16 = out['bf16'][0]
+    check(bf16['num_people'] > 0 and all(
+        np.isfinite(p['joints_uvd']).all() for p in bf16['people']),
+        ('demo bf16 people', bf16['num_people']))
+    people, worst = people_agree(demo_people(out['cpu'][0]),
+                                 demo_people(out['f32'][0]),
+                                 'demo card vs CPU')
+    check(people > 0, 'demo card vs CPU: no person above the threshold')
+    phase('tools', f'python -m das_tpu_torch.tools.demo exp_panoptic_tpu '
+          f'(phase 7 weights) on a 640x480 frame (-> 853x640, padded '
+          f'864x640): bf16 on the card {bf16["num_people"]} people, the '
+          f'request launched ' + ', '.join(f'{v} {k}' for k, v in got.items())
+          + f' (the CLI in all: {out["bf16"][1]}); f32 card vs CPU: '
+          f'{people} people on both, scores within {EVAL_SCORE_TOL:g}, '
+          f'poses within {worst:.3g} (<= {EVAL_POSE_RTOL:g}); seconds '
+          f'(build, load, DCN check, request) bf16 {secs["bf16"]:.1f}, f32 '
+          f'card {secs["f32"]:.1f}, CPU {secs["cpu"]:.1f}')
+    return out['bf16'][1], out['f32'][1], secs
+
+
+def validate_on_card_and_cpu(ckpt):
+    """``python -m das_tpu_torch.tools.validate_hybrid`` on the card and
+    with ``--device cpu``, phase 7's weights (perturb_offsets' seeded
+    conv_offset fields), B=2 256x320 RandomState(0) inputs, radius 1: the
+    same flagged pixels per layer and level, max|off| within VALIDATE_RTOL
+    relative (the rows the CLI computed, at full precision), the same exit
+    code."""
+    import das_tpu_torch.apis.inference as inf_api
+    from das_tpu_torch.tools import validate_hybrid
+    real = inf_api.dcn_offset_table
+    rows = {}
+    codes = {}
+    for dev in (TOOLS_DEVICE, 'cpu'):
+        def capture(*a, dev=dev):
+            rows[dev] = real(*a)
+            return rows[dev]
+        inf_api.dcn_offset_table = capture
+        try:
+            text, codes[dev] = run_cli(validate_hybrid, [
+                '--config', SERVING_CFG, '--ckpt', ckpt, '--height', '256',
+                '--width', '320', '--radius', '1', '--device', dev])
+        finally:
+            inf_api.dcn_offset_table = real
+    got, want = rows[TOOLS_DEVICE], rows['cpu']
+    check(len(got) == len(want) == 16 and sum(r[2] for r in want) > 0,
+          ('validate_hybrid rows', len(got), len(want)))
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g[0] == w[0] and g[2] == w[2], ('validate_hybrid row', g, w))
+        worst = max(worst, abs(g[1] - w[1]) / max(abs(w[1]), 1e-12))
+    check(worst <= VALIDATE_RTOL and codes[TOOLS_DEVICE] == codes['cpu'],
+          ('validate_hybrid card vs CPU', worst, codes))
+    phase('tools', f'python -m das_tpu_torch.tools.validate_hybrid (phase 7 '
+          f'weights, B=2 256x320, radius 1): card and CPU flag the same '
+          f'pixels in each of 16 DCN calls ({sum(r[2] for r in got)} in '
+          f'all), max|off| within {worst:.3g} relative (<= '
+          f'{VALIDATE_RTOL:g}), exit {codes["cpu"]} on both')
+
+
+def checkpoint_tools(ckpt_dir):
+    """Phase 8's checkpoint directory through ``export_torch`` (the latest
+    step), ``publish_model`` and ``fuse_conv_bn``, on the card; each file
+    loads strictly with ``init_model``."""
+    import torch
+    from das_tpu_torch.apis import init_model
+    from das_tpu_torch.tools import export_torch, fuse_conv_bn, publish_model
+    exported = os.path.join(TOOLS_DIR, 'exported.pth')
+    text, code = run_cli(export_torch, [SERVING_CFG, ckpt_dir, exported,
+                                        '--device', TOOLS_DEVICE])
+    check(code == 0, ('export_torch', text))
+    text, code = run_cli(publish_model, [exported, os.path.join(
+        TOOLS_DIR, 'published.pth')])
+    published = text.split()[-1]
+    check(code == 0 and os.path.exists(published), ('publish_model', text))
+    fused = os.path.join(TOOLS_DIR, 'fused.pth')
+    text, code = run_cli(fuse_conv_bn, [SERVING_CFG, published, fused,
+                                        '--device', TOOLS_DEVICE])
+    pairs = [ln for ln in text.splitlines() if ln.startswith('fused ')]
+    check(code == 0 and pairs, ('fuse_conv_bn', text))
+    for path in (exported, published, fused):
+        init_model(SERVING_CFG, path, device=TOOLS_DEVICE)
+    ckpt = torch.load(published, map_location='cpu', weights_only=False)
+    check(not set(ckpt) & {'optimizer', 'momentum', 'count', 'step'},
+          ('publish_model kept training state', sorted(ckpt)))
+    phase('tools', f'phase 8\'s checkpoints -> export_torch (latest step) -> '
+          f'publish_model ({os.path.basename(published)}) -> fuse_conv_bn '
+          f'({pairs[0]}): each loads strictly with init_model on the card')
+
+
+def traced_request(ckpt):
+    """One bf16 request of the demo's frame under
+    ``utils/profiling.trace``: the Chrome trace it writes names K1's
+    kernel. Returns (trace file, its kernel events named after K1)."""
+    import glob
+    import cv2
+    import torch
+    from das_tpu_torch.apis import init_model, make_predict_fn
+    from das_tpu_torch.tools import demo
+    from das_tpu_torch.utils import profiling
+    model, cfg = init_model(SERVING_CFG, ckpt, dtype=torch.bfloat16,
+                            device=TOOLS_DEVICE)
+    head = cfg.model.bbox_head
+    predict = make_predict_fn(model, cfg.model.test_cfg, head.num_joints,
+                              head.strides, device=TOOLS_DEVICE)
+    padded, sf = demo.preprocess(cv2.imread(os.path.join(
+        TOOLS_DIR, 'frame_640x480.png')))
+    x = torch.from_numpy(padded)[None].to(TOOLS_DEVICE)
+    sf = torch.from_numpy(sf).to(TOOLS_DEVICE)
+    predict(x, sf)
+    log_dir = os.path.join(TOOLS_DIR, 'trace')
+    if os.path.isdir(log_dir):
+        import shutil
+        shutil.rmtree(log_dir)
+    with profiling.trace(log_dir):
+        with profiling.annotate('demo_request'):
+            predict(x, sf)
+    files = glob.glob(os.path.join(log_dir, '*.pt.trace.json'))
+    check(len(files) == 1, ('profiling.trace files', files))
+    with open(files[0]) as f:
+        events = json.load(f)['traceEvents']
+    k1 = [e for e in events if e.get('cat') == 'kernel'
+          and 'dcn_shift' in e.get('name', '')]
+    check(len(k1) == 16 and any(e.get('name') == 'demo_request'
+                                for e in events),
+          ('the trace does not name K1 16 times', len(k1)))
+    phase('tools', f'utils/profiling.trace of one demo request: '
+          f'{os.path.relpath(files[0], HERE)} ({os.path.getsize(files[0])} '
+          f'bytes), {len(k1)} K1 kernel events '
+          f'("{k1[0]["name"][:60] if k1 else ""}"), '
+          f'{sum(e.get("dur", 0) for e in k1):.1f} us of K1 in all')
+
+
+def tools(served_sd, expect, smi):
+    """Phase 10: the host library, the demo and validate_hybrid CLIs card
+    against CPU, the checkpoint tools on phase 8's checkpoints, and one
+    traced request. Returns the launches of the demo's bf16 CLI run and of
+    its f32 card run, added together."""
+    import torch
+    t0 = time.perf_counter()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    host_library_vs_cv2(smi)
+    ckpt = os.path.join(TOOLS_DIR, 'served.pth')
+    torch.save(dict(state_dict={k: v.float() for k, v in served_sd.items()},
+                    meta={}), ckpt)
+    bf16, f32, _ = demo_on_card_and_cpu(ckpt, expect)
+    validate_on_card_and_cpu(ckpt)
+    checkpoint_tools(os.path.join(TRAIN_DIR, 'work', 'ckpts'))
+    traced_request(ckpt)
+    torch.cuda.empty_cache()
+    phase('tools', f'phase 10 in {time.perf_counter() - t0:.1f} s')
+    return {k: bf16[k] + f32[k] for k in bf16}
+
+
 def main():
     import torch
     name, smi = environment()
@@ -2990,12 +3401,21 @@ def main():
            n8))
     torch.cuda.empty_cache()
     n9 = dataparallel(eval_data, served_sd, outs1, train_opts, median8, smi)
-    del served_sd
     for k, key in ((k1, 'dcn_shift.launches'), (k2, 'conv_gn.launches'),
                    (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
                    (k4b, 'gather.backward_launches'),
                    (k4s, 'gather.sampler_launches')):
         k['phase9_launches_per_rank'] = [n[key] for n in n9]
+    n10 = tools(served_sd, expect(0), smi)
+    del served_sd
+    check(n10['dcn_shift.launches'] > 0 and n10['oks_nms.launches'] > 0
+          and n10['gather.launches'] > 0
+          and n10['gather.sampler_launches'] > 0,
+          ('the demo left a kernel of its path unlaunched', n10))
+    for k, key in ((k1, 'dcn_shift.launches'), (k3, 'oks_nms.launches'),
+                   (k4, 'gather.launches'), (k4s, 'gather.sampler_launches')):
+        k['launches'] += n10[key]
+        k['phase10_launches'] = n10[key]
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()

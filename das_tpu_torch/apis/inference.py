@@ -75,6 +75,32 @@ def init_model(config, checkpoint: Optional[str] = None,
 
 
 @torch.no_grad()
+def dcn_offset_table(model: DAS, img: torch.Tensor, radius: int
+                     ) -> List[Tuple[str, float, int]]:
+    """Forward ``img`` (N, H, W, 3) and bound every DCN call's offsets: one
+    row ``(name, max |offset|, flagged pixels)`` per call of each DCN layer
+    (one a pyramid level), where ``flagged`` is the largest count over the
+    images of pixels with a tap beyond ``radius``. Rows are ordered by the
+    layer's module name and then by call, ``<module>/[<call>]``, the order
+    in which the JAX package lists the ``dcn_offset`` intermediates."""
+    offsets = {}
+    hooks = [m.conv_offset.register_forward_hook(
+        lambda mod, inp, out, name=name: offsets.setdefault(name, []).append(
+            out[:, :out.shape[1] * 2 // 3].permute(0, 2, 3, 1).float()))
+        for name, m in model.named_modules() if isinstance(m, DeformConv2d)]
+    try:
+        model(img.to(next(model.parameters()).device))
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for name in sorted(offsets):
+        for i, off in enumerate(offsets[name]):
+            rows.append((f'{name}/[{i}]', float(off.abs().max()), int(
+                deform_offset_overflow(off, radius, budget=0).max())))
+    return rows
+
+
 def validate_dcn_offsets(model: DAS, radius: int, budget: int,
                          hw: Tuple[int, int] = (256, 320),
                          batch: int = 2, seed: int = 0):
@@ -85,24 +111,11 @@ def validate_dcn_offsets(model: DAS, radius: int, budget: int,
     heuristic certificate; the runtime repair in the hybrid modes stays the
     exactness backstop for any image within budget.
     """
-    dev = next(model.parameters()).device
     rng = np.random.RandomState(seed)
     img = torch.from_numpy(rng.randn(batch, *hw, 3).astype(np.float32))
-    offsets = []
-    hooks = [m.conv_offset.register_forward_hook(
-        lambda mod, inp, out: offsets.append(
-            out[:, :out.shape[1] * 2 // 3].permute(0, 2, 3, 1).float()))
-        for m in model.modules() if isinstance(m, DeformConv2d)]
-    try:
-        model(img.to(dev))
-    finally:
-        for h in hooks:
-            h.remove()
-    worst_off, worst_flagged = 0.0, 0
-    for off in offsets:
-        worst_off = max(worst_off, float(off.abs().max()))
-        worst_flagged = max(worst_flagged, int(
-            deform_offset_overflow(off, radius, budget=0).max()))
+    rows = dcn_offset_table(model, img, radius)
+    worst_off = max((r[1] for r in rows), default=0.0)
+    worst_flagged = max((r[2] for r in rows), default=0)
     return (worst_off <= radius, worst_flagged <= budget,
             (worst_off, worst_flagged))
 

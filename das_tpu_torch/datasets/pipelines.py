@@ -20,12 +20,16 @@ transform seeded ``RandomState(s)`` gives what the JAX one gives after
 ``np.random.seed(s)``. A transform that needs no draw (one scale, ``flip``
 already set) reads no generator.
 
-``cv2`` is imported where it runs (``Resize``, ``PhotoMetricDistortion``'s
-HSV round trip, ``GlobalRotScaleTransPose``'s warp): on a host without it
-the host pipeline raises there, and evaluation takes the device path
-(``apis/test.py``, ``device_preprocess``), which needs only a decode. The
-JAX transforms take their ``native`` C++ resize and warp when
-``das_tpu/libdas_host.so`` loads; the port runs the ``cv2`` path.
+``Resize`` and ``GlobalRotScaleTransPose`` take the port's C++ resize and
+warp (``datasets/native.py``, built with g++ at first use) for a float32
+HxWx3 image, the JAX transforms' default path and condition: every shipped
+config loads its images with ``to_float32=True``. Any other image takes
+``cv2``, as in the JAX package. A failed build of the library raises; no
+transform takes ``cv2`` because it is missing. ``cv2`` is imported where it
+runs (that resize and warp, ``PhotoMetricDistortion``'s HSV round trip,
+``get_affine_transform``): on a host without it those raise, and evaluation
+takes the device path (``apis/test.py``, ``device_preprocess``), which needs
+only a decode.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ import numpy as np
 
 from ..config.registry import PIPELINES, build_from_cfg
 from ..utils.image import imread
+from . import native
 
 
 def _rng(results) -> np.random.RandomState:
@@ -162,15 +167,18 @@ class Resize:
         return self.img_scale[idx]
 
     def __call__(self, results):
-        import cv2
-
         if 'scale' not in results:
             results['scale'] = self._pick_scale(results)
         img = results['img']
         h, w = img.shape[:2]
         new_h, new_w = _rescale_size(h, w, results['scale'])
-        resized = cv2.resize(img, (new_w, new_h),
-                             interpolation=cv2.INTER_LINEAR)
+        if img.dtype == np.float32 and img.ndim == 3 and \
+                img.shape[2] == 3 and native.available():
+            resized = native.resize_bilinear(img, (new_h, new_w))
+        else:
+            import cv2
+            resized = cv2.resize(img, (new_w, new_h),
+                                 interpolation=cv2.INTER_LINEAR)
         w_scale = new_w / w
         h_scale = new_h / h
         results['img'] = resized
@@ -385,8 +393,6 @@ class GlobalRotScaleTransPose:
         self.use_bbox_center = use_bbox_center
 
     def __call__(self, input_dict):
-        import cv2
-
         rng = _rng(input_dict)
         rot = rng.uniform(*self.rot_range) / math.pi * 180
         scale = rng.uniform(*self.scale_ratio_range)
@@ -400,9 +406,16 @@ class GlobalRotScaleTransPose:
         trans = get_affine_transform(center, new_scale, rot, [w, h])
 
         for key in input_dict.get('img_fields', ['img']):
-            input_dict[key] = cv2.warpAffine(
-                input_dict[key], trans, (int(w), int(h)),
-                flags=cv2.INTER_LINEAR, borderValue=self.img_mean)
+            img = input_dict[key]
+            if img.dtype == np.float32 and img.ndim == 3 and \
+                    img.shape[2] == 3 and native.available():
+                input_dict[key] = native.affine_warp(
+                    img, trans, (int(h), int(w)), self.img_mean)
+            else:
+                import cv2
+                input_dict[key] = cv2.warpAffine(
+                    img, trans, (int(w), int(h)), flags=cv2.INTER_LINEAR,
+                    borderValue=self.img_mean)
 
         # warp centers + joints through the same affine
         joints = input_dict['gt_poses_3d'][:, :3 + J * 3].copy()

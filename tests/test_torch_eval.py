@@ -30,6 +30,7 @@ import torch  # noqa: E402
 from das_tpu.apis import test as jtest  # noqa: E402
 from das_tpu.config import Config as JConfig  # noqa: E402
 from das_tpu.datasets import build_dataset as jbuild_dataset  # noqa: E402
+from das_tpu.datasets import native as jnative  # noqa: E402
 from das_tpu.models import build_model as jbuild_model  # noqa: E402
 from das_tpu.models.fuse import fuse_conv_bn as jfuse_conv_bn  # noqa: E402
 from das_tpu.ops import preprocess as jpre  # noqa: E402
@@ -40,6 +41,7 @@ from das_tpu_torch.checkpoint import (load_checkpoint_report,  # noqa: E402
                                       state_dict_from_flax)
 from das_tpu_torch.config import Config  # noqa: E402
 from das_tpu_torch.datasets import build_dataset  # noqa: E402
+from das_tpu_torch.datasets import native as pnative  # noqa: E402
 from das_tpu_torch.models import build_model  # noqa: E402
 from das_tpu_torch.models.fuse import fuse_conv_bn  # noqa: E402
 from das_tpu_torch.models.layers import (BatchNorm,  # noqa: E402
@@ -82,9 +84,9 @@ SCORE_TOL = 1e-4
 POSE_RTOL = 1e-4
 
 
-def _pipeline(flip=False):
+def _pipeline(flip=False, to_float32=False):
     return [
-        dict(type='LoadImageFromFile'),
+        dict(type='LoadImageFromFile', to_float32=to_float32),
         dict(type='LoadAnnotationsPose3D', with_pose_3d=True,
              with_label_3d=False),
         dict(type='MultiScaleFlipAug', img_scale=IMG_SCALE, flip=flip,
@@ -98,11 +100,11 @@ def _pipeline(flip=False):
              ])]
 
 
-def _cfg_dict(root, ann, flip=False):
+def _cfg_dict(root, ann, flip=False, to_float32=False):
     return dict(model=TINY15, data=dict(test=dict(
         type='CMUPanopticDataset', ann_file=ann, img_prefix=root,
-        pipeline=_pipeline(flip), test_mode=True, norm_depth=True,
-        abs_dz=True, depth_factor=1)))
+        pipeline=_pipeline(flip, to_float32), test_mode=True,
+        norm_depth=True, abs_dz=True, depth_factor=1)))
 
 
 @pytest.fixture(scope='module')
@@ -342,36 +344,51 @@ def test_flip_merge_matches_jax(monkeypatch):
 @pytest.fixture(scope='module')
 def sweeps(tiny, data):
     """run_test of both packages, through the host pipeline and through
-    device preprocessing, on the same dataset and weights."""
+    device preprocessing, on the same dataset and weights; and through the
+    host pipeline with the images loaded as float32 (the shipped configs'
+    ``to_float32=True``), where both packages resize with their C++ host
+    library (``datasets/native.py``), each resize counted."""
     jmodel, jvars, _, model = tiny
     root, ann = data
-    cfg, jcfg = Config(_cfg_dict(root, ann)), JConfig(_cfg_dict(root, ann))
-    ds, jds = build_dataset(cfg.data['test']), \
-        jbuild_dataset(jcfg.data['test'])
     out = {}
-    for dev_pre in (False, True):
-        out[dev_pre] = (
-            run_test(model, ds, cfg, batch_size=2, progress=False,
-                     device_preprocess=dev_pre),
-            jtest.run_test(jmodel, jvars, jds, jcfg, batch_size=2,
-                           progress=False, device_preprocess=dev_pre))
+    for sweep in (False, True, 'native'):
+        d = _cfg_dict(root, ann, to_float32=sweep == 'native')
+        cfg, jcfg = Config(d), JConfig(copy.deepcopy(d))
+        ds, jds = build_dataset(cfg.data['test']), \
+            jbuild_dataset(jcfg.data['test'])
+        calls = []
+        with pytest.MonkeyPatch.context() as m:
+            for mod in (pnative, jnative):
+                real = mod.resize_bilinear
+                m.setattr(mod, 'resize_bilinear', lambda *a, real=real,
+                          mod=mod: calls.append(mod) or real(*a))
+            out[sweep] = (
+                run_test(model, ds, cfg, batch_size=2, progress=False,
+                         device_preprocess=sweep is True),
+                jtest.run_test(jmodel, jvars, jds, jcfg, batch_size=2,
+                               progress=False,
+                               device_preprocess=sweep is True),
+                calls)
     return ds, jds, out
 
 
-@pytest.mark.parametrize('device_preprocess', [False, True])
-def test_run_test_matches_jax(sweeps, device_preprocess):
-    """run_test through _sweep (host cv2 pipeline) and through
-    _device_pre_sweep, port against JAX, 3 images in batches of 2 (the
-    last padded): the same people per image (counts equal, scores within
-    SCORE_TOL, poses within POSE_RTOL), and MPJPE within 1e-3 mm."""
+@pytest.mark.parametrize('sweep', [False, True, 'native'])
+def test_run_test_matches_jax(sweeps, sweep):
+    """run_test through _sweep (host pipeline: cv2 on the uint8 images,
+    False; the C++ library on float32 ones, 'native') and through
+    _device_pre_sweep (True), port against JAX, 3 images in batches of 2
+    (the last padded): the same people per image (counts equal, scores
+    within SCORE_TOL, poses within POSE_RTOL), and MPJPE within 1e-3 mm."""
     ds, jds, out = sweeps
-    got, want = out[device_preprocess]
+    got, want, calls = out[sweep]
     assert len(got) == len(ds) == 3
     assert sum(len(g['poses']) for g in got) > 0
-    _assert_people_agree(got, want, f'device_preprocess={device_preprocess}')
+    _assert_people_agree(got, want, f'sweep={sweep}')
     g, w = ds.evaluate(got), jds.evaluate(want)
     assert np.isfinite(g['mpjpe_mm'])
     assert abs(g['mpjpe_mm'] - w['mpjpe_mm']) <= 1e-3, (g, w)
+    want_calls = [pnative] * 3 + [jnative] * 3 if sweep == 'native' else []
+    assert calls == want_calls
 
 
 def test_inference_detector_is_the_device_sweep(tiny, data):

@@ -354,9 +354,19 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         make_predict_fn(model, TEST_CFG, J, STRIDES)
 
 
+# modules the walk must find (the host runtime, the tools and helpers)
+REQUIRED_MODULES = [
+    'datasets.native', 'core.visualize', 'utils.profiling',
+    'utils.collect_env', 'mytools.vis_3d', 'tools.demo',
+    'tools.validate_hybrid', 'tools.print_config', 'tools.fuse_conv_bn',
+    'tools.browse_dataset', 'tools.visualize_results', 'tools.export_torch',
+    'tools.publish_model']
+
+
 def test_port_imports_no_jax():
-    """Importing every das_tpu_torch module leaves jax, flax and das_tpu out
-    of sys.modules (a subprocess: this one has jax via conftest)."""
+    """Importing every das_tpu_torch module (REQUIRED_MODULES among them)
+    leaves jax, flax and das_tpu out of sys.modules (a subprocess: this one
+    has jax via conftest)."""
     code = '\n'.join([
         'import importlib, pkgutil, sys',
         'import das_tpu_torch',
@@ -366,8 +376,10 @@ def test_port_imports_no_jax():
         '    importlib.import_module(n)',
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
         "             ('jax', 'jaxlib', 'flax', 'das_tpu'))",
-        "print(len(names), 'modules;', 'bad:', bad)",
-        'sys.exit(1 if bad or len(names) < 15 else 0)'])
+        f'missing = sorted(set({REQUIRED_MODULES!r}) - {{',
+        "    n[len('das_tpu_torch.'):] for n in names})",
+        "print(len(names), 'modules;', 'bad:', bad, 'missing:', missing)",
+        'sys.exit(1 if bad or missing or len(names) < 15 else 0)'])
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr

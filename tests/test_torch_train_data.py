@@ -10,10 +10,15 @@ and the muco joint maps, the shipped exp_mupots mix), ``pad_batch`` and
 ``TrainLoader`` are held the same way on synthetic on-disk data; the
 thread and process loaders against each other with the random pipeline.
 
-The JAX transforms take their C++ resize and warp (``das_tpu/datasets/
-native.py``) when ``das_tpu/libdas_host.so`` loads; the port runs the cv2
-path, so the tests hold it against the JAX cv2 path (native turned off) and
-once against the native path, within the native tests' tolerance.
+Both packages take their C++ resize and warp (``datasets/native.py``) for a
+float32 HxWx3 image, the JAX package's default path: the port builds its
+own copy of ``csrc/das_host.cpp`` with g++, the JAX package loads
+``das_tpu/libdas_host.so``. Every case runs twice (the ``host_path``
+fixture): with both packages on that native path, where the images agree
+within NATIVE_ATOL (bit for bit where both libraries were compiled for the
+same instruction set, tests/test_torch_native.py), and with both on cv2
+(each package's ``available`` answering False), where they are equal bit
+for bit.
 """
 
 import copy
@@ -33,6 +38,7 @@ from das_tpu_torch.datasets import (COCOKeypointsDataset, ConcatDataset,
                                     MuCo3DHPDataset, RepeatDataset,
                                     build_dataset)
 from das_tpu_torch.datasets import loader
+from das_tpu_torch.datasets import native as pnative
 from das_tpu_torch.datasets import pipelines as pipes
 from das_tpu_torch.tools.profile_train import train_pad_hw
 
@@ -43,12 +49,25 @@ PAIRS = [[3, 9], [4, 10], [5, 11], [6, 12], [7, 13], [8, 14]]
 IMG_NORM = dict(mean=[123.675, 116.28, 103.53],
                 std=[58.395, 57.12, 57.375], to_rgb=True)
 H, W = 96, 128
+# the images of the two packages' native paths (pixel levels 0-255, or
+# normalised): the same C++ source, compiled apart
+NATIVE_ATOL = 1e-3
+# the image tolerance of assert_same on the current path (0: bit for bit)
+IMG_ATOL = {'img': 0.0}
+NATIVE_AVAILABLE = pnative.available
 
 
-@pytest.fixture(autouse=True)
-def jax_cv2_path(monkeypatch):
-    """The JAX transforms on their cv2 path, which the port ports."""
-    monkeypatch.setattr(jnative, 'available', lambda: False)
+@pytest.fixture(autouse=True, params=['native', 'cv2'])
+def host_path(request, monkeypatch):
+    """Both packages on their native resize and warp (the default), or both
+    on cv2 (each ``available`` answering False)."""
+    if request.param == 'native':
+        assert jnative.available() and pnative.available()
+        monkeypatch.setitem(IMG_ATOL, 'img', NATIVE_ATOL)
+    else:
+        monkeypatch.setattr(jnative, 'available', lambda: False)
+        monkeypatch.setattr(pnative, 'available', lambda: False)
+    return request.param
 
 
 def _image(rng, h, w):
@@ -174,7 +193,8 @@ def data(tmp_path_factory):
 
 def assert_same(got, want, what=''):
     """Equal, bit for bit: dicts key for key (the sample's generator
-    aside), arrays in dtype, shape and value."""
+    aside), arrays in dtype, shape and value; an ``img`` array within
+    IMG_ATOL['img'] on the native path."""
     if isinstance(want, dict):
         keys = set(want) - {'rng'}
         assert set(got) - {'rng'} == keys, (what, set(got) ^ set(want))
@@ -182,7 +202,11 @@ def assert_same(got, want, what=''):
             assert_same(got[k], want[k], f'{what}/{k}')
     elif isinstance(want, (np.ndarray, np.generic)):
         assert np.asarray(got).dtype == want.dtype, what
-        np.testing.assert_array_equal(got, want, err_msg=what)
+        if what.rsplit('/', 1)[-1] == 'img' and IMG_ATOL['img']:
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=IMG_ATOL['img'], err_msg=what)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=what)
     elif isinstance(want, (list, tuple)) and want and \
             isinstance(want[0], (np.ndarray, dict, list, tuple)):
         assert len(got) == len(want), what
@@ -326,18 +350,23 @@ def test_affine_transform_matches_jax():
 
 
 def test_resize_pose_against_the_native_path(data, monkeypatch):
-    """Against the JAX transform on its C++ resize (where
-    das_tpu/libdas_host.so loads): the poses equal, the image within the
-    native tests' 0.51 of cv2's (tests/test_native.py)."""
+    """Both packages on their C++ resize, whatever the ``host_path``: the
+    poses equal, the image within NATIVE_ATOL, and the port's resize is
+    the one that ran (not cv2's)."""
     monkeypatch.undo()
-    if not jnative.available():
-        pytest.skip('das_tpu/libdas_host.so does not load here')
+    assert jnative.available() and pnative.available()
+    ran = []
+    real = pnative.resize_bilinear
+    monkeypatch.setattr(pnative, 'resize_bilinear',
+                        lambda *a: ran.append(1) or real(*a))
     kw = TRANSFORMS[0][1]
     for seed in SEEDS[:4]:
         got, want = run_both('ResizePose', kw, loaded(data), seed)
         assert_same({k: v for k, v in got.items() if k != 'img'},
                     {k: v for k, v in want.items() if k != 'img'})
-        np.testing.assert_allclose(got['img'], want['img'], atol=0.51)
+        np.testing.assert_allclose(got['img'], want['img'], rtol=0,
+                                   atol=NATIVE_ATOL)
+    assert len(ran) == 4
 
 
 def train_pipeline(pipeline, scales=((160, 96), (160, 120))):
@@ -521,32 +550,41 @@ def test_loader_on_disk_matches_jax(data):
     it_m.close()
 
 
-def test_thread_loader_equals_process_loader(data):
+def _take(train_loader, n=5):
+    it = iter(train_loader)
+    try:
+        return [next(it) for _ in range(n)]
+    finally:
+        it.close()
+
+
+def test_thread_loader_equals_process_loader(data, host_path, monkeypatch):
     """With the whole random train pipeline, the thread loader and the
     spawned process loader give the same batches bit for bit; a second
-    thread loader of the same seed too, and one of another seed does
-    not."""
+    thread loader of the same seed too, and one of another seed does not.
+    The process loader's workers are new processes, on the default
+    (native) path whatever this one patches: on the cv2 path its batches
+    are held against a thread loader on the native path."""
     cfg = panoptic_cfg(data, train_pipeline(SHIPPED.train_pipeline))
     ds = build_dataset(cfg)
     kw = dict(batch_size=2, pad_hw=(128, 160), num_joints=J, max_gt=4,
               num_workers=2)
-    runs = [loader.TrainLoader(ds, seed=7, **kw),
-            loader.TrainLoader(ds, seed=7, worker_type='process',
-                               dataset_cfg=cfg, **kw),
-            loader.TrainLoader(ds, seed=7, num_workers=3,
-                               **{k: v for k, v in kw.items()
-                                  if k != 'num_workers'}),
-            loader.TrainLoader(ds, seed=8, **kw)]
-    its = [iter(r) for r in runs]
-    try:
-        for _ in range(5):
-            b = [next(it) for it in its]
-            for other in b[1:3]:
-                assert_same(other, b[0])
-        assert not np.array_equal(b[3]['img'], b[0]['img'])
-    finally:
-        for it in its:
-            it.close()
+    threads = _take(loader.TrainLoader(ds, seed=7, **kw))
+    three = _take(loader.TrainLoader(ds, seed=7, num_workers=3,
+                                     **{k: v for k, v in kw.items()
+                                        if k != 'num_workers'}))
+    other = _take(loader.TrainLoader(ds, seed=8, **kw))
+    with monkeypatch.context() as m:
+        m.setattr(pnative, 'available', NATIVE_AVAILABLE)
+        native = threads if host_path == 'native' else \
+            _take(loader.TrainLoader(ds, seed=7, **kw))
+    process = _take(loader.TrainLoader(ds, seed=7, worker_type='process',
+                                       dataset_cfg=cfg, **kw))
+    for b in range(5):
+        assert_same(three[b], threads[b], f'batch {b}')
+        np.testing.assert_array_equal(process[b]['img'], native[b]['img'])
+        assert_same(process[b], native[b], f'batch {b}')
+    assert not np.array_equal(other[-1]['img'], threads[-1]['img'])
 
 
 def test_loader_shards_disjoint():
