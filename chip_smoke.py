@@ -18,7 +18,10 @@ any failure exits nonzero and prints no result:
 3. each kernel against its plain PyTorch version on the card, and timed at
    the serving shapes against its bound: ``dcn_shift`` (K1: its wgmma pass
    at the four levels at r=1 and at level 1 at r=2, two runs equal bit for
-   bit, and timed beside the WMMA pass it took the place of), ``conv_gn``
+   bit, and timed beside the WMMA pass it took the place of; its backward,
+   every output against the closed form at small f32 and bf16 shapes with
+   offsets all 0, exactly +-r and generic, and at the four train levels,
+   timed beside the closed form and its bound), ``conv_gn``
    (K2, also against the unfused cuDNN conv + GroupNorm + relu),
    ``oks_nms`` (K3: the keep mask bit for bit, with and without
    ``max_keep``, also where M is no multiple of 64 or below 64), and K4:
@@ -43,12 +46,16 @@ any failure exits nonzero and prints no result:
    ``configs/das/exp_panoptic_tpu.py`` at B=4 640x1344 (its train bucket),
    bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
    with the counts set to 0 just before and read just after (12 row
-   gathers and 12 adjoint launches per step); then that
+   gathers and 12 adjoint launches per step, 16 K1 forward and 16 K1
+   backward, no plain shift expansion); then that
    step's gradient pass, full depth, in bf16 and in f32, with K4 (each
    launch also held against the plain version on its own inputs) and with
    the plain pair in its place on the card, gradients compared leaf by
-   leaf; then one fp32 step at B=2 128x160 on the card (K4 live) against
-   the same step on the CPU (plain);
+   leaf; the same pass in f32 with K1's backward (each call held against
+   the closed form on its own inputs) and with autograd through the plain
+   shift expansion in its place; then one fp32 step at B=2 128x160 on the
+   card (K4 and K1
+   live) against the same step on the CPU (plain);
 7. evaluation ("eval"), through ``apis/test.py::run_test`` with device
    preprocessing: 8 synthetic 1920x1080 PNG frames (written by this script:
    zlib over filter-0 rows) and a CMU-Panoptic-format json under
@@ -68,8 +75,8 @@ any failure exits nonzero and prints no result:
    library, none through cv2); ``apis/train.py::train_model`` on
    ``configs/das/exp_panoptic_tpu.py`` from those files through the shipped
    random pipelines, B=4 640x1344 bf16 on f32 master weights, 6 steps of 4
-   an epoch (every loss finite, 12 + 12 K4 launches and no K1 or K3 each
-   step; one profiled step for the device's busy and idle share), the
+   an epoch (every loss finite, 12 + 12 K4 and 16 + 16 K1 launches and no
+   K3 each step; one profiled step for the device's busy and idle share), the
    epoch-end save, DCN-offset check and eval hook on phase 7's frames (the
    served launch counts per batch), the final save; a resume from
    ``latest`` for one step (restored tensors, ``count`` and ``step`` bit for
@@ -150,6 +157,11 @@ K4_SAMPLES = (9, 24)
 # one another, the grouped take_at, the sample of the offsets at the points
 # it gives, and the sample of [uvd, conf] at the candidates that gives
 K4_PER_STEP = 12
+# K1 forward launches, and K1 backward calls, a train step: the 3 towers'
+# last convs and the RU update conv at 4 levels, all of whose inputs ask for
+# gradients
+K1_PER_STEP = 16
+TRAIN_LEVELS = [(160, 336), (80, 168), (40, 84), (20, 42)]  # B=4 640x1344
 
 
 STARTED = time.perf_counter()
@@ -190,6 +202,19 @@ def dcn_bound_ms(N, H, W, Cin, Cout, elt_bytes, peak_flops):
     flops = 2.0 * px * 9 * Cin * Cout
     nbytes = elt_bytes * (px * Cin + px * 9 + 9 * Cin * Cout + Cout
                           + px * Cout) + 4 * px * 18
+    return bound_ms(flops, peak_flops, nbytes)
+
+
+def dcn_backward_bound_ms(N, H, W, Cin, Cout, elt_bytes, peak_flops):
+    """Least time for the backward of one shift-DCN call: the operations of
+    its two products, U = G W^T and dW = A^T G (2 x 2*NHW*9*Cin*Cout), or
+    the compulsory bytes (x, f32 offsets, mask, weight and the output
+    gradient read; dx, f32 doffset, dmask, dweight and dbias written), the
+    larger."""
+    px = N * H * W
+    flops = 2 * 2.0 * px * 9 * Cin * Cout
+    nbytes = elt_bytes * (2 * px * Cin + 2 * px * 9 + 2 * 9 * Cin * Cout
+                          + px * Cout + Cout) + 2 * 4 * px * 18
     return bound_ms(flops, peak_flops, nbytes)
 
 
@@ -459,6 +484,169 @@ def dcn_vs_plain():
     phase('kernel', f'dcn_shift summed over the 16 launches of a request (4 '
           f'per level, r=1): wgmma pass {total:.4f} ms, WMMA pass '
           f'{total_wmma:.4f} ms')
+    return entry
+
+
+def dcn_backward_vs_plain():
+    """K1's backward, ``deform_conv_shift_backward_cuda`` (the two products
+    and one library call of the tap and dx kernels), against the closed form
+    ``deform_conv_shift_backward_plain`` on the same inputs: small f32 and
+    bf16 shapes (Cin 8 and 128, r=1,2, offsets all 0, exactly +-r, within
+    an ulp of those, and generic; Cin 6 and an x one element off 16-byte
+    alignment, which take the kernels' one-element-a-lane instantiation),
+    then bf16 at the four levels of the B=4
+    640x1344 train step, timed beside the closed form and the bound. f32
+    within 1e-5 of max|ref|; bf16 within 2^-7 of max|ref|: both sides take
+    U from one product and the tile as the forward rounds it, and reduce in
+    f32 in other orders, so a bf16 output can round to the neighbouring
+    value.
+    Returns the dcn_shift_backward entry of the kernel table."""
+    import torch
+    from das_tpu_torch.ops import dcn_shift
+    gen = torch.Generator().manual_seed(11)
+    names = ('dx', 'doffset', 'dmask', 'dweight', 'dbias')
+
+    def inputs(n, h, w, cin, cout, dt, r, case):
+        x = torch.randn(n, h, w, cin, generator=gen)
+        if case == 'zero':
+            off = torch.zeros(n, h, w, 18)
+        elif case == 'at +-r':
+            off = (torch.randint(0, 2, (n, h, w, 18), generator=gen) * 2.0
+                   - 1.0) * r
+        elif case == 'next to the kinks':
+            # within an ulp or two of 0, +-1 and +-r: i - d rounds onto a
+            # kink of the hat in f32
+            near = torch.tensor([1 - 2 ** -24, -(1 - 2 ** -24), 2 ** -30,
+                                 -2 ** -30, 1 + 2 ** -23, -1 - 2 ** -23,
+                                 r - 2 ** -22, -r + 2 ** -22, 0.5])
+            off = near[torch.randint(0, 9, (n, h, w, 18), generator=gen)]
+        else:
+            off = (torch.rand(n, h, w, 18, generator=gen) * 2 - 1) * 1.2 * r
+        mask = torch.sigmoid(torch.randn(n, h, w, 9, generator=gen))
+        wt = torch.randn(3, 3, cin, cout, generator=gen) \
+            * (0.2 if cin < 64 else 0.05)
+        g = torch.randn(n, h, w, cout, generator=gen)
+        return (x.cuda().to(dt), off.cuda(), mask.cuda().to(dt),
+                wt.cuda().to(dt), g.cuda().to(dt))
+
+    def held(a, r, what):
+        """(max err / max|ref|, max abs err) over the five outputs."""
+        before = dcn_shift.backward_launches
+        got = dcn_shift.deform_conv_shift_backward_cuda(*a, r)
+        want = dcn_shift.deform_conv_shift_backward_plain(*a, r)
+        torch.cuda.synchronize()
+        check(dcn_shift.backward_launches == before + 1,
+              ('K1 backward launches', what))
+        tol = 1e-5 if a[0].dtype == torch.float32 else BF16_STEP
+        worst, worst_abs = 0.0, 0.0
+        for name, g, w in zip(names, got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  ('K1 backward output', what, name))
+            err = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            check(err <= tol * scale,
+                  ('K1 backward vs closed form', what, name, err, scale))
+            worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
+        return worst, worst_abs
+
+    def unaligned(t):
+        """``t``'s values in a contiguous tensor one element past a
+        16-byte boundary."""
+        v = torch.empty(t.numel() + 1, dtype=t.dtype,
+                        device=t.device)[1:].view(t.shape)
+        return v.copy_(t)
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        worst[dt] = 0.0
+        # Cin 6 and the unaligned x take one element a lane
+        for shape in [(2, 9, 7, 8, 16), (2, 13, 21, 128, 192),
+                      (2, 9, 7, 6, 16)]:
+            for r in (1, 2):
+                for case in ('zero', 'at +-r', 'next to the kinks',
+                             'generic'):
+                    worst[dt] = max(worst[dt], held(
+                        inputs(*shape, dt, r, case), r,
+                        (shape, dt, r, case))[0])
+        for r in (1, 2):
+            x, *rest = inputs(2, 9, 7, 8, 16, dt, r, 'generic')
+            x = unaligned(x)
+            check(x.data_ptr() % 16 != 0, 'an unaligned x')
+            worst[dt] = max(worst[dt], held((x, *rest), r,
+                                            ('unaligned x', dt, r))[0])
+    phase('kernel', f'dcn_shift backward at small shapes (Cin 8, 128 and '
+          f'6, Cout 16 and 192, r=1,2, offsets all 0, exactly +-r, within '
+          f'an ulp of those and generic; an x off 16-byte alignment): dx, '
+          f'doffset, dmask, dweight and dbias against the closed form, max '
+          f'err / max|ref| {worst[torch.float32]:.3g} f32 (<= 1e-5), '
+          f'{worst[torch.bfloat16]:.3g} bf16 (<= 2^-7, one rounding step '
+          f'of a bf16 output) ok')
+
+    fn = dcn_shift.LIB.load().dcn_shift_backward
+    stream = torch.cuda.current_stream().cuda_stream
+    entry, total, total_plain, total_kernels = None, 0.0, 0.0, 0.0
+    for lvl, (h, w) in enumerate(TRAIN_LEVELS):
+        a = inputs(4, h, w, 256, 256, torch.bfloat16, 1, 'generic')
+        rel, err = held(a, 1, f'level {lvl}')
+        x, off, mask, wt, g = a
+        P = 4 * h * w
+        g2 = g.reshape(P, 256)
+        w2 = wt.reshape(9 * 256, 256)
+        u = g2 @ w2.t()
+        tile = torch.empty(P, 9 * 256, dtype=torch.bfloat16, device='cuda')
+        doff = torch.empty(4, h, w, 18, device='cuda')
+        dmask = torch.empty_like(mask)
+        dx = torch.empty_like(x)
+
+        def kernels():
+            check(fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                     u.data_ptr(), tile.data_ptr(), doff.data_ptr(),
+                     dmask.data_ptr(), dx.data_ptr(), 4, h, w, 256, 1, 1,
+                     stream) == 0, 'K1 backward launch')
+        iters = 5 if lvl == 0 else 20
+        ms = cuda_ms(lambda: dcn_shift.deform_conv_shift_backward_cuda(
+            *a, 1), iters)
+        kernels_ms = cuda_ms(kernels, iters)
+        u_ms = cuda_ms(lambda: g2 @ w2.t(), iters)
+        dw_ms = cuda_ms(lambda: tile.t() @ g2, iters)
+        plain_ms = cuda_ms(lambda: dcn_shift.deform_conv_shift_backward_plain(
+            *a, 1), 2)
+        bound, by = dcn_backward_bound_ms(4, h, w, 256, 256, 2,
+                                          PEAK_BF16_FLOPS)
+        # the kernels' own compulsory bytes: U read and the tile written
+        # (P x 9 x 256), x read and dx written, the offsets, mask and their
+        # gradients
+        kbound, kby = bound_ms(0.0, PEAK_F32_FLOPS,
+                               2 * (2 * P * 9 * 256 + 2 * P * 256 + 2 * P * 9)
+                               + 2 * 4 * P * 18)
+        del u, tile
+        phase('kernel', f'dcn_shift backward level {lvl} 4x{h}x{w}x256 '
+              f'bf16 r=1: {ms:.4f} ms (U = G W^T {u_ms:.4f} ms, the tap '
+              f'and dx kernels {kernels_ms:.4f} ms against their bound '
+              f'{kbound:.4f} ms ({kby}), dW = A^T G {dw_ms:.4f} ms), '
+              f'closed form {plain_ms:.4f} ms, bound {bound:.4f} ms ({by});'
+              f' max err / max|ref| {rel:.3g} (<= 2^-7)')
+        total += 4 * ms
+        total_plain += 4 * plain_ms
+        total_kernels += 4 * kernels_ms
+        if lvl == 0:
+            entry = dict(
+                name='dcn_shift_backward', route='cuda',
+                source='das_tpu_torch/csrc/dcn_shift.cu',
+                replaces='das_tpu/ops/pallas_dcn.py:111 (its gradient, '
+                         'which JAX takes by autodiff of '
+                         'das_tpu/ops/deform_conv.py:111)',
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                kernels_ms=kernels_ms, kernels_bound_ms=kbound,
+                products_ms=u_ms + dw_ms, shape=f'4x{h}x{w}x256 bf16 r=1')
+        torch.cuda.empty_cache()
+    # a reckoning from one call a level, not a step's measurement: the
+    # train phase times the 16 calls inside a real step
+    phase('kernel', f'dcn_shift backward, 4 x each level\'s one timed call '
+          f'summed over the levels (a train step makes 4 a level, r=1): '
+          f'{total:.4f} ms, of which the tap and dx kernels '
+          f'{total_kernels:.4f} ms; closed form {total_plain:.4f} ms')
     return entry
 
 
@@ -1330,14 +1518,17 @@ class Seen(list):
 def train_full_width(steps=5):
     """``steps`` train steps of exp_panoptic_tpu at its train bucket, B=4,
     bf16 compute on f32 master weights, on a synthetic TrainLoader batch
-    (8 people per image, one per regress range in turn). The K4 counts are
-    set to 0 just before the steps and read just after. Returns (forward,
-    backward) K4 launches and the run: its trained model, config, batch,
-    feature map sizes and max_pos."""
+    (8 people per image, one per regress range in turn). The K4 and K1
+    counts are set to 0 just before the steps and read just after: each
+    step launches K4 12 + 12 times and K1 16 + 16 (every DCN conv's forward
+    and backward), and no plain shift expansion. K1's backward calls are
+    timed inside each step by CUDA events around each. Returns the (forward,
+    backward) launches of K4 and of K1, and the run: its trained model,
+    config, batch, feature map sizes and max_pos."""
     import numpy as np
     import torch
     from das_tpu_torch.config import Config
-    from das_tpu_torch.ops import gather
+    from das_tpu_torch.ops import dcn_shift, deform_conv, gather
     from das_tpu_torch.parallel import frozen_mask, mspn_frozen_prefixes
     from das_tpu_torch.tools.profile_train import (make_trainer,
                                                    synthetic_batch,
@@ -1367,24 +1558,48 @@ def train_full_width(steps=5):
           f' parameter tensors frozen')
     torch.cuda.reset_peak_memory_stats()
     gather.launches = gather.backward_launches = 0
+    dcn_shift.launches = dcn_shift.backward_launches = 0
     times = []
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    for i in range(steps):
-        f0, b0 = gather.launches, gather.backward_launches
-        torch.cuda.synchronize()
-        ev[0].record()
-        state, metrics = step(state, batch)
-        ev[1].record()
-        torch.cuda.synchronize()
-        times.append(ev[0].elapsed_time(ev[1]))
-        m = {k: float(v) for k, v in metrics.items()}
-        fwd, bwd = gather.launches - f0, gather.backward_launches - b0
-        check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
-        check(fwd == K4_PER_STEP and bwd == K4_PER_STEP,
-              ('train K4 launches', i, fwd, bwd))
-        phase('train', f'step {i}: ' + ', '.join(
-            f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} ms '
-            f'(CUDA events); K4 launches {fwd} forward + {bwd} backward')
+    plain_shift = deform_conv._deform_conv_shift
+    plain_calls = [0]
+
+    def counted_plain(*a, **k):
+        plain_calls[0] += 1
+        return plain_shift(*a, **k)
+    deform_conv._deform_conv_shift = counted_plain
+    spans, k1_bwd_ms = [], []
+    try:
+        for i in range(steps):
+            f0, b0 = gather.launches, gather.backward_launches
+            k0, kb0 = dcn_shift.launches, dcn_shift.backward_launches
+            spans.clear()
+            torch.cuda.synchronize()
+            ev[0].record()
+            with k1_backward(k1_timed(spans)):
+                state, metrics = step(state, batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+            times.append(ev[0].elapsed_time(ev[1]))
+            k1_bwd_ms.append(sum(a.elapsed_time(b) for a, b in spans))
+            m = {k: float(v) for k, v in metrics.items()}
+            fwd, bwd = gather.launches - f0, gather.backward_launches - b0
+            k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
+            check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
+            check(fwd == K4_PER_STEP and bwd == K4_PER_STEP,
+                  ('train K4 launches', i, fwd, bwd))
+            check(k1 == (K1_PER_STEP, K1_PER_STEP) and plain_calls[0] == 0,
+                  ('train K1 launches, plain shift calls', i, k1,
+                   plain_calls[0]))
+            phase('train', f'step {i}: ' + ', '.join(
+                f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} '
+                f'ms (CUDA events), of which K1\'s {len(spans)} backward '
+                f'calls {k1_bwd_ms[-1]:.2f} ms (CUDA events around each '
+                f'call, summed); K4 launches {fwd} forward + {bwd} '
+                f'backward; K1 {k1[0]} forward + {k1[1]} backward, no plain '
+                f'shift expansion')
+    finally:
+        deform_conv._deform_conv_shift = plain_shift
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     frozen_same = all(torch.equal(p, before[k])
                       for k, p in model.named_parameters()
@@ -1395,14 +1610,17 @@ def train_full_width(steps=5):
     check(moved > 0.5 * sum(trainable.values()),
           ('trainable parameters that moved', moved))
     phase('train', f'{steps} steps ok: median {np.median(times):.2f} ms, '
-          f'steps 2-{steps} median {np.median(times[1:]):.2f} ms, peak '
+          f'steps 2-{steps} median {np.median(times[1:]):.2f} ms (K1\'s '
+          f'backward calls in them {np.median(k1_bwd_ms[1:]):.2f} ms), peak '
           f'memory {peak:.2f} GiB; losses finite; frozen parameters '
           f'unchanged bit for bit; {moved} of {int(sum(trainable.values()))}'
           f' trainable tensors moved; K4 launches {gather.launches} forward'
-          f' + {gather.backward_launches} backward')
+          f' + {gather.backward_launches} backward; K1 {dcn_shift.launches}'
+          f' forward + {dcn_shift.backward_launches} backward')
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
-    return gather.launches, gather.backward_launches, dict(
+    return (gather.launches, gather.backward_launches), \
+        (dcn_shift.launches, dcn_shift.backward_launches), dict(
         model=model, cfg=cfg, batch=host_batch, featmaps=featmaps,
         max_pos=max_pos, median_ms=float(np.median(times)))
 
@@ -1462,27 +1680,9 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               ('K4 launches of the gradient pass', name, seen.launches))
         check(la == lb, ('loss terms, K4 vs plain on the card', name, la,
                          lb))
-        check(sorted(ga) == sorted(gb), ('gradient keys', name))
-        own = {k: float(v.abs().max()) for k, v in gb.items()}
-        top = max(own.values())
-
-        def err(x, y):
-            return {k: float((x[k].float() - y[k].float()).abs().max())
-                    for k in y}
-        ab, bc, ad = err(ga, gb), err(gc, gb), err(gd, ga)
-        noise = {k: max(bc[k], ad[k]) for k in gb}
-        worst, where = 0.0, None
-        for k in gb:
-            t = max(1e-3 * own[k], GRAD_NOISE * noise[k])
-            if own[k] < ZERO_GRAD * top:
-                t = max(t, ZERO_GRAD * top)
-            check(ab[k] <= t, ('gradient, K4 vs plain on the card', name, k,
-                               ab[k], own[k], noise[k]))
-            if ab[k] / t > worst:
-                worst, where = ab[k] / t, k
-        real = [k for k in gb if own[k] >= ZERO_GRAD * top]
+        ab, bc, ad, own, real, held, worst, where = grads_vs_plain(
+            ga, gb, gc, gd, ('K4', name))
         ru = [k for k in real if 'recursive_update' in k]
-        held = sum(1e-3 * own[k] >= GRAD_NOISE * noise[k] for k in real)
         B, H, W = run['batch']['img'].shape[:3]
         phase('train', f'{name} gradient pass, full depth, B={B} {H}x{W}, '
               f'K4 vs its plain pair on the card ({secs:.1f} s for 4 '
@@ -1503,6 +1703,174 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               f'rest at {GRAD_NOISE:g}x their noise; worst leaf at '
               f'{worst:.3g} of its tolerance ({where}) ok')
     keep_master_weights(model, torch.bfloat16)
+
+
+def grads_vs_plain(ga, gb, gc, gd, what):
+    """Gradient leaves of four passes, kernel (a), plain (b), plain again
+    (c), kernel again (d): each leaf's kernel-vs-plain error within
+    GRAD_NOISE times the larger of its plain-vs-plain and kernel-vs-kernel
+    errors, or within 1e-3 of the leaf's largest plain value where that is
+    more; a leaf that is zero to rounding within ZERO_GRAD of the largest of
+    all. Returns the errors (a-b, c-b, d-a), each leaf's largest plain
+    value, the leaves that are not zero to rounding, how many of them were
+    held at 1e-3, and the worst leaf's error / tolerance and name."""
+    check(sorted(ga) == sorted(gb), ('gradient keys', what))
+    own = {k: float(v.abs().max()) for k, v in gb.items()}
+    top = max(own.values())
+
+    def err(x, y):
+        return {k: float((x[k].float() - y[k].float()).abs().max())
+                for k in y}
+    ab, bc, ad = err(ga, gb), err(gc, gb), err(gd, ga)
+    noise = {k: max(bc[k], ad[k]) for k in gb}
+    worst, where = 0.0, None
+    for k in gb:
+        t = max(1e-3 * own[k], GRAD_NOISE * noise[k])
+        if own[k] < ZERO_GRAD * top:
+            t = max(t, ZERO_GRAD * top)
+        check(ab[k] <= t, ('gradient, kernel vs plain on the card', what, k,
+                           ab[k], own[k], noise[k]))
+        if ab[k] / t > worst:
+            worst, where = ab[k] / t, k
+    real = [k for k in gb if own[k] >= ZERO_GRAD * top]
+    held = sum(1e-3 * own[k] >= GRAD_NOISE * noise[k] for k in real)
+    return ab, bc, ad, own, real, held, worst, where
+
+
+@contextlib.contextmanager
+def k1_backward(backward):
+    """Within the block, K1's backward on the card (``dcn_shift.
+    deform_conv_shift_backward_cuda``, which the wrapper looks up at each
+    call) is ``backward``."""
+    from das_tpu_torch.ops import dcn_shift
+    saved = dcn_shift.deform_conv_shift_backward_cuda
+    dcn_shift.deform_conv_shift_backward_cuda = backward
+    try:
+        yield
+    finally:
+        dcn_shift.deform_conv_shift_backward_cuda = saved
+
+
+def plain_backward_on_card(x, offset, mask, weight, grad, radius=1,
+                           needs=(True,) * 5, K=3, padding=1):
+    """K1's backward replaced by autograd through the plain shift expansion
+    ``_deform_conv_shift`` at the same inputs, on the card: what the
+    gradient pass took before K1 had a backward."""
+    import torch
+    from das_tpu_torch.ops import deform_conv
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_() for t in (x, offset, mask,
+                                                    weight)]
+        bias = torch.zeros(weight.shape[-1], dtype=x.dtype, device=x.device,
+                           requires_grad=True)
+        out = deform_conv._deform_conv_shift(*ins, bias, K, padding, radius)
+        grads = torch.autograd.grad(out, ins + [bias], grad)
+    return tuple(g if n else None for g, n in zip(grads, needs))
+
+
+def k1_timed(spans):
+    """K1's backward with a pair of CUDA events recorded around each call
+    on the current stream: ``spans`` gets the (start, end) pair of each."""
+    import torch
+    from das_tpu_torch.ops import dcn_shift
+    kernel = dcn_shift.deform_conv_shift_backward_cuda
+
+    def backward(*args, **kwargs):
+        pair = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+        pair[0].record()
+        got = kernel(*args, **kwargs)
+        pair[1].record()
+        spans.append(pair)
+        return got
+    return backward
+
+
+def k1_witness(seen):
+    """K1's backward, each call also holding its result against the closed
+    form on the very same inputs: ``seen`` gets one (N, H, W, Cin, Cout,
+    dtype, max over the outputs of err / max|ref|) a call."""
+    from das_tpu_torch.ops import dcn_shift
+    kernel = dcn_shift.deform_conv_shift_backward_cuda
+
+    def backward(x, offset, mask, weight, grad, radius=1,
+                 needs=dcn_shift.ALL, K=3, padding=1):
+        got = kernel(x, offset, mask, weight, grad, radius, needs, K,
+                     padding)
+        want = dcn_shift.deform_conv_shift_backward_plain(
+            x, offset, mask, weight, grad, radius, needs, K, padding)
+        worst = 0.0
+        for g, w in zip(got, want):
+            check((g is None) == (w is None), 'K1 backward: an output')
+            if g is None:
+                continue
+            err = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            worst = max(worst, err / scale if scale else
+                        (0.0 if err == 0 else math.inf))
+        seen.append((*x.shape, weight.shape[-1], x.dtype, worst))
+        return got
+    return backward
+
+
+def train_k1_vs_plain_on_card(run):
+    """Full depth, full width, f32: the gradient pass of
+    ``train_full_width``'s step (its model after the steps, its B=4
+    640x1344 batch) on the card with K1's backward, and with autograd
+    through the plain shift expansion ``_deform_conv_shift`` in its place
+    (``plain_backward_on_card``). K1's forward runs in both, so the two
+    passes see the same values: the forward's own order of summation,
+    within 4.8e-7 of the plain expansion's, is amplified by the random-init
+    train-mode network (to 2.2e-3 of a backbone leaf in one run), as the
+    card's and the CPU's rounding are.
+
+    Four passes: K1 with each backward call held against the closed form on
+    its own inputs (within 1e-5 of max|ref|), then plain, plain again and
+    K1 again. The loss terms must be equal, and the gradients are held as
+    ``grads_vs_plain`` holds them (as K4 is held)."""
+    import torch
+    from das_tpu_torch.models.layers import keep_master_weights
+    model, cfg = run['model'], run['cfg']
+    args = (cfg, run['batch'], run['featmaps'], run['max_pos'])
+    keep_master_weights(model, torch.float32)
+    seen = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with k1_backward(k1_witness(seen)):
+        la, ga = loss_grads(model, *args)
+    with k1_backward(plain_backward_on_card):
+        lb, gb = loss_grads(model, *args)
+        lc, gc = loss_grads(model, *args)
+    ld, gd = loss_grads(model, *args)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    keep_master_weights(model, torch.bfloat16)
+    check(len(seen) == K1_PER_STEP and all(s[-1] <= 1e-5 for s in seen),
+          ('K1 backward vs closed form on the training path', len(seen),
+           max(seen, key=lambda s: s[-1]) if seen else None))
+    check(la == lb, ('loss terms, K1 vs plain on the card', la, lb))
+    ab, bc, ad, own, real, held, worst, where = grads_vs_plain(
+        ga, gb, gc, gd, 'K1')
+    # the DCN convs' own weights: each sits beside its conv_offset
+    dcn = [k for k in real if k.endswith('.weight')
+           and k[:-len('weight')] + 'conv_offset.weight' in gb]
+    B, H, W = run['batch']['img'].shape[:3]
+    shapes = sorted({s[:5] for s in seen})
+    phase('train', f'f32 gradient pass, full depth, B={B} {H}x{W}, K1\'s '
+          f'backward vs autograd through the plain shift expansion on the '
+          f'card ({secs:.1f} s for 4 '
+          f'passes, peak memory {peak:.2f} GiB): {len(seen)} K1 backward '
+          f'calls held against the closed form on their own inputs at '
+          f'{len(shapes)} shapes {shapes}: max err / max|ref| '
+          f'{max(s[-1] for s in seen):.3g} (<= 1e-5); loss terms equal; '
+          f'gradients: K1 vs plain max err / max|leaf| '
+          f'{max(ab[k] / own[k] for k in real):.3g} over {len(real)} leaves '
+          f'({max(ab[k] / own[k] for k in dcn):.3g} '
+          f'over the {len(dcn)} DCN weights), plain vs plain '
+          f'{max(bc[k] / own[k] for k in real):.3g}, K1 vs K1 '
+          f'{max(ad[k] / own[k] for k in real):.3g}; {held} of {len(real)}'
+          f' held at 1e-3 of their largest, the rest at {GRAD_NOISE:g}x '
+          f'their noise; worst leaf at {worst:.3g} of its tolerance '
+          f'({where}) ok')
 
 
 def cut_train_cfg():
@@ -1557,7 +1925,7 @@ def train_kernel_vs_plain():
     outputs. ``train_k4_vs_plain_on_card`` holds K4 in the full model, where
     both sides run on the card."""
     import torch
-    from das_tpu_torch.ops import gather
+    from das_tpu_torch.ops import dcn_shift, gather
     from das_tpu_torch.parallel import (frozen_mask, mspn_frozen_prefixes,
                                         param_groups)
     from das_tpu_torch.tools.profile_train import (make_trainer,
@@ -1578,12 +1946,15 @@ def train_kernel_vs_plain():
     args = (cfg, batch, featmaps, max_pos)
 
     f0, b0 = gather.launches, gather.backward_launches
+    k0, kb0 = dcn_shift.launches, dcn_shift.backward_launches
     _, gg = loss_grads(gpu.model, *args)
     gathers = (gather.launches - f0, gather.backward_launches - b0)
+    k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
     gg = {k: v.cpu() for k, v in gg.items()}
     _, gc = loss_grads(cpu.model, *args)
-    check(sorted(gg) == sorted(gc) and min(gathers) > 0,
-          ('gradient keys or K4 launches', gathers))
+    check(sorted(gg) == sorted(gc) and min(gathers) > 0
+          and k1 == (K1_PER_STEP, K1_PER_STEP),
+          ('gradient keys, K4 or K1 launches', gathers, k1))
     p0 = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     g_worst, _ = leaves_close(gg, gc, 'gradient')
     cpu, mc = cpu_step(cpu, batch)
@@ -1615,8 +1986,8 @@ def train_kernel_vs_plain():
                   for k, w in gc.items() if float(w.abs().max()) >= ZERO_GRAD
                   * top)
     phase('plain', f'train step B={B} {H}x{W} fp32 (backbone 1 stage of 1 '
-          f'block per unit), card (K4 {gathers[0]} '
-          f'forward + {gathers[1]} backward launches in the gradient pass) '
+          f'block per unit), card (K4 {gathers[0]} forward + {gathers[1]} '
+          f'backward and K1 {k1[0]} + {k1[1]} launches in the gradient pass) '
           f'vs CPU: ' + ', '.join(f'{k} {mg[k]:.6g}/{mc[k]:.6g}'
                                   for k in mc)
           + f'; gradients: max err / max|leaf| {errs[-1][0]:.3g} '
@@ -2103,8 +2474,9 @@ class TrainWatch:
     """Wraps the step that ``train_model`` builds (``apis/train.py``'s
     ``make_train_step``), its checkpoint manager's save and restore, the
     DCN-offset check, the eval hook's ``run_test`` and its decode, for the
-    block. Each step: the K4 counts read just before and just after (12 row
-    gathers and 12 adjoint launches, no K1 and no K3), CUDA events around
+    block. Each step: the counts read just before and just after (12 row
+    gathers and 12 adjoint launches, 16 K1 forward and 16 K1 backward, no
+    K3), CUDA events around
     it, a sync, every metric finite; the step ``profile_at`` under
     ``torch.profiler``. The eval model's forward (a module hook: a DAS in
     eval mode) marks the counts, its decode reads what each rose by since
@@ -2207,7 +2579,8 @@ class TrainWatch:
                 _, m = real(self.resume_ref, batch)
                 self.ref_losses = {k: float(v) for k, v in m.items()}
             before = (gather.launches, gather.backward_launches,
-                      dcn_shift.launches, oks_nms.launches)
+                      dcn_shift.launches, dcn_shift.backward_launches,
+                      oks_nms.launches)
             torch.cuda.synchronize()
             t = time.perf_counter()
             if last[0] is not None:
@@ -2229,14 +2602,16 @@ class TrainWatch:
                 self.profiled_ms = host
             last[0] = time.perf_counter()
             after = (gather.launches, gather.backward_launches,
-                     dcn_shift.launches, oks_nms.launches)
+                     dcn_shift.launches, dcn_shift.backward_launches,
+                     oks_nms.launches)
             m = {k: float(v) for k, v in metrics.items()}
             check(all(math.isfinite(v) for v in m.values()),
                   ('trainrun step', state.step, m))
             counts = [b - a for a, b in zip(before, after)]
-            check(counts == [K4_PER_STEP, K4_PER_STEP, 0, 0],
-                  ('trainrun step launches (K4, K4 backward, K1, K3)',
-                   state.step, counts))
+            check(counts == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP,
+                             K1_PER_STEP, 0],
+                  ('trainrun step launches (K4, K4 backward, K1, K1 '
+                   'backward, K3)', state.step, counts))
             self.steps.append(ev[0].elapsed_time(ev[1]))
             self.host_ms.append(host)
             self.losses.append(m)
@@ -2373,12 +2748,13 @@ def trainrun(eval_data, synthetic_median, smi):
     # radius 1 (phase 4 perturbs them so that some DCN calls repair): 8
     # fused samples a batch and one more per DCN call that repairs
     expect = {(dcn_shift, 'launches'): 16, (dcn_shift, 'wgmma_launches'): 16,
+              (dcn_shift, 'backward_launches'): 0,
               (oks_nms, 'launches'): 1, (gather, 'launches'): 3,
               (gather, 'backward_launches'): 0,
               (gather, 'sampler_launches'): (8, K4_SAMPLES[1])}
-    counts = [(dcn_shift, 'launches'), (oks_nms, 'launches'),
-              (gather, 'launches'), (gather, 'backward_launches'),
-              (gather, 'sampler_launches')]
+    counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
+              (oks_nms, 'launches'), (gather, 'launches'),
+              (gather, 'backward_launches'), (gather, 'sampler_launches')]
     for mod, attr in counts:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -2414,7 +2790,7 @@ def trainrun(eval_data, synthetic_median, smi):
           f'f32 master weights from the disk mix: {TRAIN_STEPS} steps in '
           f'{secs:.1f} s (build, loader, saves, checks, eval included); '
           f'every loss finite; K4 launches {K4_PER_STEP} + {K4_PER_STEP} '
-          f'each step and no K1 or K3; losses '
+          f'and K1 {K1_PER_STEP} + {K1_PER_STEP} each step, no K3; losses '
           + ', '.join(f"{m['loss']:.5g}" for m in w.losses))
     # the profiler's overhead stretches the profiled step several times
     # over: its device busy time is held against the other steps' median
@@ -2487,7 +2863,8 @@ DP_BATCH = 2
 DP_RANK_TIMEOUT = 600
 # the card the gloo ranks share (and the one-process reference's)
 DP_DEVICE = 'cuda:0'
-KERNEL_COUNTS = ('dcn_shift.launches', 'conv_gn.launches',
+KERNEL_COUNTS = ('dcn_shift.launches', 'dcn_shift.backward_launches',
+                 'conv_gn.launches',
                  'oks_nms.launches', 'gather.launches',
                  'gather.backward_launches', 'gather.sampler_launches')
 
@@ -2550,7 +2927,7 @@ def dp_train_job(rank, group, dev, opts, work):
     """``train_model`` on exp_panoptic_tpu from phase 8's mix on disk, this
     rank's DP_BATCH a step of the global batch, bf16 on f32 master weights,
     DP_STEPS steps (one epoch: the save, the DCN-offset check, the sharded
-    eval hook). Each step: 12 + 12 K4 launches and no K1 or K3, every
+    eval hook). Each step: 12 + 12 K4 and 16 + 16 K1 launches, no K3, every
     metric finite, host ms around it (synchronised) and around its gradient
     all-reduce. Returns those, the run's launches, this rank's peak memory
     and its elements that differ from rank 0's replica."""
@@ -2586,10 +2963,12 @@ def dp_train_job(rank, group, dev, opts, work):
             after = kernel_counts()
             got = [after[k] - before[k] for k in (
                 'gather.launches', 'gather.backward_launches',
-                'dcn_shift.launches', 'oks_nms.launches')]
-            check(got == [K4_PER_STEP, K4_PER_STEP, 0, 0],
-                  ('dataparallel step launches (K4, K4 backward, K1, K3)',
-                   rank, state.step, got))
+                'dcn_shift.launches', 'dcn_shift.backward_launches',
+                'oks_nms.launches')]
+            check(got == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP,
+                          K1_PER_STEP, 0],
+                  ('dataparallel step launches (K4, K4 backward, K1, K1 '
+                   'backward, K3)', rank, state.step, got))
             m = {k: float(v) for k, v in metrics.items()}
             check(all(math.isfinite(v) for v in m.values()),
                   ('dataparallel step', rank, state.step, m))
@@ -2798,10 +3177,10 @@ def dp_full_width_nccl(group, dev):
     """One full-width B=4 640x1344 bf16 step of exp_panoptic_tpu through
     the group path over NCCL (the 266 MB gradient all-reduce, the BN
     all-reduces) beside the same step without a group from the same seed:
-    K4's 12 + 12 launches and finite metrics on both. Returns each loss
-    term's relative difference (not held: at full depth a random-init
-    train-mode forward amplifies the BN sums' order of summation, as it
-    amplifies the card's and the CPU's rounding)."""
+    K4's 12 + 12 and K1's 16 + 16 launches and finite metrics on both.
+    Returns each loss term's relative difference (not held: at full depth a
+    random-init train-mode forward amplifies the BN sums' order of
+    summation, as it amplifies the card's and the CPU's rounding)."""
     import torch
     from das_tpu_torch.config import Config
     from das_tpu_torch.tools.profile_train import (make_trainer,
@@ -2820,10 +3199,11 @@ def dp_full_width_nccl(group, dev):
         state, metrics = step(state, batch)
         torch.cuda.synchronize(dev)
         after = kernel_counts()
-        n = [after[k] - before[k] for k in ('gather.launches',
-                                            'gather.backward_launches')]
+        n = [after[k] - before[k] for k in (
+            'gather.launches', 'gather.backward_launches',
+            'dcn_shift.launches', 'dcn_shift.backward_launches')]
         m = {k: float(v) for k, v in metrics.items()}
-        check(n == [K4_PER_STEP, K4_PER_STEP] and
+        check(n == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP, K1_PER_STEP] and
               all(math.isfinite(v) for v in m.values()),
               ('full-width step', name, n, m))
         got[name] = m
@@ -2918,6 +3298,7 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
         check(n['dcn_shift.launches'] > 0 and n['oks_nms.launches'] > 0 and
               n['gather.launches'] > 0 and
               n['gather.backward_launches'] == K4_PER_STEP * DP_STEPS and
+              n['dcn_shift.backward_launches'] == K1_PER_STEP * DP_STEPS and
               n['gather.sampler_launches'] > 0,
               ('W=2 train_model launches', n))
     evals = [r['eval'] for r in gloo]
@@ -2932,7 +3313,8 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
           f'tolerance (zero leaves {w2[1]:.3g}), replicas bit-equal; '
           f'train_model exp_panoptic_tpu at B={DP_BATCH} a rank (global '
           f'{2 * DP_BATCH}) 640x1344 bf16, {DP_STEPS} steps: every loss '
-          f'finite, K4 {K4_PER_STEP} + {K4_PER_STEP} a step on each rank, '
+          f'finite, K4 {K4_PER_STEP} + {K4_PER_STEP} and K1 {K1_PER_STEP} '
+          f'+ {K1_PER_STEP} a step on each rank, '
           f"{tr[0]['tensors']} tensors and the momentum bit-equal across "
           f'ranks, one checkpoint ({ckpts[1]}), the eval hook and DCN check '
           f'in rank 0\'s log; losses '
@@ -3339,6 +3721,7 @@ def main():
     from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
     build()
     k1 = dcn_vs_plain()
+    k1b = dcn_backward_vs_plain()
     k2 = conv_gn_vs_plain()
     oks_nms_vs_plain()
     k4, k4b = gather_vs_plain()
@@ -3348,6 +3731,7 @@ def main():
     def expect(convs):
         return {(dcn_shift, 'launches'): 16,
                 (dcn_shift, 'wgmma_launches'): 16,
+                (dcn_shift, 'backward_launches'): 0,
                 (conv_gn, 'launches'): convs, (oks_nms, 'launches'): 1,
                 (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
                 (gather, 'sampler_launches'): K4_SAMPLES}
@@ -3371,11 +3755,13 @@ def main():
           f' 8 frames): exp_panoptic_tpu {ips1:.2f}, '
           f'exp_panoptic_tpu_fused_gn {ips2:.2f}; {smi}')
     torch.cuda.empty_cache()
-    fwd, bwd, run = train_full_width()
+    (fwd, bwd), (k1_fwd, k1_bwd), run = train_full_width()
     for n, e in ((n1, e1), (n2, e2)):
         for k in n:
             n[k] += e[k]
-    k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches']
+    k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches'] \
+        + k1_fwd
+    k1b['launches'] = k1_bwd
     k2['launches'] = n2['conv_gn.launches']
     k3['launches'] = n1['oks_nms.launches'] + n2['oks_nms.launches']
     k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + fwd
@@ -3383,25 +3769,31 @@ def main():
     k4s['launches'] = n1['gather.sampler_launches'] \
         + n2['gather.sampler_launches']
     train_k4_vs_plain_on_card(run, ('bf16', 'f32'))
+    train_k1_vs_plain_on_card(run)
     synthetic_median = run['median_ms']
     del run
     torch.cuda.empty_cache()
     n8, train_opts, median8 = trainrun(eval_data, synthetic_median, smi)
-    for k in (k1, k2, k3, k4, k4b, k4s):
+    for k in (k1, k1b, k2, k3, k4, k4b, k4s):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     k1['launches'] += n8['dcn_shift.launches']
+    k1b['launches'] += n8['dcn_shift.backward_launches']
     k3['launches'] += n8['oks_nms.launches']
     k4['launches'] += n8['gather.launches']
     k4b['launches'] += n8['gather.backward_launches']
     k4s['launches'] += n8['gather.sampler_launches']
     check(n8['gather.launches'] > 0 and n8['gather.backward_launches'] > 0
-          and n8['dcn_shift.launches'] > 0 and n8['oks_nms.launches'] > 0
+          and n8['dcn_shift.launches'] > 0
+          and n8['dcn_shift.backward_launches'] > 0
+          and n8['oks_nms.launches'] > 0
           and n8['gather.sampler_launches'] > 0,
           ('the training entry point left a kernel of its path unlaunched',
            n8))
     torch.cuda.empty_cache()
     n9 = dataparallel(eval_data, served_sd, outs1, train_opts, median8, smi)
-    for k, key in ((k1, 'dcn_shift.launches'), (k2, 'conv_gn.launches'),
+    for k, key in ((k1, 'dcn_shift.launches'),
+                   (k1b, 'dcn_shift.backward_launches'),
+                   (k2, 'conv_gn.launches'),
                    (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
                    (k4b, 'gather.backward_launches'),
                    (k4s, 'gather.sampler_launches')):
@@ -3419,7 +3811,8 @@ def main():
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()
-    print(json.dumps({'kernels': [k1, k2, k3, k4, k4b, k4s]}), flush=True)
+    print(json.dumps({'kernels': [k1, k1b, k2, k3, k4, k4b, k4s]}),
+          flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,
         'count': torch.cuda.device_count()}}), flush=True)

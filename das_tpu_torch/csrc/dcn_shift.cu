@@ -707,6 +707,379 @@ dcn_shift_f32_kernel(const float* __restrict__ x,
   }
 }
 
+// ---- the backward: the tap kernel and the dx kernel ------------------------
+//
+// The gradient of the function above, with the conventions of JAX's autodiff
+// of the XLA shift expansion (das_tpu/ops/deform_conv.py:111, which the JAX
+// package trains; the Pallas kernel has no VJP) where the hat weights and
+// the clamp have kinks. Per tap k, with T_k the tap tile (the window sum,
+// before the mask), A_k = m_k T_k, G the output gradient and U_k = G W_k^T
+// (P x Cin, given):
+//   dmask_k   = sum_c U_k T_k
+//   doffset_k = m_k clamp'(o) sum_c U_k dT_k/d(dy, dx)
+//   dx(q)     = sum over the (pixel p, tap k) whose window holds q of
+//               hat hat m_k(p) U_k(p)
+// and A_k is written for dW_k = A_k^T G. U and dW are plain large matrix
+// products outside any kernel (torch.matmul in ops/dcn_shift.py), as the
+// JAX package leaves them to XLA as the transpose of its einsum.
+//
+// What bounds it: with the products outside, both kernels stream. The tap
+// kernel reads U and writes A, two (P x 9 x Cin) tensors (2 GB in bf16 at
+// 4 x 160 x 336 x 256), and reads x's corners from the caches; the dx
+// kernel reads U again. So they are bound by bytes, ~1 ms at 3.35 TB/s at
+// that shape against ~0.5 ms of the products at the tensor-core peak.
+// Design: one warp a (pixel, tap), 8 bf16 or 4 f32 channels a lane in one
+// 16-byte load (every load of a pass issued before any is used), the tile
+// recomputed from x as the forward rounds it (the forward keeps none), the
+// three channel sums reduced by shuffles; the derivative's
+// extra rows and columns (the slopes where i - d is exactly -1 or +1 in
+// f32: an integer offset, or one within half an ulp of an integer) read
+// only where their slope is not zero, which is the same for the whole
+// warp. dx is the transpose of the shift as a gather: one warp an input
+// pixel, whose lanes examine the (2r+2)^2 window of every tap side by side
+// and then add the rows of U they found in a fixed order: no atomics,
+// deterministic.
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// d hat(i - d) / d d at t = i - d, hat(t) = max(0, 1 - |t|), as JAX's
+// autodiff gives it: |t|' = +1 at t = 0, and max passes half at a tie. So
+// +1 for 0 <= t < 1, -1 for -1 < t < 0, +0.5 at t = 1, -0.5 at t = -1, 0
+// beyond.
+__device__ __forceinline__ float hat_slope(float t) {
+  const float a = fabsf(t);
+  const float mag = a < 1.f ? 1.f : (a == 1.f ? 0.5f : 0.f);
+  return t >= 0.f ? mag : -mag;
+}
+
+// jnp.clip's slope: 1 inside (-r, r), 0.5 at exactly +-r, 0 beyond.
+__device__ __forceinline__ float clamp_slope(float o, float r) {
+  const float a = fabsf(o);
+  return a < r ? 1.f : (a == r ? 0.5f : 0.f);
+}
+
+// V channels of T a lane: one 16-byte load or store where V > 1 (8 bf16 or
+// 4 f32 channels), else one element.
+template <typename T, int V>
+struct Lanes;
+template <typename T>
+struct Lanes<T, 1> {
+  using raw = T;
+  static __device__ __forceinline__ raw load(const T* p) { return *p; }
+  static __device__ __forceinline__ raw zero() { return from_f<T>(0.f); }
+  static __device__ __forceinline__ float get(const raw& r, int) {
+    return to_f(r);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    *p = from_f<T>(v[0]);
+  }
+};
+template <>
+struct Lanes<__nv_bfloat16, 8> {
+  using raw = uint4;
+  static __device__ __forceinline__ raw load(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ raw zero() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+  static __device__ __forceinline__ float get(const raw& r, int e) {
+    return bf16_lane(r, e);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                   pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
+  }
+};
+template <>
+struct Lanes<float, 4> {
+  using raw = float4;
+  static __device__ __forceinline__ raw load(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  static __device__ __forceinline__ raw zero() {
+    return make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  static __device__ __forceinline__ float get(const raw& r, int e) {
+    return e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+// One warp a (pixel, tap), V channels a lane. u == nullptr: the tile alone.
+// Writes what is not null of tile (P x 9 x Cin), dmask (P x 9, in T) and
+// doffset (P x 18, f32). The launcher keeps P x 9 below 2^31.
+template <typename T, int V>
+__global__ void __launch_bounds__(THREADS)
+dcn_shift_bwd_tap_kernel(const T* __restrict__ x,
+                         const float* __restrict__ offset,
+                         const T* __restrict__ mask, const T* __restrict__ u,
+                         T* __restrict__ tile, float* __restrict__ doffset,
+                         T* __restrict__ dmask, int N, int H, int W, int Cin,
+                         int R) {
+  using L = Lanes<T, V>;
+  const int e = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (e >= N * H * W * KK) return;
+  const int lane = threadIdx.x % 32;
+  const int gp = e / KK, k = e - gp * KK;
+  const int kh = k / 3, kw = k % 3;
+  const int n = gp / (H * W);
+  const int rem = gp - n * (H * W);
+  const int py = rem / W, px = rem - py * W;
+  const float r = (float)R;
+  const float oy = offset[(size_t)gp * (2 * KK) + 2 * k];
+  const float ox = offset[(size_t)gp * (2 * KK) + 2 * k + 1];
+  // clamped displacement of the tap from the output pixel, as the forward
+  const float dy = __fadd_rn(fminf(fmaxf(oy, -r), r), (float)(kh - 1));
+  const float dx = __fadd_rn(fminf(fmaxf(ox, -r), r), (float)(kw - 1));
+  const int iy0 = (int)floorf(dy), ix0 = (int)floorf(dx);
+  // rows iy0 - 1 .. iy0 + 2 and columns ix0 - 1 .. ix0 + 2 (index 0..3):
+  // the hat weights (zero but at index 1 and 2), their slopes inside the
+  // tap's window, displacements kh - 1 - R .. kh + R (row iy0 - 1 leaves
+  // it where the clamped offset is -R), and whether the pixel lies in the
+  // image (bit a of iny, b of inx). Rows iy0 - 1 and iy0 + 2 have a slope
+  // only where i - d rounds to exactly -1 or +1 in f32, as it does in the
+  // JAX expansion: d an integer, or within half an ulp of one.
+  float wy[4], wx[4], sy[4], sx[4];
+  unsigned iny = 0, inx = 0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int iy = iy0 + a - 1, ix = ix0 + a - 1;
+    const float ty = __fsub_rn((float)iy, dy), tx = __fsub_rn((float)ix, dx);
+    wy[a] = fmaxf(0.f, 1.f - fabsf(ty));
+    wx[a] = fmaxf(0.f, 1.f - fabsf(tx));
+    sy[a] = (iy >= kh - 1 - R && iy <= kh + R) ? hat_slope(ty) : 0.f;
+    sx[a] = (ix >= kw - 1 - R && ix <= kw + R) ? hat_slope(tx) : 0.f;
+    iny |= (unsigned)(py + iy >= 0 && py + iy < H) << a;
+    inx |= (unsigned)(px + ix >= 0 && px + ix < W) << a;
+  }
+  // the forward's four corners, their weights rounded to T
+  float wr[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      wr[a][b] = rnd<T>(__fmul_rn(wy[a + 1], wx[b + 1]));
+  // which pixels of the 4 x 4 neighbourhood are read: the corners, rows 0
+  // and 3 (columns 1, 2) where their slope is not zero, columns 0 and 3
+  // (rows 1, 2) where theirs is not; bit 4 a + b. The same for the warp.
+  unsigned need = 0x0660u;
+  if (sy[0] != 0.f) need |= 0x0006u;
+  if (sy[3] != 0.f) need |= 0x6000u;
+  if (sx[0] != 0.f) need |= 0x0110u;
+  if (sx[3] != 0.f) need |= 0x0880u;
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (!((iny >> a) & (inx >> b) & 1u)) need &= ~(1u << (4 * a + b));
+  // element offset of pixel (iy0 - 1, ix0 - 1); read only where in image
+  const long long base =
+      ((long long)(n * H + py + iy0 - 1) * W + px + ix0 - 1) * Cin;
+  const long long rowstep = (long long)W * Cin;
+  const float m = to_f(mask[(size_t)gp * KK + k]);
+  const size_t row = ((size_t)gp * KK + k) * Cin;
+  float sm = 0.f, sdy = 0.f, sdx = 0.f;
+  for (int c = lane * V; c < Cin; c += 32 * V) {
+    // every load of the pass first, so that they are in flight together
+    typename L::raw q[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        q[a][b] = (need >> (4 * a + b)) & 1u
+                      ? L::load(x + base + a * rowstep + b * Cin + c)
+                      : L::zero();
+    const typename L::raw uq = u != nullptr ? L::load(u + row + c)
+                                            : L::zero();
+    float tv[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      // the tap value as the forward computes it: the corners in window
+      // order, each product and partial sum rounded to T; a corner outside
+      // the image adds nothing
+      float v = 0.f;
+#pragma unroll
+      for (int a = 1; a < 3; ++a)
+#pragma unroll
+        for (int b = 1; b < 3; ++b)
+          if ((need >> (4 * a + b)) & 1u)
+            v = rnd<T>(__fadd_rn(
+                v, rnd<T>(__fmul_rn(L::get(q[a][b], i), wr[a - 1][b - 1]))));
+      tv[i] = rnd<T>(__fmul_rn(v, m));
+      if (u != nullptr) {
+        // the slopes, f32: d/ddy sums sy[a] wx[b] x, d/ddx wy[a] sx[b] x
+        float gy = 0.f, gx = 0.f;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          gy += sy[a] * (wx[1] * L::get(q[a][1], i) +
+                         wx[2] * L::get(q[a][2], i));
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          gx += sx[b] * (wy[1] * L::get(q[1][b], i) +
+                         wy[2] * L::get(q[2][b], i));
+        const float uu = L::get(uq, i);
+        sm += uu * v;
+        sdy += uu * gy;
+        sdx += uu * gx;
+      }
+    }
+    if (tile != nullptr) L::store(tile + row + c, tv);
+  }
+  if (u == nullptr) return;
+#pragma unroll
+  for (int s = 16; s > 0; s /= 2) {
+    sm += __shfl_xor_sync(0xffffffffu, sm, s);
+    sdy += __shfl_xor_sync(0xffffffffu, sdy, s);
+    sdx += __shfl_xor_sync(0xffffffffu, sdx, s);
+  }
+  if (lane != 0) return;
+  if (dmask != nullptr) dmask[(size_t)gp * KK + k] = from_f<T>(sm);
+  if (doffset != nullptr) {
+    doffset[(size_t)gp * (2 * KK) + 2 * k] = m * clamp_slope(oy, r) * sdy;
+    doffset[(size_t)gp * (2 * KK) + 2 * k + 1] =
+        m * clamp_slope(ox, r) * sdx;
+  }
+}
+
+// One warp an input pixel q. Its candidates are the (tap k, displacement
+// (iy, ix) of the tap's window): the output pixel p = q - (iy, ix) read q
+// with the weight hat(iy - dy_k(p)) hat(ix - dx_k(p)). The lanes examine the
+// candidates side by side, each keeping the weight times m_k(p) and the row
+// of U_k(p) of those it finds; then, candidate by candidate in a fixed
+// order, the warp adds weight x U_k(p) into q's channels, V a lane. In f32,
+// cast once: no atomics, the same order every run.
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(THREADS)
+dcn_shift_bwd_dx_kernel(const float* __restrict__ offset,
+                        const T* __restrict__ mask, const T* __restrict__ u,
+                        T* __restrict__ dx, int N, int H, int W, int Cin) {
+  using L = Lanes<T, V>;
+  constexpr int WIN = 2 * R + 2;           // the window's span an axis
+  constexpr int CAND = KK * WIN * WIN;     // 144 at R = 1, 324 at R = 2
+  constexpr int PER = (CAND + 31) / 32;    // candidates a lane examines
+  const int q = blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (q >= N * H * W) return;
+  const int lane = threadIdx.x % 32;
+  const int n = q / (H * W);
+  const int rem = q - n * (H * W);
+  const int qy = rem / W, qx = rem - qy * W;
+  const float r = (float)R;
+  float coef[PER];
+  unsigned long long urow[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) {
+    const int j = lane + 32 * i;
+    coef[i] = 0.f;
+    urow[i] = 0;
+    if (j >= CAND) continue;
+    const int k = j / (WIN * WIN), d = j - k * (WIN * WIN);
+    const int kh = k / 3, kw = k % 3;
+    const int iy = kh - 1 - R + d / WIN, ix = kw - 1 - R + d % WIN;
+    const int py = qy - iy, px = qx - ix;
+    if (py < 0 || py >= H || px < 0 || px >= W) continue;
+    const size_t gp = ((size_t)n * H + py) * W + px;
+    const float dy = __fadd_rn(
+        fminf(fmaxf(offset[gp * (2 * KK) + 2 * k], -r), r), (float)(kh - 1));
+    const float dxx = __fadd_rn(
+        fminf(fmaxf(offset[gp * (2 * KK) + 2 * k + 1], -r), r),
+        (float)(kw - 1));
+    const float wy = fmaxf(0.f, 1.f - fabsf(__fsub_rn((float)iy, dy)));
+    const float wx = fmaxf(0.f, 1.f - fabsf(__fsub_rn((float)ix, dxx)));
+    coef[i] = __fmul_rn(__fmul_rn(wy, wx), to_f(mask[gp * KK + k]));
+    urow[i] = (gp * KK + k) * Cin;
+  }
+  // every lane takes every pass: the shuffles need the whole warp
+  for (int c0 = 0; c0 < Cin; c0 += 32 * V) {
+    const int c = c0 + lane * V;
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      unsigned live = __ballot_sync(0xffffffffu, coef[i] != 0.f);
+      while (live != 0u) {
+        const int src = __ffs(live) - 1;
+        live &= live - 1u;
+        const float cf = __shfl_sync(0xffffffffu, coef[i], src);
+        const unsigned long long ur = __shfl_sync(0xffffffffu, urow[i],
+                                                  src);
+        if (c < Cin) {
+          const typename L::raw row = L::load(u + ur + c);
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            acc[e] = fmaf(cf, L::get(row, e), acc[e]);
+        }
+      }
+    }
+    if (c < Cin) L::store(dx + (size_t)q * Cin + c, acc);
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch_backward_lanes(const void* x, const void* offset,
+                                  const void* mask, const void* u,
+                                  void* tile, void* doffset, void* dmask,
+                                  void* dx, int N, int H, int W, int Cin,
+                                  int radius, cudaStream_t s) {
+  constexpr int WARPS = THREADS / 32;
+  const int P = N * H * W;
+  if (tile != nullptr || doffset != nullptr || dmask != nullptr) {
+    dcn_shift_bwd_tap_kernel<T, V>
+        <<<(P * KK + WARPS - 1) / WARPS, THREADS, 0, s>>>(
+            static_cast<const T*>(x), static_cast<const float*>(offset),
+            static_cast<const T*>(mask), static_cast<const T*>(u),
+            static_cast<T*>(tile), static_cast<float*>(doffset),
+            static_cast<T*>(dmask), N, H, W, Cin, radius);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (dx != nullptr) {
+    const int blocks = (P + WARPS - 1) / WARPS;
+    if (radius == 1)
+      dcn_shift_bwd_dx_kernel<T, V, 1><<<blocks, THREADS, 0, s>>>(
+          static_cast<const float*>(offset), static_cast<const T*>(mask),
+          static_cast<const T*>(u), static_cast<T*>(dx), N, H, W, Cin);
+    else
+      dcn_shift_bwd_dx_kernel<T, V, 2><<<blocks, THREADS, 0, s>>>(
+          static_cast<const float*>(offset), static_cast<const T*>(mask),
+          static_cast<const T*>(u), static_cast<T*>(dx), N, H, W, Cin);
+  }
+  return cudaGetLastError();
+}
+
+// 16-byte loads where Cin is a multiple of their channels and every tensor
+// that is read or written by the channel starts on 16 bytes, else one
+// element at a time.
+template <typename T>
+cudaError_t launch_backward(const void* x, const void* offset,
+                            const void* mask, const void* u, void* tile,
+                            void* doffset, void* dmask, void* dx, int N,
+                            int H, int W, int Cin, int radius,
+                            cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = Cin % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(u) |
+                     reinterpret_cast<uintptr_t>(tile) |
+                     reinterpret_cast<uintptr_t>(dx)) % 16) == 0;
+  return vec ? launch_backward_lanes<T, V>(x, offset, mask, u, tile, doffset,
+                                           dmask, dx, N, H, W, Cin, radius, s)
+             : launch_backward_lanes<T, 1>(x, offset, mask, u, tile, doffset,
+                                           dmask, dx, N, H, W, Cin, radius, s);
+}
+
 // The wgmma pass takes bf16 with Cin and Cout multiples of 64 and 16-byte
 // aligned bases of x and the weight (what TMA's maps need).
 bool takes_wgmma(int Cin, int Cout, int is_bf16, int aligned) {
@@ -835,4 +1208,33 @@ extern "C" int dcn_shift_forward(const void* x, const void* offset,
                                  int is_bf16, void* stream) {
   return dcn_shift_forward_pass(x, offset, mask, weight, bias, out, N, H, W,
                                 Cin, Cout, radius, is_bf16, 0, stream);
+}
+
+// The backward, on the tensors the forward was given (x, offset f32, mask),
+// with u = G W^T (P x 9 x Cin, x's type) where doffset, dmask or dx is asked
+// for. Each of tile (P x 9 x Cin), doffset (P x 18, f32), dmask (P x 9) and
+// dx (P x Cin) is written unless it is null; tile, dmask and dx in x's type
+// (f32: is_bf16 = 0, bf16: 1). Launches the tap kernel where tile, doffset
+// or dmask is asked for and the dx kernel where dx is. Returns
+// cudaGetLastError() after the launches.
+extern "C" int dcn_shift_backward(const void* x, const void* offset,
+                                  const void* mask, const void* u,
+                                  void* tile, void* doffset, void* dmask,
+                                  void* dx, int N, int H, int W, int Cin,
+                                  int radius, int is_bf16, void* stream) {
+  if ((long long)N * H * W == 0 || Cin == 0) return 0;
+  // the kernels index pixels and (pixel, tap) pairs with 32-bit ints
+  if ((long long)N * H * W * KK >= (1LL << 31) ||
+      (radius != 1 && radius != 2) ||
+      (u == nullptr && (doffset != nullptr || dmask != nullptr ||
+                        dx != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+                   ? launch_backward<__nv_bfloat16>(x, offset, mask, u, tile,
+                                                    doffset, dmask, dx, N, H,
+                                                    W, Cin, radius, s)
+                   : launch_backward<float>(x, offset, mask, u, tile, doffset,
+                                            dmask, dx, N, H, W, Cin, radius,
+                                            s));
 }

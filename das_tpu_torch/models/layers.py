@@ -183,7 +183,9 @@ class DeformConv2d(nn.Module):
     itself runs in NHWC with the (K, K, Cin, Cout) kernel. Under training
     the lowering is the JAX module's: an explicit ``train_gather_mode``
     wins, else ``'patch'`` -> ``'clip'``, ``'shift_pallas'`` -> ``'shift'``,
-    ``'hybrid_pallas'`` -> ``'hybrid'`` (the kernel K1 has no backward).
+    ``'hybrid_pallas'`` -> ``'hybrid'``. On the card ``'shift'`` and
+    ``'hybrid'`` run the kernel K1 forward and backward
+    (``ops/dcn_shift.py``), on the CPU the plain shift expansion.
     """
 
     def __init__(self, in_channels: int, out_channels: int,

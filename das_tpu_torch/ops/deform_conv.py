@@ -14,8 +14,11 @@ are mask logits passed through a sigmoid; sampling pads with zeros.
 * ``'hybrid_pallas'`` — the hand kernel plus ``_hybrid_repair``, the exact
   recompute of out-of-radius pixels: exact DCNv2 while each image has at
   most ``shift_budget`` such pixels;
-* ``'shift'`` / ``'hybrid'`` — the same two with the plain shift expansion
-  ``_deform_conv_shift`` as the base.
+* ``'shift'`` / ``'hybrid'`` — the same two on the card (the lowerings
+  training takes: K1 forward and, under autograd, K1's backward); on the
+  CPU with the plain shift expansion ``_deform_conv_shift`` as the base.
+  The two compute one function; in bf16 the kernel sums the nine tap
+  contractions in f32 where ``_deform_conv_shift`` rounds each to bf16.
 """
 
 from __future__ import annotations
@@ -54,19 +57,15 @@ def modulated_deform_conv(x: torch.Tensor,
         (N, H, W, Cout)
     """
     K = kernel_size
-    if gather_mode == 'shift':
-        return _deform_conv_shift(x, offset, mask, weight, bias, K, padding,
-                                  shift_radius)
-    if gather_mode == 'hybrid':
-        base = _deform_conv_shift(x, offset, mask, weight, bias, K, padding,
-                                  shift_radius)
-        return _hybrid_repair(base, x, offset, mask, weight, bias, K,
-                              padding, shift_radius, shift_budget)
-    if gather_mode in ('shift_pallas', 'hybrid_pallas'):
-        base = dcn_shift.deform_conv_shift(x, offset, mask, weight, bias,
-                                           K=K, padding=padding,
-                                           radius=shift_radius)
-        if gather_mode == 'shift_pallas':
+    if gather_mode in ('shift', 'hybrid', 'shift_pallas', 'hybrid_pallas'):
+        if gather_mode in ('shift', 'hybrid') and x.device.type == 'cpu':
+            base = _deform_conv_shift(x, offset, mask, weight, bias, K,
+                                      padding, shift_radius)
+        else:
+            base = dcn_shift.deform_conv_shift(x, offset, mask, weight, bias,
+                                               K=K, padding=padding,
+                                               radius=shift_radius)
+        if gather_mode in ('shift', 'shift_pallas'):
             return base
         return _hybrid_repair(base, x, offset, mask, weight, bias, K,
                               padding, shift_radius, shift_budget)
@@ -111,7 +110,11 @@ def _deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
     """DCNv2 via dense shifted multiply-adds, the XLA shift semantics:
     offsets clamped to ``[-radius, radius]``, each tap's window sum and its
     contraction accumulated in ``x.dtype`` (the kernel accumulates the
-    contractions in f32; the two agree in f32)."""
+    contractions in f32; the two agree in f32). Under autograd the offset's
+    gradient is JAX's at the kinks too (``dcn_shift.hat``,
+    ``dcn_shift.clamp_offset``): an integer offset, or one at +-radius, is
+    where every training run from the zero-initialised ``conv_offset``
+    starts."""
     N, H, W, Cin = x.shape
     Cout = weight.shape[-1]
     P = padding + radius + 1
@@ -122,14 +125,16 @@ def _deform_conv_shift(x: torch.Tensor, offset: torch.Tensor,
     r = float(radius)
     for k in range(K * K):
         kh, kw = divmod(k, K)
-        dy = offset[..., 2 * k].float().clamp(-r, r) + (kh - padding)
-        dx = offset[..., 2 * k + 1].float().clamp(-r, r) + (kw - padding)
+        dy = dcn_shift.clamp_offset(offset[..., 2 * k].float(), r) \
+            + (kh - padding)
+        dx = dcn_shift.clamp_offset(offset[..., 2 * k + 1].float(), r) \
+            + (kw - padding)
         acc = torch.zeros((N, H, W, Cin), dtype=x.dtype, device=x.device)
         for iy in range(kh - padding - radius, kh - padding + radius + 2):
-            wy = (1.0 - (iy - dy).abs()).clamp_min(0.0)
+            wy = dcn_shift.hat(iy - dy)
             for ix in range(kw - padding - radius,
                             kw - padding + radius + 2):
-                w = wy * (1.0 - (ix - dx).abs()).clamp_min(0.0)
+                w = wy * dcn_shift.hat(ix - dx)
                 acc = acc + xp[:, iy + P:iy + P + H, ix + P:ix + P + W] \
                     * w.to(x.dtype)[..., None]
         acc = acc * mask[..., k:k + 1]

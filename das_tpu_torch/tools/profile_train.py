@@ -8,8 +8,9 @@ trainable model: f32 master weights, bf16 compute, random weights from a
 seed, on the card. Trains ``--steps`` steps on one synthetic batch in the
 TrainLoader's format at the config's train bucket (640x1344 for the shipped
 pipeline) and prints one JSON line: each step's time from CUDA events and on
-the host clock, the peak device memory, the row gather's (K4's) launches
-per step, and, for one more step under ``torch.profiler``, its device busy
+the host clock, the peak device memory, the row gather's (K4's) and the
+DCN kernel's (K1's, forward and backward) launches per step, and, for one
+more step under ``torch.profiler``, its device busy
 ms (the sum of its kernels' device time) and the kernels with the most
 device time. The profiler's table and trace go to ``--out`` (default
 ``build/profile_train``).
@@ -33,7 +34,7 @@ from torch.autograd import DeviceType
 from ..config import Config
 from ..datasets.loader import train_pad_hw_from_cfg
 from ..models import build_trainable_model
-from ..ops import gather
+from ..ops import dcn_shift, gather
 from ..parallel import (TrainState, make_lr_fn, make_optimizer,
                         make_train_step, mspn_frozen_prefixes, replicate,
                         world_size)
@@ -154,9 +155,10 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    steps, host, launches = [], [], []
+    steps, host, launches, k1 = [], [], [], []
     for _ in range(args.steps):
         before = gather.launches + gather.backward_launches
+        k1_before = dcn_shift.launches, dcn_shift.backward_launches
         torch.cuda.synchronize()
         t = time.perf_counter()
         ev[0].record()
@@ -166,6 +168,8 @@ def main():
         host.append((time.perf_counter() - t) * 1e3)
         steps.append(ev[0].elapsed_time(ev[1]))
         launches.append(gather.launches + gather.backward_launches - before)
+        k1.append([dcn_shift.launches - k1_before[0],
+                   dcn_shift.backward_launches - k1_before[1]])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -191,6 +195,7 @@ def main():
         max_pos=max_pos, device=torch.cuda.get_device_name(0),
         step_ms_cuda_events=steps, step_ms_host=host,
         peak_memory_gib=peak, gather_launches_per_step=launches,
+        dcn_shift_launches_per_step=k1,
         loss={k: float(v) for k, v in metrics.items()},
         profiled_step_ms=profiled_ms,
         profiled_device_busy_ms=sum(dev_us(e) for e in kernels) / 1e3,

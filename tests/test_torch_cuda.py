@@ -159,6 +159,139 @@ def test_dcn_shift_kernel_refuses_what_it_does_not_take(cuda):
         dcn_shift.deform_conv_shift(a[0].transpose(1, 2), *a[1:])
 
 
+# K1's backward: the kernel against the closed form. Both take U = G W^T
+# from one product and the tile as the forward rounds it, and reduce in f32
+# in other orders. f32: within 1e-5 of max|ref|. bf16: dx, dmask, dweight
+# and dbias come back in bf16, where a sum the two sides take in another
+# order can round to the neighbouring bf16 value, one step of the output
+# type: within BWD_BF16_TOL = 2^-7 (bf16's spacing relative to a value in
+# [1, 2)) of max|ref|; doffset (f32, from the same bf16 values) is held at
+# the same bound.
+# Cin 8 and 128 take the kernels' 16-byte loads; Cin 6 (no multiple of 8
+# for bf16 nor of 4 for f32) takes one element a lane
+BWD_SHAPES = [(2, 9, 7, 8, 16), (2, 13, 21, 128, 192), (2, 9, 7, 6, 16)]
+BWD_BF16_TOL = 2.0 ** -7
+BWD_NAMES = ('dx', 'doffset', 'dmask', 'dweight', 'dbias')
+
+
+def _bwd_inputs(shape, dt, dev, radius, case, seed=0):
+    """x, offset (f32), mask, weight and an output gradient; offsets all 0,
+    each exactly +-radius, next to the kinks, or spread past the radius."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, w, cin, generator=g)
+    if case == 'zero':
+        off = torch.zeros(n, h, w, 18)
+    elif case == 'at +-r':
+        off = (torch.randint(0, 2, (n, h, w, 18), generator=g) * 2.0
+               - 1.0) * radius
+    elif case == 'next to the kinks':
+        # within an ulp or two of 0, +-1 and +-r, where the displacement
+        # i - d rounds onto a kink of the hat in f32
+        near = torch.tensor([1 - 2 ** -24, -(1 - 2 ** -24), 2 ** -30,
+                             -2 ** -30, 1 + 2 ** -23, -1 - 2 ** -23,
+                             radius - 2 ** -22, -radius + 2 ** -22, 0.5])
+        off = near[torch.randint(0, 9, (n, h, w, 18), generator=g)]
+    else:
+        off = (torch.rand(n, h, w, 18, generator=g) * 2 - 1) * 1.2 * radius
+    mask = torch.sigmoid(torch.randn(n, h, w, 9, generator=g))
+    wt = torch.randn(3, 3, cin, cout, generator=g) * (0.2 if cin < 64
+                                                      else 0.05)
+    gout = torch.randn(n, h, w, cout, generator=g)
+    return (x.to(dev, dt), off.to(dev), mask.to(dev, dt), wt.to(dev, dt),
+            gout.to(dev, dt))
+
+
+def _bwd_close(got, want, dt, what):
+    tol = 1e-5 if dt == torch.float32 else BWD_BF16_TOL
+    for name, a, b in zip(BWD_NAMES, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, (what, name)
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item(), (what, name, err)
+
+
+@pytest.mark.parametrize('shape', BWD_SHAPES)
+@pytest.mark.parametrize('case', ['zero', 'at +-r', 'next to the kinks',
+                                  'generic'])
+@pytest.mark.parametrize('radius', [1, 2])
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_dcn_shift_backward_kernel_matches_closed_form(cuda, shape, case,
+                                                       radius, dt):
+    """Each of dx, doffset, dmask, dweight and dbias from one backward
+    call (one launch of the library: the tap kernel and the dx kernel)
+    against ``deform_conv_shift_backward_plain`` on the same inputs."""
+    x, off, mask, wt, g = _bwd_inputs(shape, dt, cuda, radius, case)
+    before = dcn_shift.backward_launches
+    got = dcn_shift.deform_conv_shift_backward_cuda(x, off, mask, wt, g,
+                                                    radius)
+    torch.cuda.synchronize()
+    assert dcn_shift.backward_launches == before + 1
+    want = dcn_shift.deform_conv_shift_backward_plain(x, off, mask, wt, g,
+                                                      radius)
+    _bwd_close(got, want, dt, (shape, case, radius, dt))
+
+
+@pytest.mark.parametrize('radius', [1, 2])
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_dcn_shift_backward_kernel_unaligned_x(cuda, radius, dt):
+    """An x that starts one element past a 16-byte boundary (Cin 8, which
+    would take 16-byte loads) takes the one-element-a-lane kernels and
+    still matches the closed form."""
+    x, off, mask, wt, g = _bwd_inputs((2, 9, 7, 8, 16), dt, cuda, radius,
+                                      'generic')
+    x = torch.empty(x.numel() + 1, dtype=dt, device=cuda)[1:].view(
+        x.shape).copy_(x)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = dcn_shift.deform_conv_shift_backward_cuda(x, off, mask, wt, g,
+                                                    radius)
+    want = dcn_shift.deform_conv_shift_backward_plain(x, off, mask, wt, g,
+                                                      radius)
+    _bwd_close(got, want, dt, ('unaligned', radius, dt))
+
+
+@pytest.mark.parametrize('variant', ['all', 'x without a gradient',
+                                     'bias None'])
+def test_shift_on_the_card_runs_k1_forward_and_backward(cuda, variant):
+    """``'shift'`` (the training lowering) on CUDA tensors under autograd:
+    one K1 forward launch, one backward call, gradients equal to the
+    closed form's on the same inputs (f32, 1e-5 of max|ref|); a leaf that
+    asks for no gradient gets none."""
+    x, off, mask, wt, g = _bwd_inputs((2, 10, 12, 16, 8), torch.float32,
+                                      cuda, 1, 'at +-r')
+    bias = None if variant == 'bias None' else \
+        torch.randn(8, device=cuda, requires_grad=True)
+    leaves = [x, off, mask, wt]
+    for t in leaves:
+        t.requires_grad_(not (t is x and variant == 'x without a gradient'))
+    f0, b0 = dcn_shift.launches, dcn_shift.backward_launches
+    out = modulated_deform_conv(x, off, mask, wt, bias, gather_mode='shift',
+                                shift_radius=1)
+    assert out.grad_fn.name() == 'DeformConvShiftBackward'
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (dcn_shift.launches - f0, dcn_shift.backward_launches - b0) == \
+        (1, 1)
+    want = dcn_shift.deform_conv_shift_backward_plain(
+        x.detach(), off.detach(), mask.detach(), wt.detach(), g, 1)
+    if variant == 'x without a gradient':
+        assert x.grad is None
+    got = [x.grad if x.grad is not None else want[0], off.grad, mask.grad,
+           wt.grad, bias.grad if bias is not None else want[4]]
+    _bwd_close(got, want, torch.float32, variant)
+
+
+def test_shift_on_the_card_takes_no_plain_path(cuda):
+    """A CUDA ``'shift'`` or ``'hybrid'`` call the kernel does not take
+    raises instead of running the plain expansion."""
+    a = _inputs(1, 4, 4, 8, 8, torch.float32, cuda)
+    for mode in ('shift', 'hybrid'):
+        with pytest.raises(ValueError):
+            modulated_deform_conv(*a, gather_mode=mode, shift_radius=3)
+        with pytest.raises(TypeError):
+            modulated_deform_conv(a[0].half(), *a[1:], gather_mode=mode,
+                                  shift_radius=1)
+
+
 def _convgn_inputs(n, h, w, cin, cout, dt, dev, seed=0):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(n, h, w, cin, generator=g)

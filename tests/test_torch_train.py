@@ -408,7 +408,11 @@ def test_optimizer_updates_match_jax(trees):
 def jax_step(trees):
     """One JAX make_train_step from the seeded tree: the metrics, and the
     params, batch stats and momentum after it as the port's keys."""
-    jmodel, tree = trees
+    return run_jax_step(*trees)
+
+
+def run_jax_step(jmodel, tree):
+    """``jax_step`` for any model and tree of TRAIN_MODEL's shapes."""
     params = jax.tree_util.tree_map(jnp.asarray, tree['params'])
     stats = jax.tree_util.tree_map(jnp.asarray, tree['batch_stats'])
     tx_init, tx_update = jts.make_optimizer(
@@ -444,12 +448,21 @@ def test_train_step_matches_jax(trees, jax_step):
     largest update. A fault moves a leaf by the order of the leaf. The
     parameters then agree to the update's tolerance plus one f32
     rounding."""
-    _, tree = trees
+    step_matches_jax(TRAIN_MODEL, trees[1], jax_step)
+
+
+def step_matches_jax(model_cfg, tree, jax_step, prepare=None):
+    """The body of ``test_train_step_matches_jax`` for ``model_cfg`` (of
+    TRAIN_MODEL's shapes) from ``tree``, against ``run_jax_step``'s
+    result; ``prepare(model)``, where given, runs once the weights are
+    loaded."""
     jm, jsd, jmom = jax_step
-    model = build_trainable_model(TRAIN_MODEL, device='cpu')
+    model = build_trainable_model(model_cfg, device='cpu')
     model.load_state_dict(state_dict_from_flax(tree['params'],
                                                tree['batch_stats']),
                           strict=True)
+    if prepare is not None:
+        prepare(model)
     first = {k: v.clone() for k, v in model.state_dict().items()}
     tx_init, tx_update = make_optimizer(
         model, make_lr_fn(2e-3), frozen_prefixes=mspn_frozen_prefixes(1))
