@@ -21,7 +21,10 @@ any failure exits nonzero and prints no result:
    bit, and timed beside the WMMA pass it took the place of; its backward,
    every output against the closed form at small f32 and bf16 shapes with
    offsets all 0, exactly +-r and generic, and at the four train levels,
-   timed beside the closed form and its bound), ``conv_gn``
+   timed beside the closed form and its bound; its tiled pass's tile equal
+   to the lane pass's and its dx the same bits, run to run and as the lane
+   pass's, and the two passes' tap kernels and the dx kernel they share
+   timed side by side with their bytes bound), ``conv_gn``
    (K2, also against the unfused cuDNN conv + GroupNorm + relu),
    ``oks_nms`` (K3: the keep mask bit for bit, with and without
    ``max_keep``, also where M is no multiple of 64 or below 64), and K4:
@@ -47,7 +50,8 @@ any failure exits nonzero and prints no result:
    bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
    with the counts set to 0 just before and read just after (12 row
    gathers and 12 adjoint launches per step, 16 K1 forward and 16 K1
-   backward, no plain shift expansion); then that
+   backward, all 16 on its tiled pass and timed inside each step by CUDA
+   events, no plain shift expansion); then that
    step's gradient pass, full depth, in bf16 and in f32, with K4 (each
    launch also held against the plain version on its own inputs) and with
    the plain pair in its place on the card, gradients compared leaf by
@@ -491,20 +495,26 @@ def dcn_backward_vs_plain():
     """K1's backward, ``deform_conv_shift_backward_cuda`` (the two products
     and one library call of the tap and dx kernels), against the closed form
     ``deform_conv_shift_backward_plain`` on the same inputs: small f32 and
-    bf16 shapes (Cin 8 and 128, r=1,2, offsets all 0, exactly +-r, within
-    an ulp of those, and generic; Cin 6 and an x one element off 16-byte
-    alignment, which take the kernels' one-element-a-lane instantiation),
-    then bf16 at the four levels of the B=4
-    640x1344 train step, timed beside the closed form and the bound. f32
-    within 1e-5 of max|ref|; bf16 within 2^-7 of max|ref|: both sides take
-    U from one product and the tile as the forward rounds it, and reduce in
-    f32 in other orders, so a bf16 output can round to the neighbouring
-    value.
+    bf16 shapes (Cin 8, 64 and 128, r=1,2, offsets all 0, exactly +-r,
+    within an ulp of those, and generic; Cin 6 and an x one element off
+    16-byte alignment, which take the lane kernels' one-element-a-lane
+    instantiation), then bf16 at the four levels of the B=4 640x1344 train
+    step, timed beside the closed form and the bound. bf16 with Cin a
+    multiple of 64 takes the tiled pass (the patch-staged tap kernel and
+    the dx kernel that both passes share), the rest the lane pass; where
+    the tiled pass runs, its tile is held equal to the lane pass's value
+    for value and its dx to the same bits in two runs and in the lane pass,
+    and the tap kernels of both passes and the dx kernel are timed side by
+    side with their bytes bound. f32 within 1e-5 of max|ref|; bf16 within 2^-7 of max|ref|: both
+    sides take U from one product and the tile as the forward rounds it,
+    and reduce in f32 in other orders, so a bf16 output can round to the
+    neighbouring value.
     Returns the dcn_shift_backward entry of the kernel table."""
     import torch
     from das_tpu_torch.ops import dcn_shift
     gen = torch.Generator().manual_seed(11)
     names = ('dx', 'doffset', 'dmask', 'dweight', 'dbias')
+    fn = dcn_shift.LIB.load().dcn_shift_backward_pass
 
     def inputs(n, h, w, cin, cout, dt, r, case):
         x = torch.randn(n, h, w, cin, generator=gen)
@@ -529,14 +539,21 @@ def dcn_backward_vs_plain():
         return (x.cuda().to(dt), off.cuda(), mask.cuda().to(dt),
                 wt.cuda().to(dt), g.cuda().to(dt))
 
+    def takes_tiled(x):
+        return x.dtype == torch.bfloat16 and x.shape[-1] % 64 == 0 \
+            and x.data_ptr() % 16 == 0
+
     def held(a, r, what):
         """(max err / max|ref|, max abs err) over the five outputs."""
-        before = dcn_shift.backward_launches
+        before = (dcn_shift.backward_launches,
+                  dcn_shift.backward_tiled_launches)
         got = dcn_shift.deform_conv_shift_backward_cuda(*a, r)
         want = dcn_shift.deform_conv_shift_backward_plain(*a, r)
         torch.cuda.synchronize()
-        check(dcn_shift.backward_launches == before + 1,
-              ('K1 backward launches', what))
+        check((dcn_shift.backward_launches,
+               dcn_shift.backward_tiled_launches) ==
+              (before[0] + 1, before[1] + takes_tiled(a[0])),
+              ('K1 backward launches (all, tiled)', what))
         tol = 1e-5 if a[0].dtype == torch.float32 else BF16_STEP
         worst, worst_abs = 0.0, 0.0
         for name, g, w in zip(names, got, want):
@@ -549,6 +566,51 @@ def dcn_backward_vs_plain():
             worst, worst_abs = max(worst, err / scale), max(worst_abs, err)
         return worst, worst_abs
 
+    def library(a, r, lanes, outputs=('tile', 'doffset', 'dmask', 'dx')):
+        """(call, outputs): one library call of the kernels on the tiled
+        (lanes=0) or the lane pass on x, offset, mask and U = G W^T; the
+        outputs not named are not asked for."""
+        x, off, mask, wt, g = a
+        n, h, w, cin = x.shape
+        cout = wt.shape[-1]
+        P = n * h * w
+        u = g.reshape(P, cout) @ wt.reshape(9 * cin, cout).t()
+        out = dict(tile=torch.empty(P, 9 * cin, dtype=x.dtype,
+                                    device='cuda'),
+                   doffset=torch.empty(n, h, w, 18, device='cuda'),
+                   dmask=torch.empty_like(mask), dx=torch.empty_like(x))
+        ptr = [out[k].data_ptr() if k in outputs else None
+               for k in ('tile', 'doffset', 'dmask', 'dx')]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            check(fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
+                     u.data_ptr(), *ptr, n, h, w, cin, r, 1, lanes, None,
+                     stream) == 0, ('K1 backward library call', lanes))
+        return call, out
+
+    def against_lanes(a, r, what):
+        """The tiled pass's tile equal to the lane pass's in value, its dx
+        the same bits in two runs and in the lane pass, its dmask and
+        doffset within 2^-7 and 1e-5 of max|lanes|."""
+        runs = []
+        for lanes in (0, 0, 1):
+            call, out = library(a, r, lanes)
+            call()
+            runs.append(out)
+        torch.cuda.synchronize()
+        tiled, again, lanes = runs
+        check(torch.equal(tiled['tile'], lanes['tile']),
+              ('K1 backward tiled tile != lanes', what))
+        for other, label in ((again, 'run to run'), (lanes, 'lanes')):
+            check(torch.equal(tiled['dx'].view(torch.int16),
+                              other['dx'].view(torch.int16)),
+                  ('K1 backward tiled dx bits', label, what))
+        for k, tol in (('doffset', 1e-5), ('dmask', BF16_STEP)):
+            err = (tiled[k].float() - lanes[k].float()).abs().max().item()
+            check(err <= tol * lanes[k].float().abs().max().item(),
+                  ('K1 backward tiled vs lanes', k, what, err))
+
     def unaligned(t):
         """``t``'s values in a contiguous tensor one element past a
         16-byte boundary."""
@@ -556,57 +618,66 @@ def dcn_backward_vs_plain():
                         device=t.device)[1:].view(t.shape)
         return v.copy_(t)
 
-    worst = {}
+    worst, tiled_worst = {}, 0.0
     for dt in (torch.float32, torch.bfloat16):
         worst[dt] = 0.0
-        # Cin 6 and the unaligned x take one element a lane
+        # Cin 6 and the unaligned x take the lanes' one element a lane;
+        # bf16 at Cin 64 and 128 the tiled pass
         for shape in [(2, 9, 7, 8, 16), (2, 13, 21, 128, 192),
-                      (2, 9, 7, 6, 16)]:
+                      (2, 9, 7, 6, 16), (2, 13, 21, 64, 64)]:
             for r in (1, 2):
                 for case in ('zero', 'at +-r', 'next to the kinks',
                              'generic'):
-                    worst[dt] = max(worst[dt], held(
-                        inputs(*shape, dt, r, case), r,
-                        (shape, dt, r, case))[0])
+                    a = inputs(*shape, dt, r, case)
+                    rel = held(a, r, (shape, dt, r, case))[0]
+                    worst[dt] = max(worst[dt], rel)
+                    if takes_tiled(a[0]):
+                        tiled_worst = max(tiled_worst, rel)
+                        against_lanes(a, r, (shape, r, case))
         for r in (1, 2):
             x, *rest = inputs(2, 9, 7, 8, 16, dt, r, 'generic')
             x = unaligned(x)
             check(x.data_ptr() % 16 != 0, 'an unaligned x')
             worst[dt] = max(worst[dt], held((x, *rest), r,
                                             ('unaligned x', dt, r))[0])
-    phase('kernel', f'dcn_shift backward at small shapes (Cin 8, 128 and '
-          f'6, Cout 16 and 192, r=1,2, offsets all 0, exactly +-r, within '
-          f'an ulp of those and generic; an x off 16-byte alignment): dx, '
-          f'doffset, dmask, dweight and dbias against the closed form, max '
-          f'err / max|ref| {worst[torch.float32]:.3g} f32 (<= 1e-5), '
-          f'{worst[torch.bfloat16]:.3g} bf16 (<= 2^-7, one rounding step '
-          f'of a bf16 output) ok')
+    phase('kernel', f'dcn_shift backward at small shapes (Cin 8, 128, 6 '
+          f'and 64, Cout 16, 192 and 64, r=1,2, offsets all 0, exactly +-r,'
+          f' within an ulp of those and generic; an x off 16-byte '
+          f'alignment): dx, doffset, dmask, dweight and dbias against the '
+          f'closed form, max err / max|ref| {worst[torch.float32]:.3g} f32 '
+          f'(<= 1e-5), {worst[torch.bfloat16]:.3g} bf16 (<= 2^-7, one '
+          f'rounding step of a bf16 output), of which the tiled pass (bf16,'
+          f' Cin 64 and 128) {tiled_worst:.3g}; the tiled tile == the lane '
+          f'pass\'s, its dx the same bits in two runs and in the lane pass '
+          f'ok')
 
-    fn = dcn_shift.LIB.load().dcn_shift_backward
-    stream = torch.cuda.current_stream().cuda_stream
-    entry, total, total_plain, total_kernels = None, 0.0, 0.0, 0.0
+    entry, total, total_plain = None, 0.0, 0.0
+    total_kernels, total_lanes = 0.0, 0.0
     for lvl, (h, w) in enumerate(TRAIN_LEVELS):
         a = inputs(4, h, w, 256, 256, torch.bfloat16, 1, 'generic')
         rel, err = held(a, 1, f'level {lvl}')
+        against_lanes(a, 1, f'level {lvl}')
         x, off, mask, wt, g = a
         P = 4 * h * w
         g2 = g.reshape(P, 256)
         w2 = wt.reshape(9 * 256, 256)
-        u = g2 @ w2.t()
         tile = torch.empty(P, 9 * 256, dtype=torch.bfloat16, device='cuda')
-        doff = torch.empty(4, h, w, 18, device='cuda')
-        dmask = torch.empty_like(mask)
-        dx = torch.empty_like(x)
-
-        def kernels():
-            check(fn(x.data_ptr(), off.data_ptr(), mask.data_ptr(),
-                     u.data_ptr(), tile.data_ptr(), doff.data_ptr(),
-                     dmask.data_ptr(), dx.data_ptr(), 4, h, w, 256, 1, 1,
-                     stream) == 0, 'K1 backward launch')
         iters = 5 if lvl == 0 else 20
         ms = cuda_ms(lambda: dcn_shift.deform_conv_shift_backward_cuda(
             *a, 1), iters)
-        kernels_ms = cuda_ms(kernels, iters)
+        # each pass's kernels together and its tap kernel alone, in turns:
+        # tiled, lanes, lanes, tiled; the dx kernel, which both passes
+        # share, alone on the lane turns
+        kms = {}
+        for lanes in (0, 1, 1, 0):
+            for part, outs in (('both', ('tile', 'doffset', 'dmask', 'dx')),
+                               ('tap', ('tile', 'doffset', 'dmask')),
+                               ('dx', ('dx',)))[:2 + lanes]:
+                call, _ = library(a, 1, lanes, outs)
+                kms.setdefault((lanes, part), []).append(cuda_ms(call,
+                                                                 iters))
+                del call, _
+        km = {k: min(v) for k, v in kms.items()}
         u_ms = cuda_ms(lambda: g2 @ w2.t(), iters)
         dw_ms = cuda_ms(lambda: tile.t() @ g2, iters)
         plain_ms = cuda_ms(lambda: dcn_shift.deform_conv_shift_backward_plain(
@@ -615,20 +686,37 @@ def dcn_backward_vs_plain():
                                           PEAK_BF16_FLOPS)
         # the kernels' own compulsory bytes: U read and the tile written
         # (P x 9 x 256), x read and dx written, the offsets, mask and their
-        # gradients
+        # gradients; the tap kernel's alone (U, x, offsets and mask read;
+        # the tile, doffset and dmask written) and the dx kernel's (U,
+        # offsets and mask read, dx written)
         kbound, kby = bound_ms(0.0, PEAK_F32_FLOPS,
                                2 * (2 * P * 9 * 256 + 2 * P * 256 + 2 * P * 9)
                                + 2 * 4 * P * 18)
-        del u, tile
+        tap_bound = bound_ms(0.0, PEAK_F32_FLOPS,
+                             2 * (2 * P * 9 * 256 + P * 256 + 2 * P * 9)
+                             + 2 * 4 * P * 18)[0]
+        dx_bound = bound_ms(0.0, PEAK_F32_FLOPS,
+                            2 * (P * 9 * 256 + P * 256 + P * 9)
+                            + 4 * P * 18)[0]
+        del tile
         phase('kernel', f'dcn_shift backward level {lvl} 4x{h}x{w}x256 '
-              f'bf16 r=1: {ms:.4f} ms (U = G W^T {u_ms:.4f} ms, the tap '
-              f'and dx kernels {kernels_ms:.4f} ms against their bound '
-              f'{kbound:.4f} ms ({kby}), dW = A^T G {dw_ms:.4f} ms), '
-              f'closed form {plain_ms:.4f} ms, bound {bound:.4f} ms ({by});'
-              f' max err / max|ref| {rel:.3g} (<= 2^-7)')
+              f'bf16 r=1: {ms:.4f} ms (U = G W^T {u_ms:.4f} ms, the tiled '
+              f'tap kernel and the dx kernel {km[0, "both"]:.4f} ms (tap '
+              f'{km[0, "tap"]:.4f}, dx {km[1, "dx"]:.4f}) against the lane '
+              f'pair\'s {km[1, "both"]:.4f} (tap {km[1, "tap"]:.4f}) and '
+              f'their bytes bound {kbound:.4f} ms '
+              f'({kby}; tap {tap_bound:.4f}, dx {dx_bound:.4f}), dW = A^T G '
+              f'{dw_ms:.4f} ms), closed form {plain_ms:.4f} ms, bound '
+              f'{bound:.4f} ms ({by}); max err / max|ref| {rel:.3g} (<= '
+              f'2^-7); tiled tile == lanes\', dx the same bits (two runs, '
+              f'lanes); the least of two turns each, tiled, lanes, lanes, '
+              f'tiled: ' + ', '.join(
+                  f'{"lanes" if k[0] else "tiled"} {k[1]} '
+                  + '/'.join(f'{t:.4f}' for t in v) for k, v in kms.items()))
         total += 4 * ms
         total_plain += 4 * plain_ms
-        total_kernels += 4 * kernels_ms
+        total_kernels += 4 * km[0, 'both']
+        total_lanes += 4 * km[1, 'both']
         if lvl == 0:
             entry = dict(
                 name='dcn_shift_backward', route='cuda',
@@ -638,15 +726,20 @@ def dcn_backward_vs_plain():
                          'das_tpu/ops/deform_conv.py:111)',
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by, library_ms=None,
-                kernels_ms=kernels_ms, kernels_bound_ms=kbound,
-                products_ms=u_ms + dw_ms, shape=f'4x{h}x{w}x256 bf16 r=1')
+                kernels_ms=km[0, 'both'], tap_ms=km[0, 'tap'],
+                dx_ms=km[1, 'dx'], lanes_kernels_ms=km[1, 'both'],
+                lanes_tap_ms=km[1, 'tap'],
+                kernels_bound_ms=kbound, tap_bound_ms=tap_bound,
+                dx_bound_ms=dx_bound, products_ms=u_ms + dw_ms,
+                shape=f'4x{h}x{w}x256 bf16 r=1')
         torch.cuda.empty_cache()
     # a reckoning from one call a level, not a step's measurement: the
     # train phase times the 16 calls inside a real step
     phase('kernel', f'dcn_shift backward, 4 x each level\'s one timed call '
           f'summed over the levels (a train step makes 4 a level, r=1): '
-          f'{total:.4f} ms, of which the tap and dx kernels '
-          f'{total_kernels:.4f} ms; closed form {total_plain:.4f} ms')
+          f'{total:.4f} ms, of which the tiled tap kernel and the dx kernel '
+          f'{total_kernels:.4f} ms (the lane pair {total_lanes:.4f}); '
+          f'closed form {total_plain:.4f} ms')
     return entry
 
 
@@ -1559,6 +1652,7 @@ def train_full_width(steps=5):
     torch.cuda.reset_peak_memory_stats()
     gather.launches = gather.backward_launches = 0
     dcn_shift.launches = dcn_shift.backward_launches = 0
+    dcn_shift.backward_tiled_launches = 0
     times = []
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     plain_shift = deform_conv._deform_conv_shift
@@ -1573,6 +1667,7 @@ def train_full_width(steps=5):
         for i in range(steps):
             f0, b0 = gather.launches, gather.backward_launches
             k0, kb0 = dcn_shift.launches, dcn_shift.backward_launches
+            kt0 = dcn_shift.backward_tiled_launches
             spans.clear()
             torch.cuda.synchronize()
             ev[0].record()
@@ -1585,19 +1680,24 @@ def train_full_width(steps=5):
             m = {k: float(v) for k, v in metrics.items()}
             fwd, bwd = gather.launches - f0, gather.backward_launches - b0
             k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
+            k1_tiled = dcn_shift.backward_tiled_launches - kt0
             check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
             check(fwd == K4_PER_STEP and bwd == K4_PER_STEP,
                   ('train K4 launches', i, fwd, bwd))
             check(k1 == (K1_PER_STEP, K1_PER_STEP) and plain_calls[0] == 0,
                   ('train K1 launches, plain shift calls', i, k1,
                    plain_calls[0]))
+            # every backward call of the step takes the tiled pass
+            check(k1_tiled == K1_PER_STEP,
+                  ('train K1 backward calls on the tiled pass', i, k1_tiled))
             phase('train', f'step {i}: ' + ', '.join(
                 f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} '
                 f'ms (CUDA events), of which K1\'s {len(spans)} backward '
                 f'calls {k1_bwd_ms[-1]:.2f} ms (CUDA events around each '
                 f'call, summed); K4 launches {fwd} forward + {bwd} '
-                f'backward; K1 {k1[0]} forward + {k1[1]} backward, no plain '
-                f'shift expansion')
+                f'backward; K1 {k1[0]} forward + {k1[1]} backward, '
+                f'{k1_tiled} of them on the tiled pass, no plain shift '
+                f'expansion')
     finally:
         deform_conv._deform_conv_shift = plain_shift
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1616,13 +1716,20 @@ def train_full_width(steps=5):
           f'unchanged bit for bit; {moved} of {int(sum(trainable.values()))}'
           f' trainable tensors moved; K4 launches {gather.launches} forward'
           f' + {gather.backward_launches} backward; K1 {dcn_shift.launches}'
-          f' forward + {dcn_shift.backward_launches} backward')
+          f' forward + {dcn_shift.backward_launches} backward, '
+          f'{dcn_shift.backward_tiled_launches} of them on the tiled pass; '
+          f'K1\'s backward calls summed in each step (CUDA events) '
+          + ', '.join(f'{b:.2f} of {t:.2f} ms' for b, t in zip(k1_bwd_ms,
+                                                               times)))
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
     return (gather.launches, gather.backward_launches), \
         (dcn_shift.launches, dcn_shift.backward_launches), dict(
         model=model, cfg=cfg, batch=host_batch, featmaps=featmaps,
-        max_pos=max_pos, median_ms=float(np.median(times)))
+        max_pos=max_pos, median_ms=float(np.median(times)),
+        k1_tiled=dcn_shift.backward_tiled_launches,
+        k1_in_step_ms=[float(b) for b in k1_bwd_ms],
+        step_ms=[float(t) for t in times])
 
 
 def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
@@ -2753,6 +2860,7 @@ def trainrun(eval_data, synthetic_median, smi):
               (gather, 'backward_launches'): 0,
               (gather, 'sampler_launches'): (8, K4_SAMPLES[1])}
     counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
+              (dcn_shift, 'backward_tiled_launches'),
               (oks_nms, 'launches'), (gather, 'launches'),
               (gather, 'backward_launches'), (gather, 'sampler_launches')]
     for mod, attr in counts:
@@ -3762,6 +3870,9 @@ def main():
     k1['launches'] = n1['dcn_shift.launches'] + n2['dcn_shift.launches'] \
         + k1_fwd
     k1b['launches'] = k1_bwd
+    k1b['tiled_launches'] = run['k1_tiled']
+    k1b['in_step_ms'] = run['k1_in_step_ms']
+    k1b['step_ms'] = run['step_ms']
     k2['launches'] = n2['conv_gn.launches']
     k3['launches'] = n1['oks_nms.launches'] + n2['oks_nms.launches']
     k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + fwd
@@ -3778,6 +3889,11 @@ def main():
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     k1['launches'] += n8['dcn_shift.launches']
     k1b['launches'] += n8['dcn_shift.backward_launches']
+    k1b['tiled_launches'] += n8['dcn_shift.backward_tiled_launches']
+    check(n8['dcn_shift.backward_tiled_launches']
+          == n8['dcn_shift.backward_launches'],
+          ('the training entry point\'s K1 backward calls off the tiled '
+           'pass', n8))
     k3['launches'] += n8['oks_nms.launches']
     k4['launches'] += n8['gather.launches']
     k4b['launches'] += n8['gather.backward_launches']

@@ -10,6 +10,10 @@
 // contracted with W_k (Cin x Cout). The nine contractions accumulate in f32;
 // the sum is cast to x's type and the bias is added in x's type.
 //
+// The backward (below the forward passes) has a lane pass and, for bf16
+// with 64 | Cin, a tiled pass: a patch-staged tap kernel beside the lane
+// pass's dx kernel; see there.
+//
 // Only the 2x2 corners around the clamped point have a nonzero hat weight,
 // so the kernels read those four, in window order, and round as the plain
 // version does: each hat weight, product and partial sum to x's type, with
@@ -115,6 +119,18 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// Along one axis, the displacement of tap place kp's sample from its output
+// pixel: the offset clamped to [-r, r], plus kp - 1. Every kernel takes the
+// displacement and the hat weights from these two, which round as the plain
+// version does.
+__device__ __forceinline__ float shifted(float o, float r, int kp) {
+  return __fadd_rn(fminf(fmaxf(o, -r), r), (float)(kp - 1));
+}
+// The hat weight max(0, 1 - |t|) of a pixel at t = i - d from the sample.
+__device__ __forceinline__ float hat_w(float t) {
+  return fmaxf(0.f, 1.f - fabsf(t));
+}
+
 // Element e of 8 bf16 values held in a 16-byte load, as f32.
 __device__ __forceinline__ float bf16_lane(const uint4& q, int e) {
   const uint32_t w = e < 2 ? q.x : e < 4 ? q.y : e < 6 ? q.z : q.w;
@@ -159,15 +175,15 @@ __device__ __forceinline__ void build_meta(TapMeta& meta, const float* offset,
   const float oy = offset[(size_t)gp * (2 * KK) + 2 * k];
   const float ox = offset[(size_t)gp * (2 * KK) + 2 * k + 1];
   // clamped displacement of the tap from the output pixel
-  const float dy = __fadd_rn(fminf(fmaxf(oy, -r), r), (float)(kh - 1));
-  const float dx = __fadd_rn(fminf(fmaxf(ox, -r), r), (float)(kw - 1));
+  const float dy = shifted(oy, r, kh);
+  const float dx = shifted(ox, r, kw);
   const float fy = floorf(dy), fx = floorf(dx);
   // hat weights as the plain version writes them: max(0, 1 - |i - d|)
   float wy[2], wx[2];
 #pragma unroll
   for (int a = 0; a < 2; ++a) {
-    wy[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fy + (float)a, dy)));
-    wx[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fx + (float)a, dx)));
+    wy[a] = hat_w(__fsub_rn(fy + (float)a, dy));
+    wx[a] = hat_w(__fsub_rn(fx + (float)a, dx));
   }
   const int y0 = py + (int)fy, x0 = px + (int)fx;
 #pragma unroll
@@ -377,6 +393,23 @@ __device__ __forceinline__ uint32_t bf16_bits(float v) {
 // Two channels of the modulated tap from the four corners' values: window
 // order, each product and partial sum rounded to bf16 (packed, never fused),
 // then times the mask. The sum starts from +0 as the plain version's does.
+// tap_sum2 is the same before the mask (the tap tile T of the backward).
+__device__ __forceinline__ uint32_t tap_sum2(uint32_t x00, uint32_t x01,
+                                             uint32_t x10, uint32_t x11,
+                                             __nv_bfloat162 w00,
+                                             __nv_bfloat162 w01,
+                                             __nv_bfloat162 w10,
+                                             __nv_bfloat162 w11) {
+  __nv_bfloat162 v = __hadd2_rn(as_bf162(0u), __hmul2_rn(as_bf162(x00), w00));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x01), w01));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x10), w10));
+  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x11), w11));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ uint32_t mul2(uint32_t v, __nv_bfloat162 m) {
+  const __nv_bfloat162 p = __hmul2_rn(as_bf162(v), m);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
 __device__ __forceinline__ uint32_t tap2(uint32_t x00, uint32_t x01,
                                          uint32_t x10, uint32_t x11,
                                          __nv_bfloat162 w00,
@@ -384,12 +417,7 @@ __device__ __forceinline__ uint32_t tap2(uint32_t x00, uint32_t x01,
                                          __nv_bfloat162 w10,
                                          __nv_bfloat162 w11,
                                          __nv_bfloat162 m) {
-  __nv_bfloat162 v = __hadd2_rn(as_bf162(0u), __hmul2_rn(as_bf162(x00), w00));
-  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x01), w01));
-  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x10), w10));
-  v = __hadd2_rn(v, __hmul2_rn(as_bf162(x11), w11));
-  v = __hmul2_rn(v, m);
-  return *reinterpret_cast<const uint32_t*>(&v);
+  return mul2(tap_sum2(x00, x01, x10, x11, w00, w01, w10, w11), m);
 }
 
 // One block: the 8 x 16 patch (h0.., w0..) of image n x output channels
@@ -485,15 +513,15 @@ dcn_shift_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
       const float oy = offset[gp * (2 * KK) + 2 * k];
       const float ox = offset[gp * (2 * KK) + 2 * k + 1];
       // clamped displacement of the tap from the output pixel
-      const float dy = __fadd_rn(fminf(fmaxf(oy, -r), r), (float)(k / 3 - 1));
-      const float dx = __fadd_rn(fminf(fmaxf(ox, -r), r), (float)(k % 3 - 1));
+      const float dy = shifted(oy, r, k / 3);
+      const float dx = shifted(ox, r, k % 3);
       const float fy = floorf(dy), fx = floorf(dx);
       // hat weights as the plain version writes them: max(0, 1 - |i - d|)
       float wy[2], wx[2];
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
-        wy[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fy + (float)a, dy)));
-        wx[a] = fmaxf(0.f, 1.f - fabsf(__fsub_rn(fx + (float)a, dx)));
+        wy[a] = hat_w(__fsub_rn(fy + (float)a, dy));
+        wx[a] = hat_w(__fsub_rn(fx + (float)a, dx));
       }
       const int ly = ph + (int)fy + R + 1, lx = pw + (int)fx + R + 1;
       const uint32_t mk = (uint32_t)__bfloat16_as_ushort(mask[gp * KK + k]);
@@ -841,8 +869,8 @@ dcn_shift_bwd_tap_kernel(const T* __restrict__ x,
   const float oy = offset[(size_t)gp * (2 * KK) + 2 * k];
   const float ox = offset[(size_t)gp * (2 * KK) + 2 * k + 1];
   // clamped displacement of the tap from the output pixel, as the forward
-  const float dy = __fadd_rn(fminf(fmaxf(oy, -r), r), (float)(kh - 1));
-  const float dx = __fadd_rn(fminf(fmaxf(ox, -r), r), (float)(kw - 1));
+  const float dy = shifted(oy, r, kh);
+  const float dx = shifted(ox, r, kw);
   const int iy0 = (int)floorf(dy), ix0 = (int)floorf(dx);
   // rows iy0 - 1 .. iy0 + 2 and columns ix0 - 1 .. ix0 + 2 (index 0..3):
   // the hat weights (zero but at index 1 and 2), their slopes inside the
@@ -857,8 +885,8 @@ dcn_shift_bwd_tap_kernel(const T* __restrict__ x,
   for (int a = 0; a < 4; ++a) {
     const int iy = iy0 + a - 1, ix = ix0 + a - 1;
     const float ty = __fsub_rn((float)iy, dy), tx = __fsub_rn((float)ix, dx);
-    wy[a] = fmaxf(0.f, 1.f - fabsf(ty));
-    wx[a] = fmaxf(0.f, 1.f - fabsf(tx));
+    wy[a] = hat_w(ty);
+    wx[a] = hat_w(tx);
     sy[a] = (iy >= kh - 1 - R && iy <= kh + R) ? hat_slope(ty) : 0.f;
     sx[a] = (ix >= kw - 1 - R && ix <= kw + R) ? hat_slope(tx) : 0.f;
     iny |= (unsigned)(py + iy >= 0 && py + iy < H) << a;
@@ -990,13 +1018,10 @@ dcn_shift_bwd_dx_kernel(const float* __restrict__ offset,
     const int py = qy - iy, px = qx - ix;
     if (py < 0 || py >= H || px < 0 || px >= W) continue;
     const size_t gp = ((size_t)n * H + py) * W + px;
-    const float dy = __fadd_rn(
-        fminf(fmaxf(offset[gp * (2 * KK) + 2 * k], -r), r), (float)(kh - 1));
-    const float dxx = __fadd_rn(
-        fminf(fmaxf(offset[gp * (2 * KK) + 2 * k + 1], -r), r),
-        (float)(kw - 1));
-    const float wy = fmaxf(0.f, 1.f - fabsf(__fsub_rn((float)iy, dy)));
-    const float wx = fmaxf(0.f, 1.f - fabsf(__fsub_rn((float)ix, dxx)));
+    const float dy = shifted(offset[gp * (2 * KK) + 2 * k], r, kh);
+    const float dxx = shifted(offset[gp * (2 * KK) + 2 * k + 1], r, kw);
+    const float wy = hat_w(__fsub_rn((float)iy, dy));
+    const float wx = hat_w(__fsub_rn((float)ix, dxx));
     coef[i] = __fmul_rn(__fmul_rn(wy, wx), to_f(mask[gp * KK + k]));
     urow[i] = (gp * KK + k) * Cin;
   }
@@ -1024,6 +1049,342 @@ dcn_shift_bwd_dx_kernel(const float* __restrict__ offset,
       }
     }
     if (c < Cin) L::store(dx + (size_t)q * Cin + c, acc);
+  }
+}
+
+// ---- the backward on Hopper: a patch-staged tap kernel ---------------------
+//
+// The lane tap kernel above reads everything through L2: each input pixel is
+// fetched by ~36 warps. At train level 0 (4 x 160 x 336 x 256 bf16, r=1) it
+// took 3.37 ms against the 0.64 ms that its compulsory bytes take at 3.35
+// TB/s (NVIDIA H100 80GB HBM3, 700 W). The kernel below (bf16, 64 | Cin,
+// 16-byte aligned x, U, tile and dx: the train step's calls) stages what a
+// block shares in shared memory by TMA, as the forward's wgmma pass does,
+// and reads U once: 1.03 ms there. The tiled pass pairs it with the lane dx
+// kernel (0.54 ms there).
+//
+// One block an 8 x 16 patch of one image, 1152 (pixel, tap) pairs.
+//   * Once a block, per pair, into shared memory: the forward's 16 bytes
+//     (the top-left corner's byte offset in the halo'd patch, the four hat
+//     weights rounded to bf16, the mask), which of the 4 x 4 neighbourhood's
+//     extra rows and columns the slopes read, and for the derivative the hat
+//     weights of the two corner rows and columns (f32) and the eight slopes
+//     (JAX's values at the kinks, 0, +-1/2 or +-1: exact in bf16).
+//   * Per 64-channel slice, x's halo'd patch arrives by one TMA box, the
+//     forward's, into one of two buffers; outside the image it reads zeros.
+//     The rows and columns read for a slope lie in the tap's window
+//     kh-1-R .. kh+R, inside the halo's -(R+1) .. R+2.
+//   * Per slice and patch row, U's 16 pixels x 9 taps x 64 channels (18 KB,
+//     one box of a 5-D map over (N, H, W, 9, Cin)) arrive in a ring.
+//   * 18 consumer warps, eight threads of 16 bytes a pair, two pairs a
+//     thread side by side: the tile from the four corners as the forward
+//     builds it (packed bf16, window order, from +0, times the mask),
+//     stored as 128-byte rows; the channel sums U.T (dmask) and U.x of every
+//     corner or extra pixel read, the latter combined with the hat weights
+//     and slopes once a slice (the slope terms); reduced by three shuffles,
+//     carried across slices in f32 in shared memory, written by the last
+//     slice. (At train level 0, 12 warps of three pairs took 1.136 ms, 18
+//     of two 1.034: the kernel waits on its chains of shared loads.)
+//   * One producer warp keeps the TMA loads in flight.
+// Where the lane kernel skips a corner outside the image, TMA's zero adds
+// +0: only the sign of a zero sum can change, and the tile compares equal.
+// At train level 3 (36 patches on 132 SMs) it is slower than the lane tap
+// kernel (0.077 against 0.054 ms); all levels take it all the same, so that
+// every call of a train step runs one pass (PERF.md, section 6).
+// A tiled dx kernel (U_k's rows of the patch grown by the window staged by
+// TMA, per-(q, tap) bits of the live candidates) was slower than the lane dx
+// kernel at every train level (1.06 against 0.54 ms at level 0) and went.
+
+constexpr int TAP_CONSUMERS = 576;               // 18 consumer warps
+constexpr int TAP_THREADS = TAP_CONSUMERS + 32;  // and one producer warp
+constexpr int ROW_PAIRS = TW * KK;               // (pixel, tap) pairs a row
+constexpr int PAIRS = TH * ROW_PAIRS;            // ... a block: 1152
+constexpr int U_ROW_BYTES = ROW_PAIRS * TK * 2;  // 18 KB
+constexpr int PAIR_TASKS = ROW_PAIRS * 8 / TAP_CONSUMERS;   // 2 a thread
+
+__host__ __device__ constexpr int tap_stages(int r) { return r == 1 ? 4 : 3; }
+constexpr int tap_smem_bytes(int r) {
+  // 128 to align, two patch slices, the U ring, the metadata (16 + 32 bytes
+  // a pair), the f32 sums (3 a pair), the barriers
+  return 128 + 2 * patch_bytes(r) + tap_stages(r) * U_ROW_BYTES + PAIRS * 48 +
+         PAIRS * 12 + (4 + 2 * tap_stages(r)) * 8;
+}
+
+static_assert(PAIR_TASKS * TAP_CONSUMERS == ROW_PAIRS * 8,
+              "every (pair, 16 bytes) has one thread");
+
+__device__ __forceinline__ uint4 ld16(const uint8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ float lo_f(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// sum_i u_i x_i over the 8 channels of a 16-byte piece of a row, in f32
+__device__ __forceinline__ float dot8(const uint4& u, const uint4& x) {
+  float d = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d = fmaf(bf16_lane(u, i), bf16_lane(x, i), d);
+  return d;
+}
+
+template <int R>
+__global__ void __launch_bounds__(TAP_THREADS, 1)
+dcn_shift_bwd_tap_tiled_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap umap,
+                               const float* __restrict__ offset,
+                               const __nv_bfloat16* __restrict__ mask,
+                               __nv_bfloat16* __restrict__ tile,
+                               float* __restrict__ doffset,
+                               __nv_bfloat16* __restrict__ dmask, int H,
+                               int W, int Cin, int tiles_w, int tiles,
+                               int has_u) {
+  constexpr int PW = patch_w(R);
+  constexpr int PATCH = patch_bytes(R);
+  constexpr int STAGES = tap_stages(R);
+  constexpr int PIX = TK * 2;                    // a pixel's bytes a slice
+  constexpr int ROW = PW * PIX;                  // a patch row's
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 127) & ~uintptr_t(127));
+  uint8_t* patches = smem;
+  uint8_t* urows = patches + 2 * PATCH;
+  uint4* meta = reinterpret_cast<uint4*>(urows + STAGES * U_ROW_BYTES);
+  uint4* slopes = meta + PAIRS;                  // two a pair
+  float* sums = reinterpret_cast<float*>(slopes + 2 * PAIRS);   // three
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sums + 3 * PAIRS);
+  const uint32_t xfull = smem_u32(bars), xempty = xfull + 2 * 8;
+  const uint32_t ufull = xempty + 2 * 8, uempty = ufull + STAGES * 8;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = blockIdx.x / tiles, tl = blockIdx.x % tiles;
+  const int h0 = (tl / tiles_w) * TH, w0 = (tl % tiles_w) * TW;
+  const int nsl = Cin / TK;
+  const float r = (float)R;
+
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(xfull + s * 8, 1);
+      mbar_init(xempty + s * 8, TAP_CONSUMERS / 32);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(ufull + s * 8, 1);
+      mbar_init(uempty + s * 8, TAP_CONSUMERS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == TAP_CONSUMERS / 32) {      // the producer: x's patch a slice,
+    if (lane == 0) {                     // then U's rows of that slice
+      for (int sl = 0; sl < nsl; ++sl) {
+        const int b = sl % 2;
+        mbar_wait(xempty + b * 8, ((sl / 2) & 1) ^ 1);
+        mbar_expect_tx(xfull + b * 8, PATCH);
+        tma_load_4d(smem_u32(patches + b * PATCH), &xmap, xfull + b * 8,
+                    sl * TK, w0 - (R + 1), h0 - (R + 1), n);
+        if (!has_u) continue;
+        for (int row = 0; row < TH; ++row) {
+          const int it = sl * TH + row, s = it % STAGES;
+          mbar_wait(uempty + s * 8, ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(ufull + s * 8, U_ROW_BYTES);
+          tma_load_5d(smem_u32(urows + s * U_ROW_BYTES), &umap, ufull + s * 8,
+                      sl * TK, 0, w0, h0 + row, n);
+        }
+      }
+    }
+    return;
+  }
+
+  // per pair e = (pixel, tap): the metadata (see above). A pixel outside
+  // the image keeps zero weights and slopes and corners inside the patch.
+  for (int e = tid; e < PAIRS; e += TAP_CONSUMERS) {
+    const int pix = e / KK, k = e - pix * KK;
+    const int ph = pix / TW, pw = pix % TW;
+    const int py = h0 + ph, px = w0 + pw;
+    const int kh = k / 3, kw = k % 3;
+    uint4 md = make_uint4(
+        (uint32_t)(((ph + R + 1) * PW + pw + R + 1) * PIX), 0u, 0u, 0u);
+    uint4 sw = make_uint4(0u, 0u, 0u, 0u), ss = sw;
+    if (py < H && px < W) {
+      const size_t gp = ((size_t)n * H + py) * W + px;
+      const float oy = offset[gp * (2 * KK) + 2 * k];
+      const float ox = offset[gp * (2 * KK) + 2 * k + 1];
+      // clamped displacement of the tap from the output pixel, as the
+      // forward; rows iy0 - 1 .. iy0 + 2 and columns ix0 - 1 .. ix0 + 2,
+      // their weights and slopes as the lane kernel computes them
+      const float dy = shifted(oy, r, kh);
+      const float dx = shifted(ox, r, kw);
+      const int iy0 = (int)floorf(dy), ix0 = (int)floorf(dx);
+      float wy[4], wx[4], sy[4], sx[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int iy = iy0 + a - 1, ix = ix0 + a - 1;
+        const float ty = __fsub_rn((float)iy, dy);
+        const float tx = __fsub_rn((float)ix, dx);
+        wy[a] = hat_w(ty);
+        wx[a] = hat_w(tx);
+        sy[a] = (iy >= kh - 1 - R && iy <= kh + R) ? hat_slope(ty) : 0.f;
+        sx[a] = (ix >= kw - 1 - R && ix <= kw + R) ? hat_slope(tx) : 0.f;
+      }
+      // bit 4 a + b of the 4 x 4 neighbourhood: the corners, and rows 0, 3
+      // (columns 1, 2) or columns 0, 3 (rows 1, 2) where their slope is
+      // not zero
+      uint32_t need = 0x0660u;
+      if (sy[0] != 0.f) need |= 0x0006u;
+      if (sy[3] != 0.f) need |= 0x6000u;
+      if (sx[0] != 0.f) need |= 0x0110u;
+      if (sx[3] != 0.f) need |= 0x0880u;
+      const uint32_t mk = (uint32_t)__bfloat16_as_ushort(mask[gp * KK + k]);
+      md.x = (uint32_t)(((ph + iy0 + R + 1) * PW + pw + ix0 + R + 1) * PIX) |
+             need << 16;
+      md.y = bf16_bits(__fmul_rn(wy[1], wx[1])) |
+             bf16_bits(__fmul_rn(wy[1], wx[2])) << 16;
+      md.z = bf16_bits(__fmul_rn(wy[2], wx[1])) |
+             bf16_bits(__fmul_rn(wy[2], wx[2])) << 16;
+      md.w = mk | mk << 16;
+      sw = make_uint4(__float_as_uint(wy[1]), __float_as_uint(wy[2]),
+                      __float_as_uint(wx[1]), __float_as_uint(wx[2]));
+      ss = make_uint4(bf16_bits(sy[0]) | bf16_bits(sy[1]) << 16,
+                      bf16_bits(sy[2]) | bf16_bits(sy[3]) << 16,
+                      bf16_bits(sx[0]) | bf16_bits(sx[1]) << 16,
+                      bf16_bits(sx[2]) | bf16_bits(sx[3]) << 16);
+    }
+    meta[e] = md;
+    slopes[2 * e] = sw;
+    slopes[2 * e + 1] = ss;
+  }
+  bar_sync(1, TAP_CONSUMERS);
+
+  const int chunk = tid % 8;             // the thread's 16 bytes of a row
+  for (int sl = 0; sl < nsl; ++sl) {
+    const int b = sl % 2;
+    mbar_wait(xfull + b * 8, (sl / 2) & 1);
+    const uint8_t* patch = patches + b * PATCH + chunk * 16;
+    for (int row = 0; row < TH; ++row) {
+      const int it = sl * TH + row, s = it % STAGES;
+      if (has_u) mbar_wait(ufull + s * 8, (it / STAGES) & 1);
+      const uint8_t* urow = urows + s * U_ROW_BYTES + chunk * 16;
+      const int py = h0 + row;
+      // the thread's pairs side by side, so that their loads and their
+      // shuffles are in flight together
+      float sm[PAIR_TASKS], sdy[PAIR_TASKS], sdx[PAIR_TASKS];
+#pragma unroll
+      for (int j = 0; j < PAIR_TASKS; ++j) {
+        const int pk = tid / 8 + (TAP_CONSUMERS / 8) * j;
+        const int pw = pk / KK, k = pk - pw * KK;
+        const int e = row * ROW_PAIRS + pk;
+        const uint4 md = meta[e];
+        const uint8_t* c = patch + (md.x & 0xffffu);
+        const uint4 q11 = ld16(c), q12 = ld16(c + PIX);
+        const uint4 q21 = ld16(c + ROW), q22 = ld16(c + ROW + PIX);
+        const __nv_bfloat162 w11 = as_bf162(__byte_perm(md.y, md.y, 0x1010));
+        const __nv_bfloat162 w12 = as_bf162(__byte_perm(md.y, md.y, 0x3232));
+        const __nv_bfloat162 w21 = as_bf162(__byte_perm(md.z, md.z, 0x1010));
+        const __nv_bfloat162 w22 = as_bf162(__byte_perm(md.z, md.z, 0x3232));
+        uint4 v;                         // T, before the mask
+        v.x = tap_sum2(q11.x, q12.x, q21.x, q22.x, w11, w12, w21, w22);
+        v.y = tap_sum2(q11.y, q12.y, q21.y, q22.y, w11, w12, w21, w22);
+        v.z = tap_sum2(q11.z, q12.z, q21.z, q22.z, w11, w12, w21, w22);
+        v.w = tap_sum2(q11.w, q12.w, q21.w, q22.w, w11, w12, w21, w22);
+        const int px = w0 + pw;
+        if (tile != nullptr && py < H && px < W) {
+          const __nv_bfloat162 mk = as_bf162(md.w);
+          const size_t gp = ((size_t)n * H + py) * W + px;
+          *reinterpret_cast<uint4*>(tile + (gp * KK + k) * Cin + sl * TK +
+                                    chunk * 8) =
+              make_uint4(mul2(v.x, mk), mul2(v.y, mk), mul2(v.z, mk),
+                         mul2(v.w, mk));
+        }
+        sm[j] = sdy[j] = sdx[j] = 0.f;
+        if (!has_u) continue;
+        const uint4 uq = ld16(urow + pk * PIX);
+        const float d11 = dot8(uq, q11), d12 = dot8(uq, q12);
+        const float d21 = dot8(uq, q21), d22 = dot8(uq, q22);
+        const uint32_t need = md.x >> 16;
+        float d01 = 0.f, d02 = 0.f, d31 = 0.f, d32 = 0.f;
+        float d10 = 0.f, d20 = 0.f, d13 = 0.f, d23 = 0.f;
+        if (need & 0x0006u) {
+          d01 = dot8(uq, ld16(c - ROW));
+          d02 = dot8(uq, ld16(c - ROW + PIX));
+        }
+        if (need & 0x6000u) {
+          d31 = dot8(uq, ld16(c + 2 * ROW));
+          d32 = dot8(uq, ld16(c + 2 * ROW + PIX));
+        }
+        if (need & 0x0110u) {
+          d10 = dot8(uq, ld16(c - PIX));
+          d20 = dot8(uq, ld16(c + ROW - PIX));
+        }
+        if (need & 0x0880u) {
+          d13 = dot8(uq, ld16(c + 2 * PIX));
+          d23 = dot8(uq, ld16(c + ROW + 2 * PIX));
+        }
+        // the slope terms: d/ddy sums sy[a] wx[b] x, d/ddx wy[a] sx[b] x
+        const uint4 sw = slopes[2 * e], ss = slopes[2 * e + 1];
+        const float wy1 = __uint_as_float(sw.x), wy2 = __uint_as_float(sw.y);
+        const float wx1 = __uint_as_float(sw.z), wx2 = __uint_as_float(sw.w);
+        sm[j] = dot8(uq, v);
+        sdy[j] = lo_f(ss.x) * (wx1 * d01 + wx2 * d02) +
+                 hi_f(ss.x) * (wx1 * d11 + wx2 * d12) +
+                 lo_f(ss.y) * (wx1 * d21 + wx2 * d22) +
+                 hi_f(ss.y) * (wx1 * d31 + wx2 * d32);
+        sdx[j] = lo_f(ss.z) * (wy1 * d10 + wy2 * d20) +
+                 hi_f(ss.z) * (wy1 * d11 + wy2 * d21) +
+                 lo_f(ss.w) * (wy1 * d12 + wy2 * d22) +
+                 hi_f(ss.w) * (wy1 * d13 + wy2 * d23);
+      }
+      if (has_u) {
+        // a pair's eight threads are neighbouring lanes
+#pragma unroll
+        for (int o = 1; o < 8; o *= 2)
+#pragma unroll
+          for (int j = 0; j < PAIR_TASKS; ++j) {
+            sm[j] += __shfl_xor_sync(0xffffffffu, sm[j], o);
+            sdy[j] += __shfl_xor_sync(0xffffffffu, sdy[j], o);
+            sdx[j] += __shfl_xor_sync(0xffffffffu, sdx[j], o);
+          }
+        if (chunk == 0) {
+#pragma unroll
+          for (int j = 0; j < PAIR_TASKS; ++j) {
+            const int pk = tid / 8 + (TAP_CONSUMERS / 8) * j;
+            const int pw = pk / KK, k = pk - pw * KK;
+            float* acc = sums + 3 * (row * ROW_PAIRS + pk);
+            float a0 = sm[j], a1 = sdy[j], a2 = sdx[j];
+            if (sl > 0) {
+              a0 += acc[0];
+              a1 += acc[1];
+              a2 += acc[2];
+            }
+            if (sl + 1 < nsl) {
+              acc[0] = a0;
+              acc[1] = a1;
+              acc[2] = a2;
+              continue;
+            }
+            const int px = w0 + pw;
+            if (py >= H || px >= W) continue;
+            const size_t gp = ((size_t)n * H + py) * W + px;
+            const float m = to_f(mask[gp * KK + k]);
+            if (dmask != nullptr) dmask[gp * KK + k] = __float2bfloat16_rn(a0);
+            if (doffset != nullptr) {
+              doffset[gp * (2 * KK) + 2 * k] =
+                  m * clamp_slope(offset[gp * (2 * KK) + 2 * k], r) * a1;
+              doffset[gp * (2 * KK) + 2 * k + 1] =
+                  m * clamp_slope(offset[gp * (2 * KK) + 2 * k + 1], r) * a2;
+            }
+          }
+        }
+      }
+      // this warp is done with the U row (and, after the last row, with
+      // the patch slice)
+      __syncwarp();
+      if (has_u && lane == 0) mbar_arrive(uempty + s * 8);
+    }
+    if (lane == 0) mbar_arrive(xempty + b * 8);
   }
 }
 
@@ -1096,24 +1457,43 @@ int block_n(int patches, int Cout) {
   return Cout <= 128 || patches <= 66 ? 128 : 256;
 }
 
+// The 4-D map over x (N, H, W, Cin) whose box is one 64-channel slice of a
+// halo'd patch, read pixel by pixel, 128 bytes at a time: no swizzle.
+bool x_patch_map(CUtensorMap* map, const void* x, int N, int H, int W,
+                 int Cin, int R) {
+  const cuuint64_t d[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
+                           (cuuint64_t)N};
+  const cuuint64_t st[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
+                            (cuuint64_t)H * W * Cin * 2};
+  const cuuint32_t box[4] = {TK, (cuuint32_t)patch_w(R),
+                             (cuuint32_t)patch_h(R), 1};
+  return bf16_map(map, x, 4, d, st, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The 5-D map over U viewed as (N, H, W, 9, Cin) whose box is 64 channels
+// x 9 taps x one patch row of 16 pixels, no swizzle.
+bool u_row_map(CUtensorMap* map, const void* u, int N, int H, int W,
+               int Cin) {
+  const cuuint64_t d[5] = {(cuuint64_t)Cin, KK, (cuuint64_t)W, (cuuint64_t)H,
+                           (cuuint64_t)N};
+  const cuuint64_t st[4] = {(cuuint64_t)Cin * 2, (cuuint64_t)KK * Cin * 2,
+                            (cuuint64_t)W * KK * Cin * 2,
+                            (cuuint64_t)H * W * KK * Cin * 2};
+  const cuuint32_t box[5] = {TK, KK, TW, 1, 1};
+  return bf16_map(map, u, 5, d, st, box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 template <int R, int BN>
 cudaError_t launch_wgmma(const void* x, const void* offset, const void* mask,
                          const void* weight, const void* bias, void* out,
                          int N, int H, int W, int Cin, int Cout,
                          cudaStream_t s) {
   CUtensorMap xmap, wmap;
-  const cuuint64_t xd[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
-                            (cuuint64_t)N};
-  const cuuint64_t xs[3] = {(cuuint64_t)Cin * 2, (cuuint64_t)W * Cin * 2,
-                            (cuuint64_t)H * W * Cin * 2};
-  const cuuint32_t xb[4] = {TK, (cuuint32_t)patch_w(R),
-                            (cuuint32_t)patch_h(R), 1};
   const cuuint64_t wd[3] = {(cuuint64_t)Cout, (cuuint64_t)Cin, KK};
   const cuuint64_t wst[2] = {(cuuint64_t)Cout * 2, (cuuint64_t)Cin * Cout * 2};
   const cuuint32_t wb[3] = {64, TK, 1};
-  // the patch is read pixel by pixel, 128 bytes at a time: no swizzle; the
-  // weight tile is wgmma's B operand: the 128-byte swizzle
-  if (!bf16_map(&xmap, x, 4, xd, xs, xb, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+  // the weight tile is wgmma's B operand: the 128-byte swizzle
+  if (!x_patch_map(&xmap, x, N, H, W, Cin, R) ||
       !bf16_map(&wmap, weight, 3, wd, wst, wb, CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
   constexpr int smem = wgmma_smem_bytes(R, BN);
@@ -1132,6 +1512,37 @@ cudaError_t launch_wgmma(const void* x, const void* offset, const void* mask,
       static_cast<const __nv_bfloat16*>(bias),
       static_cast<__nv_bfloat16*>(out), H, W, Cin, Cout, tiles_w,
       tiles_w * tiles_h);
+  return cudaGetLastError();
+}
+
+// The tiled backward takes bf16 with Cin a multiple of 64 and x, U, the tile
+// and dx on 16-byte boundaries (TMA's maps, 16-byte rows).
+bool takes_tiled_backward(int Cin, int is_bf16, int aligned) {
+  return is_bf16 && aligned && Cin > 0 && Cin % TK == 0;
+}
+
+template <int R>
+cudaError_t launch_tap_tiled(const void* x, const void* offset,
+                             const void* mask, const void* u, void* tile,
+                             void* doffset, void* dmask, int N, int H, int W,
+                             int Cin, cudaStream_t s) {
+  const int tiles_w = (W + TW - 1) / TW, tiles_h = (H + TH - 1) / TH;
+  CUtensorMap xmap, umap = {};
+  if (!x_patch_map(&xmap, x, N, H, W, Cin, R) ||
+      (u != nullptr && !u_row_map(&umap, u, N, H, W, Cin)))
+    return cudaErrorInvalidValue;
+  constexpr int smem = tap_smem_bytes(R);
+  const cudaError_t allowed = cudaFuncSetAttribute(
+      dcn_shift_bwd_tap_tiled_kernel<R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (allowed != cudaSuccess) return allowed;
+  dcn_shift_bwd_tap_tiled_kernel<R>
+      <<<(unsigned)(N * tiles_w * tiles_h), TAP_THREADS, smem, s>>>(
+          xmap, umap, static_cast<const float*>(offset),
+          static_cast<const __nv_bfloat16*>(mask),
+          static_cast<__nv_bfloat16*>(tile), static_cast<float*>(doffset),
+          static_cast<__nv_bfloat16*>(dmask), H, W, Cin, tiles_w,
+          tiles_w * tiles_h, u != nullptr);
   return cudaGetLastError();
 }
 
@@ -1214,14 +1625,21 @@ extern "C" int dcn_shift_forward(const void* x, const void* offset,
 // with u = G W^T (P x 9 x Cin, x's type) where doffset, dmask or dx is asked
 // for. Each of tile (P x 9 x Cin), doffset (P x 18, f32), dmask (P x 9) and
 // dx (P x Cin) is written unless it is null; tile, dmask and dx in x's type
-// (f32: is_bf16 = 0, bf16: 1). Launches the tap kernel where tile, doffset
-// or dmask is asked for and the dx kernel where dx is. Returns
-// cudaGetLastError() after the launches.
-extern "C" int dcn_shift_backward(const void* x, const void* offset,
-                                  const void* mask, const void* u,
-                                  void* tile, void* doffset, void* dmask,
-                                  void* dx, int N, int H, int W, int Cin,
-                                  int radius, int is_bf16, void* stream) {
+// (f32: is_bf16 = 0, bf16: 1). Launches a tap kernel where tile, doffset or
+// dmask is asked for and the dx kernel where dx is. The tap kernel is the
+// tiled one where the shapes take the tiled pass, else the lane one. lanes
+// != 0 keeps a call on the lane pass (for timing the two side by side).
+// *tiled, unless tiled is null, is set to 1 if the tiled tap kernel was
+// launched, else 0. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue if a tensor map could not be encoded.
+extern "C" int dcn_shift_backward_pass(const void* x, const void* offset,
+                                       const void* mask, const void* u,
+                                       void* tile, void* doffset,
+                                       void* dmask, void* dx, int N, int H,
+                                       int W, int Cin, int radius,
+                                       int is_bf16, int lanes, int* tiled,
+                                       void* stream) {
+  if (tiled != nullptr) *tiled = 0;
   if ((long long)N * H * W == 0 || Cin == 0) return 0;
   // the kernels index pixels and (pixel, tap) pairs with 32-bit ints
   if ((long long)N * H * W * KK >= (1LL << 31) ||
@@ -1230,6 +1648,24 @@ extern "C" int dcn_shift_backward(const void* x, const void* offset,
                         dx != nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const int aligned = ((reinterpret_cast<uintptr_t>(x) |
+                        reinterpret_cast<uintptr_t>(u) |
+                        reinterpret_cast<uintptr_t>(tile) |
+                        reinterpret_cast<uintptr_t>(dx)) % 16) == 0;
+  if (!lanes && takes_tiled_backward(Cin, is_bf16, aligned) &&
+      (tile != nullptr || doffset != nullptr || dmask != nullptr)) {
+    const cudaError_t err =
+        radius == 1 ? launch_tap_tiled<1>(x, offset, mask, u, tile, doffset,
+                                          dmask, N, H, W, Cin, s)
+                    : launch_tap_tiled<2>(x, offset, mask, u, tile, doffset,
+                                          dmask, N, H, W, Cin, s);
+    if (err != cudaSuccess) return (int)err;
+    if (tiled != nullptr) *tiled = 1;
+    // the lane dx kernel, 16-byte loads (8 | Cin, aligned bases)
+    return (int)launch_backward_lanes<__nv_bfloat16, 8>(
+        x, offset, mask, u, nullptr, nullptr, nullptr, dx, N, H, W, Cin,
+        radius, s);
+  }
   return (int)(is_bf16
                    ? launch_backward<__nv_bfloat16>(x, offset, mask, u, tile,
                                                     doffset, dmask, dx, N, H,
@@ -1237,4 +1673,16 @@ extern "C" int dcn_shift_backward(const void* x, const void* offset,
                    : launch_backward<float>(x, offset, mask, u, tile, doffset,
                                             dmask, dx, N, H, W, Cin, radius,
                                             s));
+}
+
+// The same, each call on the pass its shapes name.
+extern "C" int dcn_shift_backward(const void* x, const void* offset,
+                                  const void* mask, const void* u,
+                                  void* tile, void* doffset, void* dmask,
+                                  void* dx, int N, int H, int W, int Cin,
+                                  int radius, int is_bf16, int* tiled,
+                                  void* stream) {
+  return dcn_shift_backward_pass(x, offset, mask, u, tile, doffset, dmask, dx,
+                                 N, H, W, Cin, radius, is_bf16, 0, tiled,
+                                 stream);
 }

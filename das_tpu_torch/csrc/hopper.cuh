@@ -67,6 +67,20 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* m,
       "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+// A named barrier (id 1..15) of ``count`` threads, a multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 __device__ __forceinline__ void bar_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
@@ -251,7 +265,7 @@ EncodeTiled encode_tiled() {
 bool bf16_map(CUtensorMap* map, const void* base, int rank,
               const cuuint64_t* dims, const cuuint64_t* strides,
               const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   EncodeTiled encode = encode_tiled();
   return encode != nullptr &&
          encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,

@@ -36,9 +36,13 @@ def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
 
 def _bce_with_logits(logits: torch.Tensor, targets: torch.Tensor
                      ) -> torch.Tensor:
-    """Stable elementwise binary cross entropy with logits."""
-    return logits.clamp_min(0) - logits * targets \
-        + torch.log1p(torch.exp(-logits.abs()))
+    """Stable elementwise binary cross entropy with logits. ``maximum``
+    and the ``where`` form of ``|x|`` give JAX's derivatives at a logit of
+    exactly 0 (``jnp.maximum`` passes half, ``jnp.abs``' is +1), where
+    ``clamp_min`` and ``abs`` give 1 and 0."""
+    return torch.maximum(logits, torch.zeros_like(logits)) \
+        - logits * targets \
+        + torch.log1p(torch.exp(-torch.where(logits >= 0, logits, -logits)))
 
 
 def binary_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

@@ -28,7 +28,9 @@ def rle_loss(nf_loss: torch.Tensor, uvd: torch.Tensor, sigma: torch.Tensor,
         vis_count = gt_uv_weight[..., 0].sum()
     loss = nf_loss
     if residual:
-        log_q = torch.log(sigma / _AMP) + (gt_uvd - uvd).abs() \
+        # |r| as a where: its derivative at r = 0 is +1, as jnp.abs' is
+        res = gt_uvd - uvd
+        log_q = torch.log(sigma / _AMP) + torch.where(res >= 0, res, -res) \
             / (math.sqrt(2.0) * sigma + 1e-9)
         loss = nf_loss + log_q * gt_uv_weight
     if weight is not None:

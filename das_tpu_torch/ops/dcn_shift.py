@@ -27,7 +27,13 @@ of the ``wgmma`` pass.
 Under autograd the wrapper is ``DeformConvShift``, whose backward is
 ``deform_conv_shift_backward_cuda`` on the card (``backward_launches``
 counts its calls) and the closed form ``deform_conv_shift_backward_plain``
-on the CPU. The JAX package trains this function through XLA's autodiff of
+on the CPU. The card's backward launches a tap kernel and a dx kernel.
+bf16 with Cin a multiple of 64 and 16-byte aligned x, U, tile and dx (the
+model's layers) takes the tiled pass, whose tap kernel stages x's patch and
+U in shared memory by TMA; other shapes take the lane pass's tap kernel.
+Both passes share the dx kernel. As in the forward, the shapes alone
+decide and a pass that fails raises; ``backward_tiled_launches`` counts
+the calls for which the library reports the tiled tap kernel. The JAX package trains this function through XLA's autodiff of
 its shift expansion (``das_tpu/ops/deform_conv.py:111``); both backwards
 give that gradient, with JAX's conventions where the hat weights and the
 clamp have kinks (``hat``, ``clamp_offset``).
@@ -35,6 +41,7 @@ clamp have kinks (``hat``, ``clamp_offset``).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -46,14 +53,17 @@ LIB = CudaLibrary('dcn_shift.cu', {
     'dcn_shift_takes_wgmma': [INT] * 4,
     'dcn_shift_forward': [PTR] * 6 + [INT] * 7 + [PTR],
     'dcn_shift_forward_pass': [PTR] * 6 + [INT] * 8 + [PTR],
-    'dcn_shift_backward': [PTR] * 8 + [INT] * 6 + [PTR]})
+    'dcn_shift_backward': [PTR] * 8 + [INT] * 6 + [PTR] * 2,
+    'dcn_shift_backward_pass': [PTR] * 8 + [INT] * 7 + [PTR] * 2})
 
 # Kernel launches since the last reset: forward, those of them that took the
-# wgmma pass, and backward calls (each launches the tap kernel, the dx
-# kernel or both); the main path's run reads them.
+# wgmma pass, backward calls (each launches a tap kernel, the dx kernel or
+# both) and those of them that launched the tiled tap kernel; the main
+# path's run reads them.
 launches = 0
 wgmma_launches = 0
 backward_launches = 0
+backward_tiled_launches = 0
 
 
 def hat(t: torch.Tensor) -> torch.Tensor:
@@ -263,7 +273,7 @@ def deform_conv_shift_backward_cuda(x: torch.Tensor, offset: torch.Tensor,
     dx kernel (the transpose of the shift as a gather: no atomics). T is
     recomputed from x here; the forward keeps no tile.
     """
-    global backward_launches
+    global backward_launches, backward_tiled_launches
     _check_geometry(K, padding, radius)
     N, H, W, Cin = x.shape
     Cout = weight.shape[-1]
@@ -286,13 +296,16 @@ def deform_conv_shift_backward_cuda(x: torch.Tensor, offset: torch.Tensor,
     if u is not None or tile is not None:
         ptr = [None if t is None else t.data_ptr()
                for t in (u, tile, doff, dmask, dx)]
+        tiled = ctypes.c_int(0)     # the library's report of its tap kernel
         with on_device(dev):
             stream = raw_stream(dev)
             err = LIB.load().dcn_shift_backward(
                 x.data_ptr(), offset.data_ptr(), mask.data_ptr(), *ptr,
-                N, H, W, Cin, radius, int(dt == torch.bfloat16), stream)
+                N, H, W, Cin, radius, int(dt == torch.bfloat16),
+                ctypes.byref(tiled), stream)
         check_launch('dcn_shift backward', err)
         backward_launches += 1
+        backward_tiled_launches += tiled.value
     dw = (tile.t() @ g2).reshape(3, 3, Cin, Cout) if need_w else None
     db = g2.float().sum(0).to(dt) if need_b else None
     return dx, doff, dmask, dw, db

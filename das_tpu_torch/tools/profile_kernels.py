@@ -1,11 +1,21 @@
 """Where the time of the port's kernels goes, on the card.
 
     python -m das_tpu_torch.tools.profile_kernels
-        [--what dcn oks_nms conv_gn wrapper]
+        [--what dcn dcn_backward oks_nms conv_gn wrapper]
 
 ``dcn``: the DCNv2 shift kernel (K1) at the four levels of a B=4 640x1152
 bf16 request (Cin = Cout = 256, r=1) under ``torch.profiler``: the device
 time of its launch per call, one JSON line per level.
+
+``dcn_backward``: K1's backward kernels at the four levels of a B=4
+640x1344 train step (Cin = 256, r=1), on its tiled pass and on its lane
+pass (the two share the dx kernel), with generic offsets and with all
+offsets 0 (a step from the zero-initialised ``conv_offset``), under
+``torch.profiler``: the device time of each kernel per call when the
+library is asked for every output, for
+the tap kernel's outputs alone, for dmask and doffset alone (no tile
+written), for the tile alone (no U read) and for dx alone. One JSON line
+per (level, offsets, pass).
 
 ``oks_nms``: the OKS-NMS keep mask (K3) on the candidates of one served
 ``exp_panoptic_tpu_fused_gn`` request (B=4, M=3720, J=15), under
@@ -87,6 +97,51 @@ def dcn_levels():
         print(json.dumps(dict(
             what='dcn', level=lvl, shape=f'4x{h}x{w}x256 bf16 r=1',
             ms_per_call=ms, sum_ms=sum(ms.values()))), flush=True)
+
+
+TRAIN_LEVELS = [(160, 336), (80, 168), (40, 84), (20, 42)]
+
+
+def dcn_backward_parts():
+    """K1's backward kernels, each pass and part apart."""
+    gen = torch.Generator().manual_seed(7)
+    fn = dcn_shift.LIB.load().dcn_shift_backward_pass
+    parts = dict(all=('u', 'tile', 'doffset', 'dmask', 'dx'),
+                 tap=('u', 'tile', 'doffset', 'dmask'),
+                 sums=('u', 'doffset', 'dmask'), tile=('tile',),
+                 dx=('u', 'dx'))
+    for lvl, (h, w) in enumerate(TRAIN_LEVELS):
+        P = 4 * h * w
+        x = torch.randn(4, h, w, 256, generator=gen).cuda().bfloat16()
+        mask = torch.sigmoid(torch.randn(4, h, w, 9, generator=gen)) \
+            .cuda().bfloat16()
+        u = torch.randn(P, 9 * 256, generator=gen).cuda().bfloat16()
+        out = dict(u=u, tile=torch.empty_like(u),
+                   doffset=torch.empty(P, 18, device='cuda'),
+                   dmask=torch.empty_like(mask), dx=torch.empty_like(x))
+        for offsets in ('generic', 'zero'):
+            off = torch.zeros(4, h, w, 18) if offsets == 'zero' else \
+                (torch.rand(4, h, w, 18, generator=gen) * 2 - 1) * 1.2
+            off = off.cuda()
+            for lanes in (0, 1):
+                ms = {}
+                for part, names in parts.items():
+                    ptr = [out[k].data_ptr() if k in names else None
+                           for k in ('u', 'tile', 'doffset', 'dmask', 'dx')]
+
+                    def call():
+                        err = fn(x.data_ptr(), off.data_ptr(),
+                                 mask.data_ptr(), *ptr, 4, h, w, 256, 1, 1,
+                                 lanes, None, torch.cuda.current_stream()
+                                 .cuda_stream)
+                        if err != 0:
+                            raise RuntimeError(f'K1 backward: error {err}')
+                    ms[part] = kernel_ms(call, calls=5, warmup=2)
+                print(json.dumps(dict(
+                    what='dcn_backward', level=lvl, offsets=offsets,
+                    shape=f'4x{h}x{w}x256 bf16 r=1',
+                    path='lanes' if lanes else 'tiled', ms_per_call=ms)),
+                    flush=True)
 
 
 def pose_template(model, radius=12.0):
@@ -266,13 +321,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--what', nargs='+',
                     default=['dcn', 'oks_nms', 'conv_gn', 'wrapper'],
-                    choices=['dcn', 'oks_nms', 'conv_gn', 'wrapper'])
+                    choices=['dcn', 'dcn_backward', 'oks_nms', 'conv_gn',
+                             'wrapper'])
     args = ap.parse_args()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     if 'dcn' in args.what:
         dcn_levels()
+    if 'dcn_backward' in args.what:
+        dcn_backward_parts()
     if 'oks_nms' in args.what:
         oks_nms_passes()
     if 'conv_gn' in args.what:

@@ -8,6 +8,8 @@ installed; there, skip the JAX test harness:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -247,6 +249,142 @@ def test_dcn_shift_backward_kernel_unaligned_x(cuda, radius, dt):
     want = dcn_shift.deform_conv_shift_backward_plain(x, off, mask, wt, g,
                                                       radius)
     _bwd_close(got, want, dt, ('unaligned', radius, dt))
+
+
+# The tiled pass (bf16, Cin a multiple of 64, 16-byte aligned x, U, tile
+# and dx): the patch-staged tap kernel beside the dx kernel that both
+# passes share. H and W are no multiples of the 8 x 16 patch, so blocks
+# hold partial patches.
+TILED_SHAPES = [(2, 13, 21, 64, 64), (2, 9, 20, 128, 192)]
+
+
+def _tiled_call(x, off, mask, u, radius, lanes):
+    """One library call of the backward on the tiled (lanes=0) or the lane
+    pass (lanes=1): (tile, doffset, dmask, dx) from x, offset, mask and U.
+    The library reports the tiled tap kernel exactly where lanes=0."""
+    N, H, W, Cin = x.shape
+    P = N * H * W
+    tile = torch.empty(P, 9 * Cin, dtype=x.dtype, device=x.device)
+    doff = torch.empty(N, H, W, 18, device=x.device)
+    dmask = torch.empty_like(mask)
+    dx = torch.empty_like(x)
+    tiled = ctypes.c_int(-1)
+    err = dcn_shift.LIB.load().dcn_shift_backward_pass(
+        x.data_ptr(), off.data_ptr(), mask.data_ptr(), u.data_ptr(),
+        tile.data_ptr(), doff.data_ptr(), dmask.data_ptr(), dx.data_ptr(),
+        N, H, W, Cin, radius, 1, lanes, ctypes.byref(tiled),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and tiled.value == 1 - lanes
+    return tile, doff, dmask, dx
+
+
+@pytest.mark.parametrize('shape', TILED_SHAPES)
+@pytest.mark.parametrize('case', ['zero', 'at +-r', 'next to the kinks',
+                                  'generic'])
+@pytest.mark.parametrize('radius', [1, 2])
+def test_dcn_shift_backward_tiled_pass_matches_closed_form(cuda, shape, case,
+                                                           radius):
+    """The tiled pass (it is the pass the call takes: the tiled count moves
+    with the backward count) against the closed form: each output within
+    2^-7 of max|ref|, as the lane pass is held."""
+    x, off, mask, wt, g = _bwd_inputs(shape, torch.bfloat16, cuda, radius,
+                                      case)
+    before = dcn_shift.backward_launches, dcn_shift.backward_tiled_launches
+    got = dcn_shift.deform_conv_shift_backward_cuda(x, off, mask, wt, g,
+                                                    radius)
+    torch.cuda.synchronize()
+    assert (dcn_shift.backward_launches, dcn_shift.backward_tiled_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = dcn_shift.deform_conv_shift_backward_plain(x, off, mask, wt, g,
+                                                      radius)
+    _bwd_close(got, want, torch.bfloat16, (shape, case, radius))
+
+
+@pytest.mark.parametrize('case', ['zero', 'at +-r', 'next to the kinks',
+                                  'generic'])
+@pytest.mark.parametrize('radius', [1, 2])
+def test_dcn_shift_backward_tiled_tile_and_dx_against_lanes(cuda, case,
+                                                            radius):
+    """The tiled pass's tile equals the lane pass's value for value (the
+    forward's rounding; TMA's zeros can only flip the sign of a zero); its
+    dx is the same bits run after run, and the lane pass's bits (one dx
+    kernel); dmask and doffset agree within 2^-7 and 1e-5 of max|lanes|
+    (f32 sums in another order)."""
+    n, h, w, cin, cout = TILED_SHAPES[0]
+    x, off, mask, wt, g = _bwd_inputs((n, h, w, cin, cout), torch.bfloat16,
+                                      cuda, radius, case)
+    u = (g.reshape(-1, cout) @ wt.reshape(9 * cin, cout).t()).contiguous()
+    tiled = _tiled_call(x, off, mask, u, radius, 0)
+    again = _tiled_call(x, off, mask, u, radius, 0)
+    lanes = _tiled_call(x, off, mask, u, radius, 1)
+    assert torch.equal(tiled[0], lanes[0])
+    assert torch.equal(tiled[3].view(torch.int16), again[3].view(torch.int16))
+    assert torch.equal(tiled[3].view(torch.int16), lanes[3].view(torch.int16))
+    for i, tol in ((1, 1e-5), (2, BWD_BF16_TOL)):
+        err = (tiled[i].float() - lanes[i].float()).abs().max().item()
+        assert err <= tol * lanes[i].float().abs().max().item(), (i, err)
+
+
+def test_dcn_shift_backward_pass_by_shape(cuda):
+    """The shapes alone pick the pass: f32, Cin 6 or 96 (no multiple of
+    64) and an x off 16-byte alignment stay on the lane pass; bf16 Cin 64
+    takes the tiled pass. Each still matches the closed form."""
+    def counts():
+        return dcn_shift.backward_launches, dcn_shift.backward_tiled_launches
+
+    for shape, dt, unaligned, tiled in [
+            ((2, 9, 7, 64, 16), torch.float32, False, 0),
+            ((2, 9, 7, 6, 16), torch.bfloat16, False, 0),
+            ((2, 9, 7, 96, 16), torch.bfloat16, False, 0),
+            ((2, 9, 7, 64, 16), torch.bfloat16, True, 0),
+            ((2, 9, 7, 64, 16), torch.bfloat16, False, 1)]:
+        x, off, mask, wt, g = _bwd_inputs(shape, dt, cuda, 1, 'generic')
+        if unaligned:
+            x = torch.empty(x.numel() + 1, dtype=dt, device=cuda)[1:].view(
+                x.shape).copy_(x)
+        before = counts()
+        got = dcn_shift.deform_conv_shift_backward_cuda(x, off, mask, wt, g,
+                                                        1)
+        torch.cuda.synchronize()
+        assert counts() == (before[0] + 1, before[1] + tiled), (shape, dt)
+        want = dcn_shift.deform_conv_shift_backward_plain(x, off, mask, wt,
+                                                          g, 1)
+        _bwd_close(got, want, dt, (shape, dt, unaligned))
+
+
+def test_dcn_shift_backward_tiled_failure_raises(cuda, monkeypatch):
+    """A call the tiled pass takes whose launch fails raises; nothing gives
+    way to the lane pass. The library refuses radius 3 on the tiled shapes;
+    and a failing launch (the library's return replaced by an error) makes
+    the wrapper raise after one library call, with no count moved."""
+    x, off, mask, wt, g = _bwd_inputs(TILED_SHAPES[0], torch.bfloat16, cuda,
+                                      1, 'generic')
+    n, h, w, cin, cout = TILED_SHAPES[0]
+    u = (g.reshape(-1, cout) @ wt.reshape(9 * cin, cout).t()).contiguous()
+    lib = dcn_shift.LIB.load()
+    dx = torch.empty_like(x)
+    assert lib.dcn_shift_backward_pass(
+        x.data_ptr(), off.data_ptr(), mask.data_ptr(), u.data_ptr(), None,
+        None, None, dx.data_ptr(), n, h, w, cin, 3, 1, 0, None,
+        torch.cuda.current_stream().cuda_stream) != 0
+    calls = []
+
+    class Failing:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def dcn_shift_backward(self, *args):
+            calls.append(args)
+            return 1
+
+    monkeypatch.setattr(dcn_shift.LIB, 'load', lambda: Failing())
+    before = dcn_shift.backward_launches, dcn_shift.backward_tiled_launches
+    with pytest.raises(RuntimeError):
+        dcn_shift.deform_conv_shift_backward_cuda(x, off, mask, wt, g, 1)
+    assert len(calls) == 1
+    assert (dcn_shift.backward_launches,
+            dcn_shift.backward_tiled_launches) == before
 
 
 @pytest.mark.parametrize('variant', ['all', 'x without a gradient',
