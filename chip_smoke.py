@@ -48,10 +48,12 @@ any failure exits nonzero and prints no result:
 6. training at full width: 5 steps of ``make_train_step`` on
    ``configs/das/exp_panoptic_tpu.py`` at B=4 640x1344 (its train bucket),
    bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
-   with the counts set to 0 just before and read just after (12 row
-   gathers and 12 adjoint launches per step, 16 K1 forward and 16 K1
-   backward, all 16 on its tiled pass and timed inside each step by CUDA
-   events, no plain shift expansion); then that
+   with the counts set to 0 just before and read just after (per step, as
+   ``train_step_launches`` derives them from the config: under the head's
+   ``remat`` 24 row gathers (12 and their recompute) and 12 adjoint
+   launches, 32 K1 forward (16 and their recompute) and 16 K1 backward,
+   all 16 on its tiled pass and timed inside each step by CUDA events, no
+   plain shift expansion); then that
    step's gradient pass, full depth, in bf16 and in f32, with K4 (each
    launch also held against the plain version on its own inputs) and with
    the plain pair in its place on the card, gradients compared leaf by
@@ -79,7 +81,7 @@ any failure exits nonzero and prints no result:
    library, none through cv2); ``apis/train.py::train_model`` on
    ``configs/das/exp_panoptic_tpu.py`` from those files through the shipped
    random pipelines, B=4 640x1344 bf16 on f32 master weights, 6 steps of 4
-   an epoch (every loss finite, 12 + 12 K4 and 16 + 16 K1 launches and no
+   an epoch (every loss finite, 24 + 12 K4 and 32 + 16 K1 launches and no
    K3 each step; one profiled step for the device's busy and idle share), the
    epoch-end save, DCN-offset check and eval hook on phase 7's frames (the
    served launch counts per batch), the final save; a resume from
@@ -95,7 +97,7 @@ any failure exits nonzero and prints no result:
    ``run_test`` through the group against phase 7's results; then two ranks
    spawned on the one card over gloo (NCCL takes one rank a card): the cut
    fp32 step at B=2 a rank against one process at B=4, ``train_model`` on
-   phase 8's mix at B=2 a rank for one epoch (4 steps; 12 + 12 K4 launches
+   phase 8's mix at B=2 a rank for one epoch (4 steps; 24 + 12 K4 launches
    a step on each rank, replicas bit-equal, one checkpoint by rank 0, the
    DCN check and the sharded eval hook), the sharded ``run_test`` against
    phase 7's results; ``python -m torch.distributed.run --nproc-per-node 2
@@ -118,7 +120,37 @@ any failure exits nonzero and prints no result:
    ``fuse_conv_bn``, each file loaded strictly by ``init_model``; and one
    request under ``utils/profiling.trace``, whose trace names K1's kernel.
    The demo's card launches go into the kernels line (and
-   ``phase10_launches``).
+   ``phase10_launches``);
+11. the reference's Panoptic recipe served ("main", "plain"):
+   ``configs/das/exp_panoptic.py``, whose DCNs serve by the exact
+   'patch' gather, 3 B=4 640x1152 bf16 requests (per request no K1, 24
+   fused samples (16 DCN calls, 8 RU samples), 3 grouped gathers, 1 K3, as
+   ``serve_launches`` derives them), then its kernel path against the CPU's
+   plain path at 128x160 fp32;
+12. its training ("train"): ``make_trainer`` steps at B=4 640x1344 bf16
+   with its 'clip' DCNs (K4's row gather and adjoint at every DCN call:
+   under the head's remat 56 + 28 a step), step ms, peak memory and the
+   device's busy ms of a profiled step, and the gradient pass with K4
+   against its plain pair on the card;
+13. the paper's MuPoTS recipe served and evaluated ("mupots"):
+   ``configs/das/exp_mupots.py`` (21 joints, root 14, a 3-stage MSPN2, two
+   RU layers of which the last sparsifies, nms_thr 0.9), 3 B=4 736x1280
+   bf16 requests (its test bucket; 36 fused samples, 3 grouped gathers and
+   K3 at J=21 a request), ``run_test`` with device preprocessing over 20
+   synthetic MuPoTS-3D frames (TS1-TS20 with their ``annot.mat`` and
+   ``occlusion.mat``) and the MuPoTS evaluator's 3DPCK of the card's
+   outputs, then its kernel path against the CPU's plain path, full depth;
+14. its training ("mupots"): ``train_model`` on its MuCo-3DHP + COCO mix
+   from synthetic frames on disk, B=4 800x1280 bf16, 3 steps (40 + 40 K4
+   launches a step), then the same gradient pass and step with ``remat``
+   as shipped and with ``remat=False`` from the same weights and batch:
+   step ms and peak memory of each, loss terms and BN statistics bit for
+   bit, gradients within their pass-to-pass noise;
+15. the sustained run's tool ("train_run"): ``python -m
+   das_tpu_torch.tools.train_run`` (in this process) on exp_panoptic_tpu
+   for 40 steps from disk, its artifact finite and parsed.
+   The launches of phases 11-15 go into the kernels line (and
+   ``recipes_launches``).
 
 The line before the last is a JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -156,19 +188,63 @@ CARD_CPU_RTOL = 2e-2
 # of 16 DCN calls
 K4_PER_REQUEST = 52
 K4_SAMPLES = (9, 24)
-# ... and per train step, forward and backward each (40 with one launch per
-# corner): each of the 4 sparse levels makes three launches that depend on
-# one another, the grouped take_at, the sample of the offsets at the points
-# it gives, and the sample of [uvd, conf] at the candidates that gives
-K4_PER_STEP = 12
-# K1 forward launches, and K1 backward calls, a train step: the 3 towers'
-# last convs and the RU update conv at 4 levels, all of whose inputs ask for
-# gradients
-K1_PER_STEP = 16
+TRAIN_HW = (640, 1344)        # exp_panoptic's train bucket
 TRAIN_LEVELS = [(160, 336), (80, 168), (40, 84), (20, 42)]  # B=4 640x1344
 
 
 STARTED = time.perf_counter()
+
+
+def train_step_launches(cfg, hw, max_pos):
+    """(K4 forward, K4 backward, K1 forward, K1 backward) launches of one
+    train step of ``cfg`` at the ``hw`` bucket with ``max_pos``, derived
+    from the model code:
+
+    - the DCN calls: the 3 towers' last convs and each RU layer's update
+      conv at 4 levels, all of whose inputs ask for gradients; each is one
+      K1 forward and one K1 backward under ``'shift'``, or one row gather
+      of the nine taps' four corners and its adjoint under ``'clip'``;
+    - the RU's sampling, one gather and one adjoint a sample: the last
+      layer at a level of more than ``max_pos`` points (sparse) makes three
+      launches that depend on one another (the grouped take_at, the sample
+      of the offsets at the points it gives, the sample of [uvd, conf] at
+      the candidates that gives), at a dense level two; an earlier layer
+      is dense at every level;
+    - remat (``models/layers.remat``): the head's ``remat`` recomputes each
+      tower conv in the backward, the RU's (the head's by default) each RU
+      layer, so their forward launches run again; no backward launch runs
+      twice. The backbone's stages launch no kernel."""
+    head = cfg.model.bbox_head
+    ru = dict(head.get('recursive_update') or {})
+    layers = int(ru.get('num_layers', 1))
+    head_remat = bool(head.get('remat', False))
+    ru_remat = bool(ru.get('remat', head_remat))
+    mode = head.get('dcn_train_gather_mode', 'auto')
+    if mode == 'auto':
+        mode = {'patch': 'clip', 'shift_pallas': 'shift'}.get(
+            head.get('dcn_gather_mode', 'patch'))
+    check(mode in ('clip', 'shift'), ('no launch count for the lowering',
+                                      mode))
+    sparse = bool((cfg.model.get('train_cfg') or {}).get('sparse_refine'))
+    points = [(hw[0] // (4 * 2 ** i)) * (hw[1] // (4 * 2 ** i))
+              for i in range(4)]
+    last = sum(3 if sparse and n > max_pos else 2 for n in points)
+    ru_samples = 8 * (layers - 1) + last
+    towers, ru_dcn = 12, 4 * layers
+    k4_dcn = int(mode == 'clip')
+    k4 = (towers + ru_dcn) * k4_dcn + ru_samples
+    k4_again = towers * k4_dcn * head_remat \
+        + (ru_dcn * k4_dcn + ru_samples) * ru_remat
+    k1 = (towers + ru_dcn) * (1 - k4_dcn)
+    k1_again = (towers * head_remat + ru_dcn * ru_remat) * (1 - k4_dcn)
+    return k4 + k4_again, k4, k1 + k1_again, k1
+
+
+def tpu_step():
+    """``train_step_launches`` of exp_panoptic_tpu's steps in phases 6, 8
+    and 9 (640x1344, max_pos 512 = 128 an image of a global batch of 4)."""
+    from das_tpu_torch.config import Config
+    return train_step_launches(Config.fromfile(SERVING_CFG), TRAIN_HW, 512)
 
 
 def phase(name, msg):
@@ -1359,14 +1435,15 @@ def count_label(key):
     return f'{key[0].__name__.rsplit(".", 1)[-1]}.{key[1]}'
 
 
-def main_path(cfg_path, requests, expect):
-    """Serve ``requests`` B=4 640x1152 bf16 requests of ``cfg_path``. Every
+def main_path(cfg_path, requests, expect, hw=(640, 1152)):
+    """Serve ``requests`` B=4 ``hw`` bf16 requests of ``cfg_path``. Every
     count of ``expect`` ({(kernel module, name of its count): launches per
     request}) is set to 0 just before the requests and read just after;
     each request must launch exactly its share, or a number within (lo, hi)
     where the share is such a pair (the fused sampler, whose count follows
     the DCN calls that repair). K4's launches together (row gathers and
-    fused samples) must stay within K4_PER_REQUEST. Returns (model, cfg,
+    fused samples) must stay within K4_PER_REQUEST. A hybrid DCN config
+    must flag pixels beyond radius 1 (the repair runs). Returns (model, cfg,
     {module.count: launches}, last image, scale factors)."""
     import numpy as np
     import torch
@@ -1379,23 +1456,30 @@ def main_path(cfg_path, requests, expect):
     predict = make_predict_fn(model, cfg.model.test_cfg, head.num_joints,
                               head.strides, device='cuda')
     torch.cuda.synchronize()
-    phase('main', f"{name} (dcn_gather_mode={head.dcn_gather_mode!r}, "
-          f"r={head.dcn_shift_radius}, conv_bias={head.conv_bias!r}, "
+    mode = head.get('dcn_gather_mode', 'patch')
+    phase('main', f"{name} (dcn_gather_mode={mode!r}, "
+          f"r={head.get('dcn_shift_radius', 2)}, "
+          f"conv_bias={head.conv_bias!r}, J={head.num_joints}, "
+          f"stages={cfg.model.backbone.num_stages}, RU layers="
+          f"{head.recursive_update.get('num_layers', 1)}, "
+          f"nms_thr={cfg.model.test_cfg.nms_thr}, "
           f"fused_gn={head.get('fused_gn', False)}, "
           f"sparse_refine={cfg.model.test_cfg.sparse_refine}) built in bf16 "
           f'on the card in {time.perf_counter() - t0:.1f} s, '
           f'{sum(p.numel() for p in model.parameters())} parameters')
 
     rng = np.random.RandomState(0)
-    imgs = [torch.from_numpy(rng.randn(4, 640, 1152, 3).astype(np.float32))
+    H, W = hw
+    imgs = [torch.from_numpy(rng.randn(4, H, W, 3).astype(np.float32))
             .cuda() for _ in range(requests + 1)]
     sf = torch.ones(4, 2, device='cuda')
-    flagged = flagged_per_layer(model, imgs[0].to(torch.float32))
-    total = sum(c for _, c in flagged)
-    phase('main', 'pixels beyond radius 1 per DCN layer (request 0, B=4, '
-          'all levels): ' + ', '.join(
-              f'{n.replace("bbox_head.", "")}={c}' for n, c in flagged))
-    check(total > 0, 'no offset left radius 1: the repair never ran')
+    if mode.startswith('hybrid'):
+        flagged = flagged_per_layer(model, imgs[0].to(torch.float32))
+        total = sum(c for _, c in flagged)
+        phase('main', 'pixels beyond radius 1 per DCN layer (request 0, '
+              'B=4, all levels): ' + ', '.join(
+                  f'{n.replace("bbox_head.", "")}={c}' for n, c in flagged))
+        check(total > 0, 'no offset left radius 1: the repair never ran')
     predict(imgs[0], sf)                     # warm-up request
     torch.cuda.synchronize()
 
@@ -1418,7 +1502,7 @@ def main_path(cfg_path, requests, expect):
         counts = ', '.join(f'{n} {count_label(key)}'
                            for key, n in got.items())
         k4 = sum(n for key, n in got.items() if 'gather' in count_label(key))
-        phase('main', f'{name} request {i}: B=4 640x1152 in '
+        phase('main', f'{name} request {i}: B=4 {H}x{W} in '
               f'{times[-1]:.2f} ms, {int(out["valid"].sum())} valid poses, '
               f'launches: {counts}')
         check(all(n[0] <= got[key] <= n[1] if isinstance(n, tuple)
@@ -1608,16 +1692,20 @@ class Seen(list):
         self.launches = [0, 0]
 
 
-def train_full_width(steps=5):
-    """``steps`` train steps of exp_panoptic_tpu at its train bucket, B=4,
-    bf16 compute on f32 master weights, on a synthetic TrainLoader batch
-    (8 people per image, one per regress range in turn). The K4 and K1
-    counts are set to 0 just before the steps and read just after: each
-    step launches K4 12 + 12 times and K1 16 + 16 (every DCN conv's forward
-    and backward), and no plain shift expansion. K1's backward calls are
-    timed inside each step by CUDA events around each. Returns the (forward,
-    backward) launches of K4 and of K1, and the run: its trained model,
-    config, batch, feature map sizes and max_pos."""
+def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
+    """``steps`` train steps of ``cfg_path`` (exp_panoptic_tpu) at its train
+    bucket, B=4, bf16 compute on f32 master weights, on a synthetic
+    TrainLoader batch (8 people per image, one per regress range in turn).
+    The K4 and K1 counts are set to 0 just before the steps and read just
+    after: each step launches K4 and K1 ``train_step_launches`` times (for
+    exp_panoptic_tpu's 'shift' DCNs under the head's remat 24 + 12 and 32 +
+    16: every DCN conv's forward, its recompute and its backward), every
+    backward call of K1 on its tiled pass, and no plain shift expansion.
+    K1's backward calls are timed inside each step by CUDA events around
+    each. With ``profile``, one more step under ``torch.profiler`` gives the
+    device's busy ms. Returns the (forward, backward) launches of K4 and of
+    K1, and the run: its trained model, config, batch, feature map sizes,
+    max_pos, the launches a step, step times and peak memory."""
     import numpy as np
     import torch
     from das_tpu_torch.config import Config
@@ -1626,13 +1714,15 @@ def train_full_width(steps=5):
     from das_tpu_torch.tools.profile_train import (make_trainer,
                                                    synthetic_batch,
                                                    train_pad_hw)
-    cfg = Config.fromfile(SERVING_CFG)
+    cfg = Config.fromfile(cfg_path)
+    name = os.path.basename(cfg_path)[:-3]
     head = cfg.model.bbox_head
     H, W = train_pad_hw(cfg.train_pipeline)
     B = 4
     t0 = time.perf_counter()
     state, step, _, max_pos = make_trainer(cfg, torch.bfloat16, 'cuda', B,
                                            (H, W))
+    k4f, k4b, k1f, k1b = train_step_launches(cfg, (H, W), max_pos)
     model = state.model
     trainable = frozen_mask(model, mspn_frozen_prefixes(
         int(cfg.model.backbone.frozen_stages)))
@@ -1641,8 +1731,12 @@ def train_full_width(steps=5):
                                  int(head.root_idx))
     batch = {k: torch.from_numpy(v).cuda() for k, v in host_batch.items()}
     torch.cuda.synchronize()
-    phase('train', f"exp_panoptic_tpu trainable (dcn_train_gather_mode="
-          f"{head.dcn_train_gather_mode!r}, r={head.dcn_shift_radius}, "
+    phase('train', f"{name} trainable (dcn_train_gather_mode="
+          f"{head.get('dcn_train_gather_mode', 'auto')!r}, dcn_gather_mode="
+          f"{head.get('dcn_gather_mode', 'patch')!r}, "
+          f"r={head.get('dcn_shift_radius', 2)}, remat (backbone, head) "
+          f"{cfg.model.backbone.get('remat', False)}, "
+          f"{head.get('remat', False)}, "
           f"sparse_refine={cfg.model.train_cfg.sparse_refine}, "
           f"frozen_stages={cfg.model.backbone.frozen_stages}) built in "
           f'{time.perf_counter() - t0:.1f} s: B={B} {H}x{W}, bf16 compute, '
@@ -1682,13 +1776,13 @@ def train_full_width(steps=5):
             k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
             k1_tiled = dcn_shift.backward_tiled_launches - kt0
             check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
-            check(fwd == K4_PER_STEP and bwd == K4_PER_STEP,
-                  ('train K4 launches', i, fwd, bwd))
-            check(k1 == (K1_PER_STEP, K1_PER_STEP) and plain_calls[0] == 0,
-                  ('train K1 launches, plain shift calls', i, k1,
+            check(fwd == k4f and bwd == k4b,
+                  ('train K4 launches', i, fwd, bwd, k4f, k4b))
+            check(k1 == (k1f, k1b) and plain_calls[0] == 0,
+                  ('train K1 launches, plain shift calls', i, k1, k1f, k1b,
                    plain_calls[0]))
             # every backward call of the step takes the tiled pass
-            check(k1_tiled == K1_PER_STEP,
+            check(k1_tiled == k1b,
                   ('train K1 backward calls on the tiled pass', i, k1_tiled))
             phase('train', f'step {i}: ' + ', '.join(
                 f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} '
@@ -1723,13 +1817,27 @@ def train_full_width(steps=5):
                                                                times)))
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
-    return (gather.launches, gather.backward_launches), \
-        (dcn_shift.launches, dcn_shift.backward_launches), dict(
+    k4 = (gather.launches, gather.backward_launches)
+    k1 = (dcn_shift.launches, dcn_shift.backward_launches)
+    busy = None
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        busy = device_busy_ms(prof)
+        phase('train', f'{name}: one more step under torch.profiler: device '
+              f'busy {busy:.2f} ms, idle share against the median of steps '
+              f'2-{steps} {1 - busy / np.median(times[1:]):.3f}')
+    return k4, k1, dict(
         model=model, cfg=cfg, batch=host_batch, featmaps=featmaps,
         max_pos=max_pos, median_ms=float(np.median(times)),
         k1_tiled=dcn_shift.backward_tiled_launches,
         k1_in_step_ms=[float(b) for b in k1_bwd_ms],
-        step_ms=[float(t) for t in times])
+        step_ms=[float(t) for t in times], per_step=(k4f, k4b, k1f, k1b),
+        peak_gib=peak, busy_ms=busy)
 
 
 def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
@@ -1738,20 +1846,27 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     with K4 and with K4's plain pair in its place, for each compute type of
     ``dtypes``.
 
-    Four passes: K4 with each launch held against the plain version on its
+    Five passes: K4 with each launch held against the plain version on its
     own inputs (forward bit for bit, backward within 1e-5 (f32) or one bf16
     step (bf16) of max|ref|: K4 at every shape and on every value the
-    training path gives it), then plain, plain again and K4 again. The
-    forward is the same bit for bit, so the loss terms must be equal. The
-    gradients differ only where sums are taken with atomics in another
-    order (K4's adjoint, ``index_add_``, cuDNN), so each leaf's K4-vs-plain
-    error must stay within GRAD_NOISE times the larger of the plain-vs-plain
-    and K4-vs-K4 errors of that leaf, or within 1e-3 of the leaf's largest
-    plain gradient where that is more; a leaf that is zero to rounding
-    within ZERO_GRAD of the largest of all. In f32 that noise is ~4e-5 of a
-    leaf's largest value, so every leaf is held at 1e-3 of it; in bf16 it
-    reaches ~7e-2 in the backbone (bf16 weight gradients, each rounding
-    flip one bf16 step), while the RU's leaves, next to K4, come out equal.
+    training path gives it), then plain, plain again, K4 again, and plain
+    with the rows of each adjoint segment added in a shuffled order
+    (``reordered_scatter``). The forward is the same bit for bit, so the
+    loss terms must be equal. The gradients differ only where sums are
+    taken with atomics in another order (K4's adjoint, ``index_add_``,
+    cuDNN), so each leaf's K4-vs-plain error must stay within GRAD_NOISE
+    times the largest of the plain-vs-plain, K4-vs-K4 and reordered-vs-plain
+    errors of that leaf, or within 1e-3 of the leaf's largest plain gradient
+    where that is more; a leaf that is zero to rounding within ZERO_GRAD of
+    the largest of all. The reordered pass is there because each adjoint's
+    atomics land in nearly the same order every time it runs, so two runs
+    of one adjoint can agree far more closely than K4's and ``index_add_``'s
+    orders do: under the 'clip' DCNs a leaf's K4-vs-plain error has been
+    tens of times its repeat spread, while the shuffled order moves it as
+    much as K4 does. In f32 that noise is ~4e-5 of a leaf's largest value,
+    so every leaf is held at 1e-3 of it; in bf16 it reaches ~7e-2 in the
+    backbone (bf16 weight gradients, each rounding flip one bf16 step),
+    while the RU's leaves, next to K4, come out nearly equal.
     """
     import torch
     from das_tpu_torch.models.layers import keep_master_weights
@@ -1771,6 +1886,8 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
             lb, gb = loss_grads(model, *args)
             lc, gc = loss_grads(model, *args)
         ld, gd = loss_grads(model, *args)
+        with k4_launchers(plain[0], reordered_scatter(0)):
+            _, ge = loss_grads(model, *args)
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tol = 1e-5 if dt == torch.float32 else BF16_STEP
@@ -1783,16 +1900,25 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               ('K4 backward vs plain on the training path', name,
                max(bwd, key=lambda s: s[-1])))
         shapes = sorted({s[1:5] for s in seen})
-        check(seen.launches == [K4_PER_STEP, K4_PER_STEP],
+        check(seen.launches == list(run['per_step'][:2]),
               ('K4 launches of the gradient pass', name, seen.launches))
         check(la == lb, ('loss terms, K4 vs plain on the card', name, la,
                          lb))
+        eb = leaf_errors(ge, gb)
         ab, bc, ad, own, real, held, worst, where = grads_vs_plain(
-            ga, gb, gc, gd, ('K4', name))
+            ga, gb, gc, gd, ('K4', name), eb)
         ru = [k for k in real if 'recursive_update' in k]
+
+        def over(noise):
+            # the leaf whose K4-vs-plain error is the most times ``noise``
+            r = {k: ab[k] / noise[k] for k in real if noise[k] > 0}
+            return (max(r.values()), max(r, key=r.get)) if r else (0, None)
+        rep = over({k: max(bc[k], ad[k]) for k in real})
+        reo = over(eb)
+        del ge
         B, H, W = run['batch']['img'].shape[:3]
         phase('train', f'{name} gradient pass, full depth, B={B} {H}x{W}, '
-              f'K4 vs its plain pair on the card ({secs:.1f} s for 4 '
+              f'K4 vs its plain pair on the card ({secs:.1f} s for 5 '
               f'passes, peak memory {peak:.2f} GiB): {seen.launches[0]} forward + '
               f'{seen.launches[1]} backward K4 launches ({len(fwd)} gathers, '
               f'{len(bwd)} table gradients) held against plain on their own inputs at '
@@ -1804,7 +1930,10 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               f'leaves ({max(ab[k] / own[k] for k in ru):.3g} over the '
               f'{len(ru)} RU leaves), plain vs plain '
               f'{max(bc[k] / own[k] for k in real):.3g}, K4 vs K4 '
-              f'{max(ad[k] / own[k] for k in real):.3g}; '
+              f'{max(ad[k] / own[k] for k in real):.3g}, reordered plain '
+              f'vs plain {max(eb[k] / own[k] for k in real):.3g}; K4 vs '
+              f'plain at most {rep[0]:.3g}x the repeats\' spread ({rep[1]})'
+              f' and {reo[0]:.3g}x the reordered spread ({reo[1]}); '
               f'{sum(ab[k] == 0.0 for k in gb)} of {len(gb)} leaves equal, '
               f'{held} of {len(real)} held at 1e-3 of their largest, the '
               f'rest at {GRAD_NOISE:g}x their noise; worst leaf at '
@@ -1812,24 +1941,52 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     keep_master_weights(model, torch.bfloat16)
 
 
-def grads_vs_plain(ga, gb, gc, gd, what):
+def leaf_errors(x, y):
+    """{leaf: max |x - y|} over the gradient leaves of ``y``."""
+    return {k: float((x[k].float() - y[k].float()).abs().max()) for k in y}
+
+
+def reordered_scatter(seed):
+    """K4's plain adjoint (``gather.scatter_grouped_plain``) with the rows of
+    each segment added in a shuffled order (one permutation of its points
+    from ``seed``, the same for every image): the same sums as K4's adjoint
+    and ``index_add_``, taken in another order."""
+    import torch
+    from das_tpu_torch.ops import gather
+    gen = None
+
+    def scatter(grads, idxs, which, rows, dtypes):
+        nonlocal gen
+        if gen is None:
+            gen = torch.Generator(device=idxs[0].device)
+            gen.manual_seed(seed)
+        gs, ix = [], []
+        for g, i in zip(grads, idxs):
+            p = torch.randperm(i.shape[1], device=i.device, generator=gen)
+            gs.append(None if g is None else g[:, p])
+            ix.append(i[:, p])
+        return gather.scatter_grouped_plain(gs, ix, which, rows, dtypes)
+    return scatter
+
+
+def grads_vs_plain(ga, gb, gc, gd, what, reordered=None):
     """Gradient leaves of four passes, kernel (a), plain (b), plain again
     (c), kernel again (d): each leaf's kernel-vs-plain error within
     GRAD_NOISE times the larger of its plain-vs-plain and kernel-vs-kernel
-    errors, or within 1e-3 of the leaf's largest plain value where that is
-    more; a leaf that is zero to rounding within ZERO_GRAD of the largest of
-    all. Returns the errors (a-b, c-b, d-a), each leaf's largest plain
-    value, the leaves that are not zero to rounding, how many of them were
-    held at 1e-3, and the worst leaf's error / tolerance and name."""
+    errors (and of ``reordered``, {leaf: error} of a plain pass whose sums
+    were taken in another order, where given), or within 1e-3 of the leaf's
+    largest plain value where that is more; a leaf that is zero to rounding
+    within ZERO_GRAD of the largest of all. Returns the errors (a-b, c-b,
+    d-a), each leaf's largest plain value, the leaves that are not zero to
+    rounding, how many of them were held at 1e-3, and the worst leaf's
+    error / tolerance and name."""
     check(sorted(ga) == sorted(gb), ('gradient keys', what))
     own = {k: float(v.abs().max()) for k, v in gb.items()}
     top = max(own.values())
-
-    def err(x, y):
-        return {k: float((x[k].float() - y[k].float()).abs().max())
-                for k in y}
-    ab, bc, ad = err(ga, gb), err(gc, gb), err(gd, ga)
-    noise = {k: max(bc[k], ad[k]) for k in gb}
+    ab, bc, ad = leaf_errors(ga, gb), leaf_errors(gc, gb), \
+        leaf_errors(gd, ga)
+    noise = {k: max(bc[k], ad[k], (reordered or {}).get(k, 0.0))
+             for k in gb}
     worst, where = 0.0, None
     for k in gb:
         t = max(1e-3 * own[k], GRAD_NOISE * noise[k])
@@ -1951,7 +2108,8 @@ def train_k1_vs_plain_on_card(run):
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     keep_master_weights(model, torch.bfloat16)
-    check(len(seen) == K1_PER_STEP and all(s[-1] <= 1e-5 for s in seen),
+    check(len(seen) == run['per_step'][3]
+          and all(s[-1] <= 1e-5 for s in seen),
           ('K1 backward vs closed form on the training path', len(seen),
            max(seen, key=lambda s: s[-1]) if seen else None))
     check(la == lb, ('loss terms, K1 vs plain on the card', la, lb))
@@ -2059,9 +2217,10 @@ def train_kernel_vs_plain():
     k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
     gg = {k: v.cpu() for k, v in gg.items()}
     _, gc = loss_grads(cpu.model, *args)
+    want = train_step_launches(cfg, (H, W), max_pos)
     check(sorted(gg) == sorted(gc) and min(gathers) > 0
-          and k1 == (K1_PER_STEP, K1_PER_STEP),
-          ('gradient keys, K4 or K1 launches', gathers, k1))
+          and gathers + k1 == want,
+          ('gradient keys, K4 or K1 launches', gathers, k1, want))
     p0 = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     g_worst, _ = leaves_close(gg, gc, 'gradient')
     cpu, mc = cpu_step(cpu, batch)
@@ -2497,6 +2656,50 @@ TRAIN_STEPS = 6
 RESUME_RTOL = 1e-3
 
 
+def block_frame(rng, h, w):
+    """An h x w uint8 BGR frame of 40-pixel blocks with a little noise."""
+    import numpy as np
+    blocks = rng.randint(0, 256, (h // 40 + 1, w // 40 + 1, 3))
+    img = np.kron(blocks, np.ones((40, 40, 1), np.int64))[:h, :w]
+    return (img + rng.randint(0, 16, (h, w, 3))).clip(0, 255) \
+        .astype(np.uint8)
+
+
+def dump_coco_json(path, images, anns):
+    """A COCO-format json of one 'person' category; returns ``path``."""
+    with open(path, 'w') as fh:
+        json.dump(dict(images=images, annotations=anns,
+                       categories=[dict(id=1, name='person')]), fh)
+    return path
+
+
+def write_coco_data(root, rng, n=8, h=480, w=640):
+    """``n`` COCO-17 keypoint frames (h x w JPEGs) with 3 people each, both
+    hips visible, under ``root``; returns the json's path."""
+    import cv2
+    import numpy as np
+    images, anns = [], []
+    for i in range(n):
+        fname = f'coco_{i:02d}.jpg'
+        cv2.imwrite(os.path.join(root, fname), block_frame(rng, h, w))
+        images.append(dict(id=i + 1, file_name=fname, width=w, height=h))
+        for p in range(3):
+            cx, cy = w * (0.3 + 0.2 * p), h * (0.48 + 0.03 * p)
+            kp = np.array([cx, cy]) + rng.randn(17, 2) * [w / 40, h / 10]
+            kp[11], kp[12] = [cx - 8, cy], [cx + 8, cy + 2]
+            vis = np.where(rng.rand(17) < 0.15, 1, 2)
+            u, v = kp.T
+            bbox = [float(u.min() - 4), float(v.min() - 4),
+                    float(np.ptp(u) + 8), float(np.ptp(v) + 8)]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
+                area=bbox[2] * bbox[3], iscrowd=0, num_keypoints=17,
+                keypoints=np.concatenate([kp, vis[:, None]], 1)
+                .reshape(-1).tolist()))
+    return dump_coco_json(os.path.join(root, 'coco_train.json'), images,
+                          anns)
+
+
 def write_train_data(seed=0):
     """The shipped mix on disk: 8 CMU-Panoptic-format 1920x1080 JPEG frames
     with 3-4 people each (the layout of tests/test_train_api.py's
@@ -2511,17 +2714,10 @@ def write_train_data(seed=0):
     rng = np.random.RandomState(seed)
 
     def frame(h, w):
-        blocks = rng.randint(0, 256, (h // 40 + 1, w // 40 + 1, 3))
-        img = np.kron(blocks, np.ones((40, 40, 1), np.int64))[:h, :w]
-        return (img + rng.randint(0, 16, (h, w, 3))).clip(0, 255) \
-            .astype(np.uint8)
+        return block_frame(rng, h, w)
 
     def dump(name, images, anns):
-        path = os.path.join(root, name)
-        with open(path, 'w') as fh:
-            json.dump(dict(images=images, annotations=anns,
-                           categories=[dict(id=1, name='person')]), fh)
-        return path
+        return dump_coco_json(os.path.join(root, name), images, anns)
 
     h, w, f = 1080, 1920, EVAL_F
     images, anns = [], []
@@ -2550,26 +2746,7 @@ def write_train_data(seed=0):
                 joints2d_vis=[[1, 1]] * EVAL_J,
                 joints3d_vis=[[1, 1, 1]] * EVAL_J))
     pan = dump('panoptic_train.json', images, anns)
-    h, w = 480, 640
-    images, anns = [], []
-    for i in range(8):
-        fname = f'coco_{i:02d}.jpg'
-        cv2.imwrite(os.path.join(root, fname), frame(h, w))
-        images.append(dict(id=i + 1, file_name=fname, width=w, height=h))
-        for p in range(3):
-            cx, cy = w * (0.3 + 0.2 * p), h * (0.48 + 0.03 * p)
-            kp = np.array([cx, cy]) + rng.randn(17, 2) * [w / 40, h / 10]
-            kp[11], kp[12] = [cx - 8, cy], [cx + 8, cy + 2]
-            vis = np.where(rng.rand(17) < 0.15, 1, 2)
-            u, v = kp.T
-            bbox = [float(u.min() - 4), float(v.min() - 4),
-                    float(np.ptp(u) + 8), float(np.ptp(v) + 8)]
-            anns.append(dict(
-                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
-                area=bbox[2] * bbox[3], iscrowd=0, num_keypoints=17,
-                keypoints=np.concatenate([kp, vis[:, None]], 1)
-                .reshape(-1).tolist()))
-    coco = dump('coco_train.json', images, anns)
+    coco = write_coco_data(root, rng)
     return {'data.train.0.data_root': root, 'data.train.0.ann_file': pan,
             'data.train.0.img_prefix': root,
             'data.train.1.data_root': root, 'data.train.1.ann_file': coco,
@@ -2581,17 +2758,19 @@ class TrainWatch:
     """Wraps the step that ``train_model`` builds (``apis/train.py``'s
     ``make_train_step``), its checkpoint manager's save and restore, the
     DCN-offset check, the eval hook's ``run_test`` and its decode, for the
-    block. Each step: the counts read just before and just after (12 row
-    gathers and 12 adjoint launches, 16 K1 forward and 16 K1 backward, no
-    K3), CUDA events around
+    block. Each step: the counts read just before and just after
+    (``per_step``: K4, its adjoint, K1 and its backward as
+    ``train_step_launches`` derives them, no K3), CUDA events around
     it, a sync, every metric finite; the step ``profile_at`` under
     ``torch.profiler``. The eval model's forward (a module hook: a DAS in
     eval mode) marks the counts, its decode reads what each rose by since
     the mark (a batch's launches; the run's counts are never reset). With ``resume_ref`` (a state), the first step is
     also run from that state on the same batch first, its losses kept."""
 
-    def __init__(self, expect, profile_at=None, resume_ref=None):
+    def __init__(self, expect, per_step, profile_at=None,
+                 resume_ref=None):
         self.expect, self.profile_at = expect, profile_at
+        self.per_step = list(per_step) + [0]
         self.resume_ref = resume_ref
         self.steps, self.host_ms, self.gap_ms, self.losses = [], [], [], []
         self.saves, self.restored, self.dcn, self.evals = [], [], [], []
@@ -2715,10 +2894,9 @@ class TrainWatch:
             check(all(math.isfinite(v) for v in m.values()),
                   ('trainrun step', state.step, m))
             counts = [b - a for a, b in zip(before, after)]
-            check(counts == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP,
-                             K1_PER_STEP, 0],
+            check(counts == self.per_step,
                   ('trainrun step launches (K4, K4 backward, K1, K1 '
-                   'backward, K3)', state.step, counts))
+                   'backward, K3)', state.step, counts, self.per_step))
             self.steps.append(ev[0].elapsed_time(ev[1]))
             self.host_ms.append(host)
             self.losses.append(m)
@@ -2868,7 +3046,8 @@ def trainrun(eval_data, synthetic_median, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    with TrainWatch(expect, profile_at=3).watching() as w:
+    per_step = tpu_step()
+    with TrainWatch(expect, per_step, profile_at=3).watching() as w:
         state = train_model(cfg, work_dir=work, max_steps=TRAIN_STEPS,
                             log_interval=2)
         torch.cuda.synchronize()
@@ -2897,8 +3076,8 @@ def trainrun(eval_data, synthetic_median, smi):
     phase('trainrun', f'train_model exp_panoptic_tpu, B=4 640x1344 bf16 on '
           f'f32 master weights from the disk mix: {TRAIN_STEPS} steps in '
           f'{secs:.1f} s (build, loader, saves, checks, eval included); '
-          f'every loss finite; K4 launches {K4_PER_STEP} + {K4_PER_STEP} '
-          f'and K1 {K1_PER_STEP} + {K1_PER_STEP} each step, no K3; losses '
+          f'every loss finite; K4 launches {per_step[0]} + {per_step[1]} '
+          f'and K1 {per_step[2]} + {per_step[3]} each step, no K3; losses '
           + ', '.join(f"{m['loss']:.5g}" for m in w.losses))
     # the profiler's overhead stretches the profiled step several times
     # over: its device busy time is held against the other steps' median
@@ -2922,7 +3101,7 @@ def trainrun(eval_data, synthetic_median, smi):
 
     # resume from the latest save for one step; the same step from the
     # first run's final state in memory on the same batch is the reference
-    with TrainWatch(expect, resume_ref=state).watching() as r:
+    with TrainWatch(expect, per_step, resume_ref=state).watching() as r:
         again = train_model(cfg, work_dir=work, resume_from='latest',
                             max_steps=TRAIN_STEPS + 1, log_interval=2)
         torch.cuda.synchronize()
@@ -3035,8 +3214,8 @@ def dp_train_job(rank, group, dev, opts, work):
     """``train_model`` on exp_panoptic_tpu from phase 8's mix on disk, this
     rank's DP_BATCH a step of the global batch, bf16 on f32 master weights,
     DP_STEPS steps (one epoch: the save, the DCN-offset check, the sharded
-    eval hook). Each step: 12 + 12 K4 and 16 + 16 K1 launches, no K3, every
-    metric finite, host ms around it (synchronised) and around its gradient
+    eval hook). Each step: K4 and K1 ``tpu_step()`` times (with remat 24 +
+    12 and 32 + 16), no K3, every metric finite, host ms around it (synchronised) and around its gradient
     all-reduce. Returns those, the run's launches, this rank's peak memory
     and its elements that differ from rank 0's replica."""
     import numpy as np
@@ -3050,6 +3229,7 @@ def dp_train_job(rank, group, dev, opts, work):
     real_make, real_reduce = train_api.make_train_step, \
         step_api.all_reduce_grads
     steps, reduce_ms, losses = [], [], []
+    per_step = tpu_step()
 
     def timed_reduce(grads, group_):
         torch.cuda.synchronize(dev)
@@ -3073,10 +3253,9 @@ def dp_train_job(rank, group, dev, opts, work):
                 'gather.launches', 'gather.backward_launches',
                 'dcn_shift.launches', 'dcn_shift.backward_launches',
                 'oks_nms.launches')]
-            check(got == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP,
-                          K1_PER_STEP, 0],
+            check(got == list(per_step) + [0],
                   ('dataparallel step launches (K4, K4 backward, K1, K1 '
-                   'backward, K3)', rank, state.step, got))
+                   'backward, K3)', rank, state.step, got, per_step))
             m = {k: float(v) for k, v in metrics.items()}
             check(all(math.isfinite(v) for v in m.values()),
                   ('dataparallel step', rank, state.step, m))
@@ -3285,7 +3464,7 @@ def dp_full_width_nccl(group, dev):
     """One full-width B=4 640x1344 bf16 step of exp_panoptic_tpu through
     the group path over NCCL (the 266 MB gradient all-reduce, the BN
     all-reduces) beside the same step without a group from the same seed:
-    K4's 12 + 12 and K1's 16 + 16 launches and finite metrics on both.
+    K4's and K1's ``tpu_step()`` launches and finite metrics on both.
     Returns each loss term's relative difference (not held: at full depth a
     random-init train-mode forward amplifies the BN sums' order of
     summation, as it amplifies the card's and the CPU's rounding)."""
@@ -3300,6 +3479,7 @@ def dp_full_width_nccl(group, dev):
     batch = {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(
         4, H, W, int(head.num_joints), int(head.root_idx)).items()}
     got = {}
+    per_step = list(tpu_step())
     for name, g in (('none', None), ('nccl', group)):
         state, step, _, _ = make_trainer(cfg, torch.bfloat16, dev, 4, (H, W),
                                          group=g)
@@ -3311,8 +3491,7 @@ def dp_full_width_nccl(group, dev):
             'gather.launches', 'gather.backward_launches',
             'dcn_shift.launches', 'dcn_shift.backward_launches')]
         m = {k: float(v) for k, v in metrics.items()}
-        check(n == [K4_PER_STEP, K4_PER_STEP, K1_PER_STEP, K1_PER_STEP] and
-              all(math.isfinite(v) for v in m.values()),
+        check(n == per_step and all(math.isfinite(v) for v in m.values()),
               ('full-width step', name, n, m))
         got[name] = m
         del state, step
@@ -3369,7 +3548,8 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
           f'1e-4 (grad_norm 1e-3), updates within {w1[0]:.3g} of their '
           f'tolerance ({CARD_CPU_RTOL:g} of each leaf\'s largest; zero '
           f'leaves {w1[1]:.3g}); full width bf16 B=4 640x1344 step over '
-          f'NCCL: 12 + 12 K4 launches, finite, loss terms vs group=None '
+          f'NCCL: K4, K1 launches {list(tpu_step())}, finite, loss terms '
+          f'vs group=None '
           + ', '.join(f'{k} {v:.3g}' for k, v in full.items())
           + ' (relative, not held: full depth amplifies the order of the '
           f'BN sums); run_test through the group: {people} people, poses '
@@ -3401,12 +3581,13 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
     check(len(logs) == 1 and f'eval @ step {DP_STEPS}: MPJPE' in text and
           f'dcn offsets @ step {DP_STEPS}' in text,
           ('W=2 train_model: rank 0\'s log', logs))
+    per_step = tpu_step()
     for t in tr:
         n = t['launches']
         check(n['dcn_shift.launches'] > 0 and n['oks_nms.launches'] > 0 and
               n['gather.launches'] > 0 and
-              n['gather.backward_launches'] == K4_PER_STEP * DP_STEPS and
-              n['dcn_shift.backward_launches'] == K1_PER_STEP * DP_STEPS and
+              n['gather.backward_launches'] == per_step[1] * DP_STEPS and
+              n['dcn_shift.backward_launches'] == per_step[3] * DP_STEPS and
               n['gather.sampler_launches'] > 0,
               ('W=2 train_model launches', n))
     evals = [r['eval'] for r in gloo]
@@ -3421,8 +3602,8 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
           f'tolerance (zero leaves {w2[1]:.3g}), replicas bit-equal; '
           f'train_model exp_panoptic_tpu at B={DP_BATCH} a rank (global '
           f'{2 * DP_BATCH}) 640x1344 bf16, {DP_STEPS} steps: every loss '
-          f'finite, K4 {K4_PER_STEP} + {K4_PER_STEP} and K1 {K1_PER_STEP} '
-          f'+ {K1_PER_STEP} a step on each rank, '
+          f'finite, K4 {per_step[0]} + {per_step[1]} and K1 {per_step[2]} '
+          f'+ {per_step[3]} a step on each rank, '
           f"{tr[0]['tensors']} tensors and the momentum bit-equal across "
           f'ranks, one checkpoint ({ckpts[1]}), the eval hook and DCN check '
           f'in rank 0\'s log; losses '
@@ -3823,6 +4004,480 @@ def tools(served_sd, expect, smi):
     return {k: bf16[k] + f32[k] for k in bf16}
 
 
+# ----------------------------------------- 11-15. the reference's recipes
+
+PANOPTIC_CFG = os.path.join(HERE, 'configs', 'das', 'exp_panoptic.py')
+MUPOTS_CFG = os.path.join(HERE, 'configs', 'das', 'exp_mupots.py')
+RECIPES_DIR = os.path.join(HERE, 'build', 'chip_smoke_recipes')
+# exp_mupots's test bucket: a 1920x1080 MuPoTS-3D frame at its test scale
+# (1280, 768), ratio kept (1280x720), padded to a multiple of 32
+MUPOTS_HW = (736, 1280)
+MUPOTS_F = 1500.0
+# exp_mupots's train bucket: the largest of its ResizePose scales
+# (1280, 800), padded to a multiple of 32
+MUPOTS_TRAIN_HW = (800, 1280)
+MUPOTS_TRAIN_STEPS = 3
+# phase 15: train_run.py on exp_panoptic_tpu from disk, 2 epochs
+RUN_STEPS = 40
+RUN_IMAGES = 80
+
+
+def serve_launches(cfg, hw):
+    """(row gathers, fused samples) of one served B=4 request of an
+    exact-gather ('patch') config at the ``hw`` bucket, derived from the
+    model code: every DCN call (the 3 towers' last convs and each RU
+    layer's update conv at 4 levels) one fused sample of its nine taps;
+    each RU layer but the last two samples a level; the last, at a level
+    of more than ``nms_pre`` points, the grouped take_at and two samples,
+    else two samples."""
+    head = cfg.model.bbox_head
+    check(head.get('dcn_gather_mode', 'patch') == 'patch',
+          'serve_launches counts the exact gather only')
+    layers = int(head.recursive_update.get('num_layers', 1))
+    nms_pre = int(cfg.model.test_cfg.nms_pre)
+    sparse = bool(cfg.model.test_cfg.get('sparse_refine'))
+    big = [(hw[0] // (4 * 2 ** i)) * (hw[1] // (4 * 2 ** i)) > nms_pre
+           for i in range(4)]
+    gathers = sum(big) if sparse else 0
+    return gathers, (12 + 4 * layers) + 8 * layers
+
+
+def recipe_expect(cfg, hw):
+    """main_path's and eval's per-request counts of a 'patch' config: no K1
+    or K2, one K3 (the decode's), ``serve_launches``'s K4."""
+    from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
+    gathers, samples = serve_launches(cfg, hw)
+    return {(dcn_shift, 'launches'): 0, (dcn_shift, 'wgmma_launches'): 0,
+            (dcn_shift, 'backward_launches'): 0, (conv_gn, 'launches'): 0,
+            (oks_nms, 'launches'): 1, (gather, 'launches'): gathers,
+            (gather, 'backward_launches'): 0,
+            (gather, 'sampler_launches'): samples}
+
+
+def panoptic_serving():
+    """Phase 11 ("panoptic"): configs/das/exp_panoptic.py, the reference's
+    Panoptic recipe, served: 3 B=4 640x1152 bf16 requests through
+    ``make_predict_fn`` (every DCN the exact 'patch' gather: one fused
+    sample of nine taps a call, no K1), each request's launches as
+    ``serve_launches`` derives them; then its kernel path against the
+    CPU's plain path at 128x160 fp32. Returns the requests' launches."""
+    from das_tpu_torch.config import Config
+    expect = recipe_expect(Config.fromfile(PANOPTIC_CFG), (640, 1152))
+    model, _, n, _, _ = main_path(PANOPTIC_CFG, 3, expect)
+    del model
+    kernel_path_vs_plain_path(PANOPTIC_CFG, (0, 0))
+    return n
+
+
+def panoptic_training():
+    """Phase 12 ("train"): exp_panoptic's train step, its 'clip' DCNs (K4's
+    row gather and adjoint at every DCN), at B=4 640x1344 bf16 on f32
+    master weights: ``train_full_width`` (3 steps and one profiled step:
+    step ms, peak memory, device busy ms; K4's launches a step as
+    ``train_step_launches`` derives them under the head's remat, no K1),
+    then its gradient pass with K4 against K4's plain pair on the card
+    (``train_k4_vs_plain_on_card``). Returns the steps' (forward,
+    backward) K4 launches."""
+    import torch
+    (fwd, bwd), (k1, k1b), run = train_full_width(3, PANOPTIC_CFG,
+                                                  profile=True)
+    check(k1 == k1b == 0, ('exp_panoptic trains no K1', k1, k1b))
+    train_k4_vs_plain_on_card(run, ('bf16',))
+    phase('train', f"exp_panoptic B=4 640x1344 bf16 ('clip'): steps "
+          + ', '.join(f'{t:.2f}' for t in run['step_ms'])
+          + f" ms, peak memory {run['peak_gib']:.2f} GiB, device busy "
+          f"{run['busy_ms']:.2f} ms a step; K4 {run['per_step'][0]} + "
+          f"{run['per_step'][1]} a step")
+    del run
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
+def write_mupots_data(n_seq=20, people=2, h=1080, w=1920, seed=0):
+    """One synthetic MuPoTS-3D frame per sequence TS1..TS20 (an h x w JPEG
+    ``TS{k}/img_000000.jpg``, the names the evaluator reads) and the
+    annotations in the reference's layout (tests/test_mupots_evaluate.py):
+    a COCO json with ``intrinsic`` and 21 image/camera joints a person, and
+    ``TS{k}/annot.mat`` + ``occlusion.mat`` (MATLAB cell arrays of
+    annot2/annot3/univ_annot3/isValidFrame structs, ``scipy.io.savemat``).
+    Returns the data root."""
+    import cv2
+    import numpy as np
+    import scipy.io as sio
+    root = os.path.join(RECIPES_DIR, 'mupots')
+    rng = np.random.RandomState(seed)
+    images, anns = [], []
+    cx, cy = w / 2, h / 2
+    for ts in range(n_seq):
+        seq = os.path.join(root, f'TS{ts + 1}')
+        os.makedirs(seq, exist_ok=True)
+        rel = f'TS{ts + 1}/img_000000.jpg'
+        cv2.imwrite(os.path.join(root, rel), block_frame(rng, h, w))
+        images.append(dict(id=ts + 1, file_name=rel, width=w, height=h,
+                           intrinsic=[MUPOTS_F, MUPOTS_F, cx, cy]))
+        cell = np.empty((1, people), object)
+        occ = np.empty((1, people), object)
+        for p in range(people):
+            base = np.array([(p - 0.5) * 900.0, rng.uniform(-150, 150),
+                             rng.uniform(2500, 3500)])
+            annot3 = base[:, None] + rng.uniform(-350, 350, (3, 17))
+            annot3[2] = np.maximum(annot3[2], 1500.0)
+            u = MUPOTS_F * annot3[0] / annot3[2] + cx
+            v = MUPOTS_F * annot3[1] / annot3[2] + cy
+            s = np.zeros((1, 1), dtype=[
+                ('annot2', 'O'), ('annot3', 'O'), ('univ_annot3', 'O'),
+                ('isValidFrame', 'O')])
+            s[0, 0] = (np.stack([u, v]), annot3, annot3.copy(),
+                       np.array([[1]]))
+            cell[0, p] = s
+            occ[0, p] = np.zeros((1, 17))
+            img = np.concatenate([np.stack([u, v], 1),
+                                  np.stack([u, v], 1)[:4]])
+            cam = np.concatenate([annot3.T, annot3.T[:4]])
+            bbox = [float(u.min()), float(v.min()), float(np.ptp(u)),
+                    float(np.ptp(v))]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=ts + 1, category_id=1, iscrowd=0,
+                bbox=bbox, area=bbox[2] * bbox[3],
+                keypoints_img=img.tolist(), keypoints_cam=cam.tolist(),
+                keypoints_vis=[1] * 21))
+        sio.savemat(os.path.join(seq, 'annot.mat'), {'annotations': cell})
+        sio.savemat(os.path.join(seq, 'occlusion.mat'),
+                    {'occlusion_labels': occ})
+    os.makedirs(os.path.join(root, 'annotations'), exist_ok=True)
+    dump_coco_json(os.path.join(root, 'annotations', 'MuPoTS-3D.json'),
+                   images, anns)
+    return root
+
+
+def mupots_serving():
+    """Phase 13 ("mupots"): configs/das/exp_mupots.py, the paper's
+    MuCo-3DHP + COCO recipe (21 joints, root 14, a 3-stage MSPN2, two RU
+    layers of which the last sparsifies, nms_thr 0.9), served: 3 B=4
+    736x1280 bf16 requests (its test bucket) with ``serve_launches``'s
+    launches each, K3 at J=21; ``run_test`` with device preprocessing over
+    a synthetic MuPoTS-3D set (``write_mupots_data``: 20 frames, 5 batches
+    of B=4, each with the request's launches) and the MuPoTS evaluator:
+    3DPCK of the card's outputs (random weights: near 0, finite); then its
+    kernel path against the CPU's plain path at 128x160 fp32, full depth
+    (the eval forward is well conditioned: a one-ulp change of every weight
+    moves its head outputs by 6.6e-6 on the CPU, as exp_panoptic_tpu's by
+    7.3e-6). Returns the requests' and the sweep's launches."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import run_test
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.datasets import build_dataset
+    from das_tpu_torch.tools.profile_kernels import pose_template
+    cfg = Config.fromfile(MUPOTS_CFG)
+    expect = recipe_expect(cfg, MUPOTS_HW)
+    model, _, n, _, _ = main_path(MUPOTS_CFG, 3, expect, hw=MUPOTS_HW)
+    root = write_mupots_data()
+    cfg.merge_from_dict({
+        'data.test.data_root': root, 'data.test.num_workers': 4,
+        'data.test.ann_file': os.path.join(root, 'annotations',
+                                           'MuPoTS-3D.json')})
+    ds = build_dataset(cfg.data['test'])
+    pose_template(model)
+    with per_batch_counts(model, expect) as batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = run_test(model, ds, cfg, batch_size=4, progress=False,
+                        device_preprocess=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+    labels = {count_label(k): v for k, v in expect.items()}
+    check(len(batches) == len(ds) // 4 and all(b == labels for b in batches),
+          ('exp_mupots eval batches launches', batches, labels))
+    people = [len(o['poses']) for o in outs]
+    check(sum(people) > 0 and all(
+        np.isfinite(o['poses']).all() and o['poses'].shape[1:] == (21, 3)
+        for o in outs), ('exp_mupots sweep poses', people))
+    t = time.perf_counter()
+    res = ds.evaluate(outs)
+    ev_secs = time.perf_counter() - t
+    check(np.isfinite(res['pck_mean']) and np.isfinite(res['pck_mean_abs'])
+          and sum(k.startswith('pck_TS') for k in res) == 20,
+          ('exp_mupots 3DPCK', {k: res[k] for k in list(res)[:4]}))
+    sweep = {k: sum(b[k] for b in batches) for k in labels}
+    phase('mupots', f'run_test(device_preprocess=True) over {len(ds)} '
+          f'synthetic MuPoTS-3D 1920x1080 JPEGs (TS1-TS20), '
+          f'{len(batches)} batches of B=4 {MUPOTS_HW[0]}x{MUPOTS_HW[1]} '
+          f'bf16 in {secs:.2f} s ({len(ds) / secs:.2f} images/s); people '
+          f'per image {people}; MuPoTS evaluator on the card\'s outputs '
+          f'({ev_secs:.1f} s, 4 spawned workers): 3DPCK '
+          f"{res['PCK_MEAN:']}, PCK_abs {res['PCK_MEAN_ABS:']} (random "
+          f'weights); launches per batch as a request\'s: '
+          + ', '.join(f'{v} {k}' for k, v in labels.items()))
+    del model
+    torch.cuda.empty_cache()
+    kernel_path_vs_plain_path(MUPOTS_CFG, (0, 0))
+    return n, sweep
+
+
+def write_muco_data(root, rng, n=8, h=2048, w=2048):
+    """``n`` MuCo-3DHP composite frames (h x w JPEGs) with 3 people each
+    (21 joints, the pelvis 14 the root, visible, well inside the frame;
+    pseudo cameras f 1500) and their json; returns the json's path."""
+    import cv2
+    import numpy as np
+    images, anns = [], []
+    for i in range(n):
+        fname = f'muco_{i:02d}.jpg'
+        cv2.imwrite(os.path.join(root, fname), block_frame(rng, h, w))
+        images.append(dict(id=i + 1, file_name=fname, width=w, height=h,
+                           f=[MUPOTS_F, MUPOTS_F], c=[w / 2, h / 2]))
+        for p in range(3):
+            cx, cy = w * (0.3 + 0.2 * p), h * (0.45 + 0.04 * p)
+            img = np.array([cx, cy]) + rng.randn(21, 2) * [w / 40, h / 12]
+            img[14] = [cx, cy]
+            z = 3000.0 + 300 * p + rng.randn(21) * 80
+            cam = np.stack([(img[:, 0] - w / 2) / MUPOTS_F * z,
+                            (img[:, 1] - h / 2) / MUPOTS_F * z, z], 1)
+            vis = (rng.rand(21) > 0.1).astype(float)
+            vis[14] = 1.0
+            u, v = img.T
+            bbox = [float(u.min()), float(v.min()), float(np.ptp(u) + 4),
+                    float(np.ptp(v) + 4)]
+            anns.append(dict(
+                id=len(anns) + 1, image_id=i + 1, category_id=1, bbox=bbox,
+                area=bbox[2] * bbox[3], iscrowd=0,
+                keypoints_img=img.tolist(), keypoints_cam=cam.tolist(),
+                keypoints_vis=vis.tolist()))
+    return dump_coco_json(os.path.join(root, 'muco_train.json'), images,
+                          anns)
+
+
+def remat_vs_plain(cfg_path, opts, B, hw):
+    """exp_mupots's gradient pass at ``B`` ``hw`` bf16, from the same
+    weights and batch, with ``remat`` as shipped (the backbone's stages)
+    and with ``remat=False``: the peak memory of each and a timed step of
+    each (CUDA events, after one untimed). Four passes (remat, plain,
+    plain, remat): the loss terms and the BatchNorm running statistics
+    after the first pass of each equal bit for bit (the forward is the same
+    computation, and the recompute leaves the statistics alone); the
+    gradients as ``grads_vs_plain`` holds kernel against plain (GRAD_NOISE
+    times each leaf's own pass-to-pass spread, or 1e-3 of its largest: K4's
+    adjoint and cuDNN's weight gradients add in no fixed order, so two
+    passes of one model differ too). Raises torch.cuda.OutOfMemoryError
+    where the plain step does not fit."""
+    import torch
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.tools.profile_train import make_trainer, \
+        synthetic_batch
+    cfg = Config.fromfile(cfg_path)
+    cfg.merge_from_dict(opts)
+    head = cfg.model.bbox_head
+    batch = synthetic_batch(B, *hw, int(head.num_joints),
+                            int(head.root_idx), seed=2)
+    featmaps = [(hw[0] // (4 * 2 ** i), hw[1] // (4 * 2 ** i))
+                for i in range(4)]
+    out = {}
+    passes = {}
+    for name, on in (('remat', True), ('plain', False)):
+        c = Config.fromfile(cfg_path)
+        c.merge_from_dict(dict(opts, **{'model.backbone.remat': on}))
+        state, step, _, max_pos = make_trainer(c, torch.bfloat16, 'cuda', B,
+                                               hw, seed=5)
+        args = (c, batch, featmaps, max_pos)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        la, ga = loss_grads(state.model, *args)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stats = {k: v.clone() for k, v in state.model.state_dict().items()
+                 if k.endswith(('running_mean', 'running_var'))}
+        lb, gb = loss_grads(state.model, *args)
+        dev_batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        state, _ = step(state, dev_batch)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        state, _ = step(state, dev_batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        passes[name] = (la, ga, lb, gb, stats)
+        out[name] = dict(peak_gib=peak, step_ms=ev[0].elapsed_time(ev[1]))
+        del state, step, ga, gb
+        torch.cuda.empty_cache()
+    la, ga, ld, gd, sa = passes['remat']
+    lb, gb, lc, gc, sb = passes['plain']
+    check(la == lb and lc == lb and ld == la,
+          ('exp_mupots loss terms, remat vs plain', la, lb))
+    check(sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k])
+                                           for k in sb),
+          'exp_mupots BN running statistics, remat vs plain')
+    ab, bc, ad, own, real, held, worst, where = grads_vs_plain(
+        ga, gb, gc, gd, 'remat')
+    out.update(real=len(real), held=held, worst=worst, where=where,
+               ab=max(ab[k] / own[k] for k in real),
+               bc=max(bc[k] / own[k] for k in real),
+               ad=max(ad[k] / own[k] for k in real),
+               equal=sum(ab[k] == 0.0 for k in gb), leaves=len(gb),
+               stats=len(sb), losses=la)
+    return out
+
+
+def mupots_training(smi):
+    """Phase 14 ("mupots"): exp_mupots trained through ``train_model`` on
+    its shipped MuCo-3DHP + COCO mix (``RepeatDataset(convert_ids='muco')``)
+    from disk: 8 synthetic 2048x2048 MuCo frames and 8 COCO-17 frames
+    under ``build/``, its random pipelines, its 800x1280 bucket, B=4 bf16
+    on f32 master weights, MUPOTS_TRAIN_STEPS steps (K4's launches a step
+    as ``train_step_launches`` derives them: 'clip' DCNs, two RU layers, no
+    K1 or K3; one step profiled for the device's busy ms); then
+    ``remat_vs_plain`` at B=4: the step with ``remat`` as shipped and with
+    ``remat=False``. If the plain step does not fit on the card, that is
+    printed as a finding and the comparison runs at B=2 (named as the
+    cut). Returns the run's launches."""
+    import numpy as np
+    import torch
+    from das_tpu_torch.apis import train_model
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.datasets.loader import train_pad_hw_from_cfg
+    from das_tpu_torch.ops import dcn_shift, gather, oks_nms
+    root = os.path.join(RECIPES_DIR, 'muco')
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(3)
+    opts = {'data.train.0.data_root': root,
+            'data.train.0.ann_file': write_muco_data(root, rng),
+            'data.train.1.dataset.data_root': root,
+            'data.train.1.dataset.img_prefix': root,
+            'data.train.1.dataset.ann_file': write_coco_data(root, rng),
+            'checkpoint_config.max_keep_ckpts': 1,
+            'model.pretrained': None}
+    cfg = Config.fromfile(MUPOTS_CFG)
+    cfg.merge_from_dict(opts)
+    hw = train_pad_hw_from_cfg(cfg.data.train[0].pipeline)
+    check(tuple(hw) == MUPOTS_TRAIN_HW, ('exp_mupots train bucket', hw))
+    per_step = train_step_launches(cfg, hw, 128 * 4)
+    work = os.path.join(RECIPES_DIR, 'mupots_work')
+    if os.path.isdir(work):
+        import shutil
+        shutil.rmtree(work)
+    counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
+              (oks_nms, 'launches'), (gather, 'launches'),
+              (gather, 'backward_launches'), (gather, 'sampler_launches')]
+    for mod, attr in counts:
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with TrainWatch({}, per_step, profile_at=1).watching() as w:
+        state = train_model(cfg, work_dir=work,
+                            max_steps=MUPOTS_TRAIN_STEPS, log_interval=1)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = {count_label(k): getattr(*k) for k in counts}
+    check(state.step == MUPOTS_TRAIN_STEPS
+          and len(w.steps) == MUPOTS_TRAIN_STEPS,
+          ('exp_mupots train_model steps', state.step, len(w.steps)))
+    check(sorted(os.listdir(os.path.join(work, 'ckpts'))) ==
+          ['meta.json', f'step_{MUPOTS_TRAIN_STEPS:08d}.pt'],
+          'exp_mupots train_model checkpoint')
+    plain = [x for i, x in enumerate(w.steps) if i != w.profile_at]
+    phase('mupots', f'train_model exp_mupots (MuCo + COCO from disk, '
+          f'ResizePose ranges, B=4 {hw[0]}x{hw[1]} bf16 on f32 master '
+          f'weights): {MUPOTS_TRAIN_STEPS} steps in {secs:.1f} s (build, '
+          f'loader, save included); steps (CUDA events) '
+          + ', '.join(f'{x:.2f}' for x in w.steps)
+          + f' ms, step {w.profile_at} profiled: device busy '
+          f'{w.busy_ms:.2f} ms; peak memory {peak:.2f} GiB; K4 '
+          f'{per_step[0]} + {per_step[1]} a step, no K1, no K3; losses '
+          + ', '.join(f"{m['loss']:.5g}" for m in w.losses) + f'; {smi}')
+    del state
+    torch.cuda.empty_cache()
+
+    B = 4
+    try:
+        r = remat_vs_plain(MUPOTS_CFG, opts, B, MUPOTS_TRAIN_HW)
+    except torch.cuda.OutOfMemoryError as e:
+        r = None
+        err = str(e).splitlines()[0]
+    if r is None:
+        torch.cuda.empty_cache()
+        phase('mupots', f'FINDING: exp_mupots with remat=False does not fit '
+              f'on the card at B={B} {MUPOTS_TRAIN_HW[0]}x'
+              f'{MUPOTS_TRAIN_HW[1]} ({err}); the comparison below is cut '
+              f'to B=2')
+        B = 2
+        r = remat_vs_plain(MUPOTS_CFG, opts, B, MUPOTS_TRAIN_HW)
+    phase('mupots', f'exp_mupots step B={B} {MUPOTS_TRAIN_HW[0]}x'
+          f'{MUPOTS_TRAIN_HW[1]} bf16, same weights and batch: remat as '
+          f"shipped (the backbone's stages) {r['remat']['step_ms']:.2f} ms, "
+          f"peak memory of its gradient pass {r['remat']['peak_gib']:.2f} "
+          f"GiB; remat=False {r['plain']['step_ms']:.2f} ms, "
+          f"{r['plain']['peak_gib']:.2f} GiB; loss terms equal bit for bit "
+          f"({', '.join(f'{k} {v:.6g}' for k, v in r['losses'].items())}), "
+          f"{r['stats']} BN running statistics equal bit for bit; "
+          f"gradients: remat vs plain max err / max|leaf| {r['ab']:.3g} "
+          f"over {r['real']} leaves, plain vs plain {r['bc']:.3g}, remat vs "
+          f"remat {r['ad']:.3g}; {r['equal']} of {r['leaves']} leaves "
+          f"equal; worst leaf at {r['worst']:.3g} of its tolerance "
+          f"({r['where']}); {smi}")
+    return launches
+
+
+def train_run_short(smi):
+    """Phase 15 ("train_run"): ``das_tpu_torch/tools/train_run.py`` in this
+    process on exp_panoptic_tpu ('shift': K1 forward and backward) for
+    RUN_STEPS steps of B=4 512x960 bf16 from RUN_IMAGES synthetic JPEGs (2
+    epochs: 2 saves, the DCN-offset check at each): its artifact parses
+    from its file, its losses are finite, the run's K4 adjoint and K1
+    backward launches are ``train_step_launches``'s a step. Returns the
+    run's launches."""
+    import torch
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.ops import dcn_shift, gather, oks_nms
+    from das_tpu_torch.tools import train_run
+    base = os.path.join(RECIPES_DIR, 'train_run')
+    work, out = os.path.join(base, 'work'), os.path.join(base, 'run.json')
+    if os.path.isdir(work):
+        import shutil
+        shutil.rmtree(work)
+    counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
+              (dcn_shift, 'backward_tiled_launches'), (oks_nms, 'launches'),
+              (gather, 'launches'), (gather, 'backward_launches'),
+              (gather, 'sampler_launches')]
+    for mod, attr in counts:
+        setattr(mod, attr, 0)
+    t = time.perf_counter()
+    art = train_run.main([
+        '--config', SERVING_CFG, '--steps', str(RUN_STEPS),
+        '--images', str(RUN_IMAGES), '--workers', '4',
+        '--data-dir', os.path.join(base, 'data'), '--work-dir', work,
+        '--out', out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = {count_label(k): getattr(*k) for k in counts}
+    with open(out) as f:
+        check(json.load(f) == art, 'train_run: the artifact file')
+    per_step = train_step_launches(Config.fromfile(SERVING_CFG), (512, 960),
+                                   128 * 4)
+    check(art['finite'] and art['steps'] == RUN_STEPS
+          and art['device'] == torch.cuda.get_device_name(0)
+          and art['checkpoints'][-1] == f'step_{RUN_STEPS:08d}.pt',
+          ('train_run artifact', art))
+    check(launches['gather.backward_launches'] == per_step[1] * RUN_STEPS
+          and launches['dcn_shift.backward_launches']
+          == per_step[3] * RUN_STEPS
+          and launches['dcn_shift.backward_tiled_launches']
+          == launches['dcn_shift.backward_launches']
+          and launches['gather.launches'] >= per_step[0] * RUN_STEPS
+          and launches['dcn_shift.launches'] >= per_step[2] * RUN_STEPS,
+          ('train_run launches', launches, per_step))
+    phase('train_run', f'python -m das_tpu_torch.tools.train_run --config '
+          f'configs/das/exp_panoptic_tpu.py --steps {RUN_STEPS} (B=4 '
+          f'512x960 bf16, {RUN_IMAGES} synthetic JPEGs): {secs:.1f} s; '
+          f"finite {art['finite']}, decreasing {art['decreasing']}, loss "
+          f"first-10 {art['loss_first10']}, last-10 {art['loss_last10']}, "
+          f"step s p50 {art['step_s_p50']} p90 {art['step_s_p90']}, "
+          f"checkpoints {art['checkpoints']}; launches {launches} (K4 "
+          f'{per_step[0]} + {per_step[1]} and K1 {per_step[2]} + '
+          f'{per_step[3]} a step, the DCN checks\' forwards beside); {smi}')
+    return launches
+
+
 def main():
     import torch
     name, smi = environment()
@@ -3924,6 +4579,45 @@ def main():
                    (k4, 'gather.launches'), (k4s, 'gather.sampler_launches')):
         k['launches'] += n10[key]
         k['phase10_launches'] = n10[key]
+    torch.cuda.empty_cache()
+    # the reference's recipes: exp_panoptic served and trained ('patch' /
+    # 'clip': K4 alone), exp_mupots served, evaluated and trained, and the
+    # sustained run's tool
+    n11 = panoptic_serving()
+    n12 = panoptic_training()
+    n13, n13_sweep = mupots_serving()
+    n14 = mupots_training(smi)
+    n15 = train_run_short(smi)
+    recipes = {
+        'oks_nms.launches': n11['oks_nms.launches']
+        + n13['oks_nms.launches'] + n13_sweep['oks_nms.launches'],
+        'gather.launches': n11['gather.launches'] + n13['gather.launches']
+        + n13_sweep['gather.launches'] + n12[0] + n14['gather.launches']
+        + n15['gather.launches'],
+        'gather.backward_launches': n12[1]
+        + n14['gather.backward_launches'] + n15['gather.backward_launches'],
+        'gather.sampler_launches': n11['gather.sampler_launches']
+        + n13['gather.sampler_launches']
+        + n13_sweep['gather.sampler_launches']
+        + n15['gather.sampler_launches'],
+        'dcn_shift.launches': n15['dcn_shift.launches'],
+        'dcn_shift.backward_launches': n15['dcn_shift.backward_launches']}
+    check(n11['gather.sampler_launches'] > 0 and n12[0] > 0 and n12[1] > 0
+          and n13['oks_nms.launches'] > 0 and n14['gather.launches'] > 0
+          and n14['gather.backward_launches'] > 0
+          and n15['dcn_shift.backward_launches'] > 0,
+          ('the recipes left a kernel of their path unlaunched', recipes))
+    for k, key in ((k1, 'dcn_shift.launches'),
+                   (k1b, 'dcn_shift.backward_launches'),
+                   (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
+                   (k4b, 'gather.backward_launches'),
+                   (k4s, 'gather.sampler_launches')):
+        k['launches'] += recipes[key]
+        k['recipes_launches'] = recipes[key]
+    k1b['tiled_launches'] += n15['dcn_shift.backward_tiled_launches']
+    phase('recipes', f'exp_panoptic served ({n11}), trained (K4 {n12[0]} + '
+          f'{n12[1]}); exp_mupots served ({n13}), evaluated ({n13_sweep}), '
+          f'trained ({n14}); train_run ({n15})')
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()

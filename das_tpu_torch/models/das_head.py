@@ -45,8 +45,9 @@ class DASHead(nn.Module):
     runs each eval 3x3 conv+GN+relu module as one fused kernel call.
     ``dcn_train_gather_mode`` picks the DCN lowering under training. The
     regress ranges, center sampling and loss configs are the train step's
-    (``parallel/train_step.py``); ``remat`` is accepted so the configs build
-    unchanged."""
+    (``parallel/train_step.py``). ``remat`` makes each tower and branch
+    ``ConvModule`` its own rematerialised region under training, and is the
+    RU's default, as in the JAX head (das_head.py:123-126, :166)."""
 
     def __init__(self, num_classes: int = 1, in_channels: int = 256,
                  feat_channels: int = 256, stacked_convs: int = 2,
@@ -92,7 +93,8 @@ class DASHead(nn.Module):
                   dcn_gather_mode=dcn_gather_mode,
                   dcn_train_gather_mode=dcn_train_gather_mode,
                   dcn_shift_radius=dcn_shift_radius,
-                  dcn_shift_budget=dcn_shift_budget, fused_gn=fused_gn)
+                  dcn_shift_budget=dcn_shift_budget, fused_gn=fused_gn,
+                  remat=remat)
 
         def tower():
             return nn.ModuleList([
@@ -135,6 +137,7 @@ class DASHead(nn.Module):
 
         ru = dict(recursive_update or {})
         ru.setdefault('num_joints', num_joints)
+        ru.setdefault('remat', remat)
         ru.setdefault('dcn_gather_mode', dcn_gather_mode)
         ru.setdefault('dcn_train_gather_mode', dcn_train_gather_mode)
         ru.setdefault('dcn_shift_radius', dcn_shift_radius)

@@ -23,6 +23,7 @@ import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv_gn
 from ..ops.deform_conv import modulated_deform_conv
@@ -97,7 +98,10 @@ class BatchNorm(nn.Module):
     With a process group (``group``, which ``parallel.replicate`` sets) the
     training moments are the global batch's, over every rank, as SyncBN's;
     without one, this process's batch's. Its keys are those the reference
-    checkpoints carry, less ``num_batches_tracked``."""
+    checkpoints carry, less ``num_batches_tracked``.
+
+    ``recomputing`` (set by ``remat`` while it recomputes a region in the
+    backward) skips the running update: the forward already made it."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -106,6 +110,12 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(num_features))
         self.register_buffer('running_var', torch.ones(num_features))
         self.group = None
+        self.recomputing = False
+
+    def _update(self, mean: torch.Tensor, var: torch.Tensor):
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
+            self.running_var.mul_(0.9).add_(var, alpha=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -116,19 +126,53 @@ class BatchNorm(nn.Module):
         if self.group is not None:
             y, mean, var = _GlobalBatchNorm.apply(xf, self.weight,
                                                   self.bias, self.group)
-            with torch.no_grad():
-                self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-                self.running_var.mul_(0.9).add_(var, alpha=0.1)
+            if not self.recomputing:
+                self._update(mean, var)
             return y.to(x.dtype)
         # no running buffers here: F.batch_norm would update them with the
         # unbiased variance
         y = F.batch_norm(xf, None, None, self.weight, self.bias, True, 0.0,
                          1e-5)
-        with torch.no_grad():
-            var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
-            self.running_var.mul_(0.9).add_(var, alpha=0.1)
+        if not self.recomputing:
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
+                self._update(mean, var)
         return y.to(x.dtype)
+
+
+def remat(module: nn.Module, fn, *args):
+    """``fn(*args)`` (a forward of ``module``) as one rematerialised region,
+    JAX's ``nn.remat``: where autograd records, its activations are dropped
+    after the forward and recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant); elsewhere it is a plain
+    call. The backward graph is the one a plain call records, so losses,
+    gradients and outputs are the same bits.
+
+    The recompute runs ``module``'s train-mode BatchNorms again with
+    ``recomputing`` set, so the running statistics take one update a step,
+    bit for bit as without remat. With a process group each of them
+    all-reduces its moments again (``_GlobalBatchNorm``): the collectives
+    stay matched because every rank recomputes the same regions in the
+    same order. Kernel launch counts include the recompute's."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.recomputing = True
+        try:
+            return fn(*a)
+        finally:
+            for m in norms:
+                m.recomputing = False
+    # no region draws random numbers: no RNG state to keep for the recompute
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 class GroupNorm(nn.Module):
@@ -244,7 +288,9 @@ class ConvModule(nn.Module):
     ``fused_gn=True`` runs an eval 3x3/s1/p1 bias-free conv+GN+relu as one
     ``ops.conv_gn.conv_gn_relu`` call (the JAX module's ``_use_fused_gn``
     gate, condition for condition); the parameters, and so the state dict,
-    are those of the unfused module.
+    are those of the unfused module. ``remat=True`` makes each training
+    call one rematerialised region (``remat``), as the JAX head wraps each
+    of its ``ConvModule``s in ``nn.remat``.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -253,8 +299,10 @@ class ConvModule(nn.Module):
                  norm_cfg: Optional[dict] = None, act: Optional[str] = 'relu',
                  dcn: bool = False, dcn_gather_mode: str = 'patch',
                  dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048,
-                 fused_gn: bool = False, dcn_train_gather_mode: str = 'auto'):
+                 fused_gn: bool = False, dcn_train_gather_mode: str = 'auto',
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         use_bias = (norm_cfg is None) if bias == 'auto' else bool(bias)
         if act not in (None, 'relu'):
             raise ValueError(f'unsupported act {act}')
@@ -285,6 +333,11 @@ class ConvModule(nn.Module):
                 and self.norm_name == 'gn')
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and self.training:
+            return remat(self, self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_fused_gn():
             dt = compute_dtype(self.conv)
             out = conv_gn.conv_gn_relu(

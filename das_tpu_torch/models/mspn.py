@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from ..config.registry import BACKBONES
 from ..ops.interp import interpolate_bilinear_ac
-from .layers import BatchNorm, ConvModule, conv2d, max_pool_3x3_s2
+from .layers import BatchNorm, ConvModule, conv2d, max_pool_3x3_s2, remat
 
 
 def _nhwc(fn, x, *args):
@@ -191,9 +191,10 @@ class MSPN2(nn.Module):
     """Multi-stage MSPN backbone (ref: mspn_mmpose.py:560-667).
 
     NCHW image in; 4 maps out at strides 4/8/16/32. ``norm_eval`` is
-    recorded and does nothing, as in the JAX module; ``remat`` trades memory
-    for recompute there and is a no-op here while the full-width train step
-    fits on the card.
+    recorded and does nothing, as in the JAX module. ``remat`` makes each
+    stage one rematerialised region under training (``layers.remat``), as
+    JAX wraps each stage in ``nn.remat`` when ``train`` is set: its
+    activations are recomputed in the backward, not kept.
     """
 
     def __init__(self, unit_channels: int = 256, num_stages: int = 4,
@@ -205,6 +206,7 @@ class MSPN2(nn.Module):
         norm_cfg = norm_cfg or dict(type='BN')
         self.frozen_stages = frozen_stages
         self.norm_eval = norm_eval
+        self.remat = remat
         self.top = ResNetTop(norm_cfg, res_top_channels)
         self.multi_stage_mspn = nn.ModuleList([
             SingleStageNetwork(
@@ -235,5 +237,8 @@ class MSPN2(nn.Module):
         skip1 = skip2 = None
         out = None
         for stage in self.multi_stage_mspn:
-            out, skip1, skip2, x = stage(x, skip1, skip2)
+            if self.remat and self.training:
+                out, skip1, skip2, x = remat(stage, stage, x, skip1, skip2)
+            else:
+                out, skip1, skip2, x = stage(x, skip1, skip2)
         return list(out[::-1])                   # strides [4, 8, 16, 32]

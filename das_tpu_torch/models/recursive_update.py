@@ -21,7 +21,7 @@ import torch.nn as nn
 
 from ..ops.gather import gather_rows_grouped
 from ..ops.interp import sample_bilinear_abs
-from .layers import ConvModule, conv2d
+from .layers import ConvModule, conv2d, remat
 
 
 def _fold(x: torch.Tensor, J: int, c: int) -> torch.Tensor:
@@ -204,9 +204,12 @@ class RecursiveUpdateBranch(nn.Module):
 
     ``select_idx`` (N, K) restricts the LAST layer's re-sampling to those
     flat spatial points; the return value is then
-    ``(dense_base_field, (N, K, J*dim) refined)``. ``prev_loss`` is read by
-    the head's loss; ``remat`` and ``gather_mode`` (a TPU lowering of the one
-    bilinear sampler) are accepted so the configs build unchanged.
+    ``(dense_base_field, (N, K, J*dim) refined)``; earlier layers stay
+    dense, since the next layer's gated update reads the whole refined
+    field (JAX recursive_update.py:418-429). ``remat`` makes each layer one
+    rematerialised region under training (``layers.remat``). ``prev_loss``
+    is read by the head's loss; ``gather_mode`` (a TPU lowering of the one
+    bilinear sampler) is accepted so the configs build unchanged.
     """
 
     def __init__(self, num_joints: int, num_heads: int = 4,
@@ -218,6 +221,7 @@ class RecursiveUpdateBranch(nn.Module):
                  dcn_shift_radius: int = 2, dcn_shift_budget: int = 2048):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         self.reduction = ConvModule(in_channels, feat_channels, 1, 1, 0,
                                     norm_cfg=dict(type='GN', num_groups=32))
         for i in range(num_layers):
@@ -233,5 +237,9 @@ class RecursiveUpdateBranch(nn.Module):
         feat = self.reduction(feat)
         for i in range(self.num_layers):
             sel = select_idx if i == self.num_layers - 1 else None
-            feat, offset = getattr(self, f'layer_{i}')(feat, offset, sel)
+            layer = getattr(self, f'layer_{i}')
+            if self.remat and self.training:
+                feat, offset = remat(layer, layer, feat, offset, sel)
+            else:
+                feat, offset = layer(feat, offset, sel)
         return offset

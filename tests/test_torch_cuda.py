@@ -972,3 +972,118 @@ def test_kernel_launches_on_its_tensors_card(cuda, monkeypatch, name):
         assert err <= 1e-2 * want.float().abs().max()
     else:
         assert torch.equal(got, want)
+
+
+# exp_mupots's shape at tiny widths: a 3-stage MSPN2, 21 joints with the
+# root at 14, two RU layers, the 'patch' DCN (trains by 'clip')
+MUPOTS_J = 21
+MUPOTS_MODEL = dict(
+    TRAIN_MODEL,
+    backbone=dict(TRAIN_MODEL['backbone'], num_stages=3),
+    bbox_head=dict(
+        TRAIN_MODEL['bbox_head'], num_joints=MUPOTS_J, root_idx=14,
+        depth_factor=1,
+        recursive_update=dict(TRAIN_MODEL['bbox_head']['recursive_update'],
+                              num_joints=MUPOTS_J, num_layers=2)),
+    train_cfg=dict(code_weight=[1.0, 1.0, 1] + [2] * MUPOTS_J * 6,
+                   sparse_refine=True),
+    test_cfg=dict(nms_pre=100, nms_post=10, nms_thr=0.9, score_thr=0.05,
+                  sparse_refine=True))
+
+
+def _remat(cfg, on):
+    return dict(cfg, backbone=dict(cfg['backbone'], remat=on),
+                bbox_head=dict(cfg['bbox_head'], remat=on))
+
+
+def _mupots_grads(model, b, dev, hw):
+    featmaps = [(hw[0] // (4 * 2 ** i), hw[1] // (4 * 2 ** i))
+                for i in range(4)]
+    head = MUPOTS_MODEL['bbox_head']
+    targets = get_targets(featmaps, head['strides'], head['regress_ranges'],
+                          *[torch.from_numpy(b[k]).to(dev) for k in (
+                              'gt_poses_3d', 'gt_centers2d', 'gt_depths',
+                              'gt_valid')], MUPOTS_J)
+    model.zero_grad(set_to_none=True)
+    losses = model.loss(torch.from_numpy(b['img']).to(dev), targets, 64)
+    sum(v for k, v in losses.items() if 'loss' in k).backward()
+    return ({k: v.item() for k, v in losses.items()},
+            {k: p.grad.clone() for k, p in model.named_parameters()
+             if p.grad is not None},
+            {k: v.clone() for k, v in model.state_dict().items()
+             if k.endswith(('running_mean', 'running_var'))})
+
+
+def test_remat_step_on_the_card_matches_the_plain_step(cuda):
+    """The exp_mupots-shaped model's gradient pass on the card, fp32, with
+    remat in backbone, head and RU against remat=False, same weights and
+    batch. The forward is the same computation: the loss terms and the
+    BatchNorm running statistics after it equal bit for bit. The gradients
+    sum with atomics in no fixed order (K4's adjoint, cuDNN), so each leaf
+    agrees within 1e-3 of its largest plain value, or within 10x the
+    difference of two plain passes where that is more (as K4 against its
+    plain pair); a leaf zero to rounding (below 1e-6 of the largest of all)
+    within that 1e-6. The remat pass launches K4's forward once more for
+    each recomputed gather (the 12 tower DCN calls, the RU's 8 DCN calls
+    and its 8 + 10 samples at 64x96 with max_pos 64) and its adjoint as
+    often as the plain pass."""
+    hw = (64, 96)
+    b = synthetic_batch(2, *hw, MUPOTS_J, root_idx=14, seed=2)
+    out = {}
+    for on in (False, True):
+        model = build_trainable_model(_remat(MUPOTS_MODEL, on), device=cuda,
+                                      seed=1)
+        before = gather.launches, gather.backward_launches
+        first = _mupots_grads(model, b, cuda, hw)
+        ran = (gather.launches - before[0],
+               gather.backward_launches - before[1])
+        again = _mupots_grads(model, b, cuda, hw)
+        out[on] = first, again, ran
+    (lp, gp, sp), (_, gq, _), (fp, bp) = out[False]
+    (lr, gr, sr), _, (fr, br) = out[True]
+    assert lr == lp
+    assert sorted(sr) == sorted(sp)
+    for k in sp:
+        assert torch.equal(sr[k], sp[k]), k
+    # levels 0-1 (384, 96 points) sparse, 2-3 dense: 3 + 3 + 2 + 2 samples
+    # in the last RU layer, 8 in the first; 12 + 8 DCN calls
+    assert (fp, bp) == (20 + 18, 20 + 18)
+    assert (fr, br) == (fp + 12 + 8 + 18, bp)
+    assert sorted(gr) == sorted(gp)
+    top = max(float(v.abs().max()) for v in gp.values())
+    for k, want in gp.items():
+        own = float(want.abs().max())
+        tol = max(1e-3 * own, 10 * float((gq[k] - want).abs().max()))
+        if own < 1e-6 * top:
+            tol = max(tol, 1e-6 * top)
+        assert float((gr[k] - want).abs().max()) <= tol, k
+
+
+def test_k4_counts_of_a_patch_request_and_a_clip_step(cuda):
+    """K4's launches on the exp_mupots-shaped model in bf16: a served B=2
+    128x192 request (its 'patch' DCNs) makes one fused sample a DCN call
+    (12 + 8), two samples a level in the first RU layer (8) and in the
+    last (8), and a grouped take_at where a level has more than nms_pre
+    (100) points (levels 0-1: 2), with no row gather under autograd; a
+    'clip' train step at 64x96 makes 38 gathers and 38 adjoints (12 + 8 DCN
+    calls, 8 + 10 RU samples)."""
+    from das_tpu_torch.models import build_model
+    model = build_model(MUPOTS_MODEL, dtype=torch.bfloat16, device=cuda)
+    img = torch.randn(2, 128, 192, 3, device=cuda)
+    before = (gather.launches, gather.backward_launches,
+              gather.sampler_launches, dcn_shift.launches)
+    with torch.inference_mode():
+        model(img)
+    torch.cuda.synchronize()
+    assert (gather.launches - before[0], gather.backward_launches - before[1],
+            gather.sampler_launches - before[2],
+            dcn_shift.launches - before[3]) == (2, 0, 36, 0)
+    trainable = build_trainable_model(MUPOTS_MODEL, dtype=torch.bfloat16,
+                                      device=cuda)
+    b = synthetic_batch(2, 64, 96, MUPOTS_J, root_idx=14, seed=2)
+    before = (gather.launches, gather.backward_launches,
+              gather.sampler_launches)
+    _mupots_grads(trainable, b, cuda, (64, 96))
+    torch.cuda.synchronize()
+    assert (gather.launches - before[0], gather.backward_launches - before[1],
+            gather.sampler_launches - before[2]) == (38, 38, 0)

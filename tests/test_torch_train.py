@@ -73,10 +73,17 @@ TRAIN_MODEL = dict(
 )
 HEAD = TRAIN_MODEL['bbox_head']
 UPDATE_RTOL = 5e-3    # see test_train_step_matches_jax
+ULP_FACTOR = 10.0     # see step_matches_jax
+ULP_FLOOR = 1e-5      # see step_matches_jax
 
 
-def _fake_batch(B=2, G=3):
-    """tests/test_model.py's ``_fake_batch``, in numpy."""
+def _featmaps(hw):
+    return [(hw[0] // (4 * 2 ** i), hw[1] // (4 * 2 ** i)) for i in range(4)]
+
+
+def _fake_batch(B=2, G=3, J=J, hw=HW):
+    """tests/test_model.py's ``_fake_batch``, in numpy, for ``J`` joints
+    and ``hw`` images."""
     rng = np.random.RandomState(0)
     poses = np.zeros((B, G, 3 + 4 * J), np.float32)
     centers = rng.uniform(10, 80, (B, G, 2)).astype(np.float32)
@@ -87,7 +94,7 @@ def _fake_batch(B=2, G=3):
     uvd = np.concatenate([joints, rng.uniform(-0.5, 0.5, (B, G, J, 1))], -1)
     poses[..., 3:3 + 3 * J] = uvd.reshape(B, G, -1)
     poses[..., 3 + 3 * J:] = 1.0
-    return dict(img=rng.randn(B, *HW, 3).astype(np.float32),
+    return dict(img=rng.randn(B, *hw, 3).astype(np.float32),
                 gt_poses_3d=poses, gt_centers2d=centers, gt_depths=depths,
                 gt_valid=np.ones((B, G), bool))
 
@@ -411,24 +418,35 @@ def jax_step(trees):
     return run_jax_step(*trees)
 
 
-def run_jax_step(jmodel, tree):
-    """``jax_step`` for any model and tree of TRAIN_MODEL's shapes."""
-    params = jax.tree_util.tree_map(jnp.asarray, tree['params'])
-    stats = jax.tree_util.tree_map(jnp.asarray, tree['batch_stats'])
-    tx_init, tx_update = jts.make_optimizer(
-        params, jts.make_lr_fn(2e-3),
-        frozen_prefixes=jts.mspn_frozen_prefixes(1))
-    state = jts.TrainState(jnp.zeros((), jnp.int32), params, stats,
-                           tx_init(params))
-    step = jts.make_train_step(jmodel, tx_update, FEATMAPS, HEAD['strides'],
-                               HEAD['regress_ranges'], J, max_pos=MAX_POS,
-                               donate=False)
-    state, metrics = step(state, {k: jnp.asarray(v)
-                                  for k, v in _fake_batch().items()})
-    host = jax.tree_util.tree_map(np.asarray, state)
-    return ({k: float(v) for k, v in metrics.items()},
-            state_dict_from_flax(host.params, host.batch_stats),
-            state_dict_from_flax(host.opt_state['momentum']))
+def run_jax_step(jmodel, tree, joints=J, hw=HW, ulp=False):
+    """``jax_step`` for any model and tree of TRAIN_MODEL's shapes, or of
+    its head with ``joints`` joints, on ``hw`` images. With ``ulp``, a pair:
+    that result and the same step's from ``tree`` with every leaf times
+    1 + 2^-23 (one compile for both)."""
+    step = None
+    out = []
+    for t in (tree, jax.tree_util.tree_map(
+            lambda a: (a * np.float32(1 + 2.0 ** -23)).astype(np.float32),
+            tree))[:1 + ulp]:
+        params = jax.tree_util.tree_map(jnp.asarray, t['params'])
+        stats = jax.tree_util.tree_map(jnp.asarray, t['batch_stats'])
+        tx_init, tx_update = jts.make_optimizer(
+            params, jts.make_lr_fn(2e-3),
+            frozen_prefixes=jts.mspn_frozen_prefixes(1))
+        state = jts.TrainState(jnp.zeros((), jnp.int32), params, stats,
+                               tx_init(params))
+        if step is None:
+            step = jts.make_train_step(jmodel, tx_update, _featmaps(hw),
+                                       HEAD['strides'],
+                                       HEAD['regress_ranges'], joints,
+                                       max_pos=MAX_POS, donate=False)
+        state, metrics = step(state, {k: jnp.asarray(v) for k, v in
+                                      _fake_batch(J=joints, hw=hw).items()})
+        host = jax.tree_util.tree_map(np.asarray, state)
+        out.append(({k: float(v) for k, v in metrics.items()},
+                    state_dict_from_flax(host.params, host.batch_stats),
+                    state_dict_from_flax(host.opt_state['momentum'])))
+    return out if ulp else out[0]
 
 
 def test_train_step_matches_jax(trees, jax_step):
@@ -451,11 +469,21 @@ def test_train_step_matches_jax(trees, jax_step):
     step_matches_jax(TRAIN_MODEL, trees[1], jax_step)
 
 
-def step_matches_jax(model_cfg, tree, jax_step, prepare=None):
+def step_matches_jax(model_cfg, tree, jax_step, prepare=None, joints=J,
+                     hw=HW, ulp_step=None):
     """The body of ``test_train_step_matches_jax`` for ``model_cfg`` (of
-    TRAIN_MODEL's shapes) from ``tree``, against ``run_jax_step``'s
-    result; ``prepare(model)``, where given, runs once the weights are
-    loaded."""
+    TRAIN_MODEL's shapes, or of its head with ``joints`` joints, on ``hw``
+    images) from ``tree``, against ``run_jax_step``'s result;
+    ``prepare(model)``, where given, runs once the weights are loaded.
+    With ``ulp_step`` (``run_jax_step``'s result from the weights one ulp
+    away), a leaf's update, and a batch statistic, may also be off by
+    ULP_FACTOR times the two JAX steps' difference in it; an update also by
+    ULP_FLOOR of the largest update: a leaf
+    whose update is the residue of terms that cancel (a conv bias before a
+    GroupNorm, the RU's ``sampling_conf`` bias before the candidates'
+    softmax, which only the candidates off the image do not cancel) rounds
+    by the order of its terms, and one ulp, which keeps the order of the
+    operations, does not show that."""
     jm, jsd, jmom = jax_step
     model = build_trainable_model(model_cfg, device='cpu')
     model.load_state_dict(state_dict_from_flax(tree['params'],
@@ -467,9 +495,9 @@ def step_matches_jax(model_cfg, tree, jax_step, prepare=None):
     tx_init, tx_update = make_optimizer(
         model, make_lr_fn(2e-3), frozen_prefixes=mspn_frozen_prefixes(1))
     state = TrainState(0, model, tx_init(dict(model.named_parameters())))
-    step = make_train_step(tx_update, FEATMAPS, HEAD['strides'],
-                           HEAD['regress_ranges'], J, max_pos=MAX_POS)
-    state, metrics = step(state, _fake_batch())
+    step = make_train_step(tx_update, _featmaps(hw), HEAD['strides'],
+                           HEAD['regress_ranges'], joints, max_pos=MAX_POS)
+    state, metrics = step(state, _fake_batch(J=joints, hw=hw))
     assert state.step == 1 and state.opt_state['count'] == 1
     pm = {k: float(v) for k, v in metrics.items()}
     assert sorted(jm) == sorted(pm)
@@ -490,6 +518,10 @@ def step_matches_jax(model_cfg, tree, jax_step, prepare=None):
     for k, (want, got) in upd.items():
         own = np.abs(want).max()
         tol = UPDATE_RTOL * own if own >= 1e-6 * top else 1e-6 * top
+        if ulp_step is not None:
+            spread = lr * lr_mult[k] * trainable[k] * np.abs(
+                ulp_step[2][k].numpy() - jmom[k].numpy()).max()
+            tol = max(tol, ULP_FACTOR * spread, ULP_FLOOR * top)
         assert np.abs(got - want).max() <= tol, k
         p = jsd[k].numpy()
         assert np.all(np.abs(psd[k].numpy() - p)
@@ -500,8 +532,12 @@ def step_matches_jax(model_cfg, tree, jax_step, prepare=None):
     assert 0 < sum(v == 0.0 for v in trainable.values()) < len(trainable)
     for k in psd:
         if k.endswith(('running_mean', 'running_var')):
+            atol = 1e-6
+            if ulp_step is not None:
+                atol = max(atol, ULP_FACTOR * float(np.abs(
+                    ulp_step[1][k].numpy() - jsd[k].numpy()).max()))
             np.testing.assert_allclose(psd[k].numpy(), jsd[k].numpy(),
-                                       rtol=1e-4, atol=1e-6, err_msg=k)
+                                       rtol=1e-4, atol=atol, err_msg=k)
             if k.startswith(mspn_frozen_prefixes(1)):
                 assert torch.equal(psd[k], first[k]), k
 
