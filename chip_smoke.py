@@ -30,11 +30,15 @@ any failure exits nonzero and prints no result:
    ``max_keep``, also where M is no multiple of 64 or below 64), and K4:
    ``gather_rows`` (the row gather of every
    bilinear sample that takes a gradient and of the RU ``take_at``, forward
-   and backward, also against plain indexing and ``index_add_``), the
-   grouped gather (several gathers, and all their gradients, in one launch
-   each) and ``sample_rows_bilinear`` (a whole bilinear sample in one
-   launch where no gradient is asked for, bit for bit against the plain
-   composition and timed against ``F.grid_sample``);
+   and backward, also against plain indexing and zero + ``index_add_`` +
+   cast), the grouped gather (several gathers, and all their gradients, in
+   one launch each), ``sample_rows_bilinear`` (a whole bilinear sample in
+   one launch, bit for bit against the plain composition and timed against
+   ``F.grid_sample``) and its backward (against its closed form in f32 and
+   bf16 for each set of gradients, at the 'clip' DCN's level-0 shapes of
+   both recipes and the RU's train shapes, timed against its bound, the
+   plain composition's forward and backward and
+   ``aten.grid_sampler_2d_backward``);
 4. the main paths at full width, B=4 640x1152 bf16 requests through
    ``make_predict_fn``, each with the kernels' launch counts set to 0 just
    before and read just after: ``configs/das/exp_panoptic_tpu.py`` (per
@@ -50,8 +54,10 @@ any failure exits nonzero and prints no result:
    bf16 compute on f32 master weights, on a synthetic TrainLoader batch,
    with the counts set to 0 just before and read just after (per step, as
    ``train_step_launches`` derives them from the config: under the head's
-   ``remat`` 24 row gathers (12 and their recompute) and 12 adjoint
-   launches, 32 K1 forward (16 and their recompute) and 16 K1 backward,
+   ``remat`` 8 row gathers (the RU's take_at and its recompute) and 4
+   adjoints, 16 fused samples (the RU's, and their recompute) and 8
+   sample backwards, 32 K1 forward (16 and their recompute) and 16 K1
+   backward,
    all 16 on its tiled pass and timed inside each step by CUDA events, no
    plain shift expansion); then that
    step's gradient pass, full depth, in bf16 and in f32, with K4 (each
@@ -81,8 +87,8 @@ any failure exits nonzero and prints no result:
    library, none through cv2); ``apis/train.py::train_model`` on
    ``configs/das/exp_panoptic_tpu.py`` from those files through the shipped
    random pipelines, B=4 640x1344 bf16 on f32 master weights, 6 steps of 4
-   an epoch (every loss finite, 24 + 12 K4 and 32 + 16 K1 launches and no
-   K3 each step; one profiled step for the device's busy and idle share), the
+   an epoch (every loss finite, K4's 8 + 4 gathers and 16 + 8 samples
+   and K1's 32 + 16 launches and no K3 each step; one profiled step for the device's busy and idle share), the
    epoch-end save, DCN-offset check and eval hook on phase 7's frames (the
    served launch counts per batch), the final save; a resume from
    ``latest`` for one step (restored tensors, ``count`` and ``step`` bit for
@@ -97,8 +103,8 @@ any failure exits nonzero and prints no result:
    ``run_test`` through the group against phase 7's results; then two ranks
    spawned on the one card over gloo (NCCL takes one rank a card): the cut
    fp32 step at B=2 a rank against one process at B=4, ``train_model`` on
-   phase 8's mix at B=2 a rank for one epoch (4 steps; 24 + 12 K4 launches
-   a step on each rank, replicas bit-equal, one checkpoint by rank 0, the
+   phase 8's mix at B=2 a rank for one epoch (4 steps; K4's 8 + 4 and 16 +
+   8 launches a step on each rank, replicas bit-equal, one checkpoint by rank 0, the
    DCN check and the sharded eval hook), the sharded ``run_test`` against
    phase 7's results; ``python -m torch.distributed.run --nproc-per-node 2
    -m das_tpu_torch.tools.train ... --launcher pytorch --dist-backend
@@ -128,8 +134,8 @@ any failure exits nonzero and prints no result:
    ``serve_launches`` derives them), then its kernel path against the CPU's
    plain path at 128x160 fp32;
 12. its training ("train"): ``make_trainer`` steps at B=4 640x1344 bf16
-   with its 'clip' DCNs (K4's row gather and adjoint at every DCN call:
-   under the head's remat 56 + 28 a step), step ms, peak memory and the
+   with its 'clip' DCNs (K4's fused sampler and its backward at every DCN
+   call: under the head's remat 48 + 24 samples and 8 + 4 gathers a step), step ms, peak memory and the
    device's busy ms of a profiled step, and the gradient pass with K4
    against its plain pair on the card;
 13. the paper's MuPoTS recipe served and evaluated ("mupots"):
@@ -141,9 +147,10 @@ any failure exits nonzero and prints no result:
    ``occlusion.mat``) and the MuPoTS evaluator's 3DPCK of the card's
    outputs, then its kernel path against the CPU's plain path, full depth;
 14. its training ("mupots"): ``train_model`` on its MuCo-3DHP + COCO mix
-   from synthetic frames on disk, B=4 800x1280 bf16, 3 steps (40 + 40 K4
-   launches a step), then the same gradient pass and step with ``remat``
-   as shipped and with ``remat=False`` from the same weights and batch:
+   from synthetic frames on disk, B=4 800x1280 bf16, 3 steps (36 + 36 K4
+   samples and 4 + 4 gathers a step), then the same gradient pass and step
+   with ``remat`` as shipped and with ``remat=False`` from the same weights
+   and batch:
    step ms and peak memory of each, loss terms and BN statistics bit for
    bit, gradients within their pass-to-pass noise;
 15. the sustained run's tool ("train_run"): ``python -m
@@ -196,20 +203,18 @@ STARTED = time.perf_counter()
 
 
 def train_step_launches(cfg, hw, max_pos):
-    """(K4 forward, K4 backward, K1 forward, K1 backward) launches of one
-    train step of ``cfg`` at the ``hw`` bucket with ``max_pos``, derived
-    from the model code:
+    """(K4 row gathers, their adjoints, K4 samples, their backwards, K1
+    forward, K1 backward) launches of one train step of ``cfg`` at the
+    ``hw`` bucket with ``max_pos``, derived from the model code:
 
     - the DCN calls: the 3 towers' last convs and each RU layer's update
       conv at 4 levels, all of whose inputs ask for gradients; each is one
-      K1 forward and one K1 backward under ``'shift'``, or one row gather
-      of the nine taps' four corners and its adjoint under ``'clip'``;
-    - the RU's sampling, one gather and one adjoint a sample: the last
-      layer at a level of more than ``max_pos`` points (sparse) makes three
-      launches that depend on one another (the grouped take_at, the sample
-      of the offsets at the points it gives, the sample of [uvd, conf] at
-      the candidates that gives), at a dense level two; an earlier layer
-      is dense at every level;
+      K1 forward and one K1 backward under ``'shift'``, or one fused sample
+      of the nine taps and its backward under ``'clip'``;
+    - the RU's sampling, one fused sample and its backward a sample, two
+      a level in every layer; the last layer at a level of more than
+      ``max_pos`` points (sparse) also makes the grouped take_at before
+      them, one row gather and its adjoint;
     - remat (``models/layers.remat``): the head's ``remat`` recomputes each
       tower conv in the backward, the RU's (the head's by default) each RU
       layer, so their forward launches run again; no backward launch runs
@@ -228,16 +233,38 @@ def train_step_launches(cfg, hw, max_pos):
     sparse = bool((cfg.model.get('train_cfg') or {}).get('sparse_refine'))
     points = [(hw[0] // (4 * 2 ** i)) * (hw[1] // (4 * 2 ** i))
               for i in range(4)]
-    last = sum(3 if sparse and n > max_pos else 2 for n in points)
-    ru_samples = 8 * (layers - 1) + last
+    take_at = sum(sparse and n > max_pos for n in points)
+    ru_samples = 8 * layers
     towers, ru_dcn = 12, 4 * layers
     k4_dcn = int(mode == 'clip')
-    k4 = (towers + ru_dcn) * k4_dcn + ru_samples
-    k4_again = towers * k4_dcn * head_remat \
+    samples = (towers + ru_dcn) * k4_dcn + ru_samples
+    samples_again = towers * k4_dcn * head_remat \
         + (ru_dcn * k4_dcn + ru_samples) * ru_remat
     k1 = (towers + ru_dcn) * (1 - k4_dcn)
     k1_again = (towers * head_remat + ru_dcn * ru_remat) * (1 - k4_dcn)
-    return k4 + k4_again, k4, k1 + k1_again, k1
+    return (take_at * (1 + ru_remat), take_at, samples + samples_again,
+            samples, k1 + k1_again, k1)
+
+
+# the counters that train_step_launches predicts, in its order
+STEP_COUNTS = ('gather.launches', 'gather.backward_launches',
+               'gather.sampler_launches', 'gather.sampler_backward_launches',
+               'dcn_shift.launches', 'dcn_shift.backward_launches')
+
+
+def step_counts():
+    """The STEP_COUNTS counters' values now."""
+    from das_tpu_torch.ops import dcn_shift, gather
+    mods = {'gather': gather, 'dcn_shift': dcn_shift}
+    return [getattr(mods[k.split('.')[0]], k.split('.')[1])
+            for k in STEP_COUNTS]
+
+
+def step_label(per_step):
+    """A step's launches as a phrase."""
+    return (f'K4 {per_step[0]} gathers + {per_step[1]} adjoints, '
+            f'{per_step[2]} samples + {per_step[3]} sample backwards; K1 '
+            f'{per_step[4]} + {per_step[5]}')
 
 
 def tpu_step():
@@ -1059,17 +1086,26 @@ def gather_vs_plain():
         clamped = idx.long().clamp(0, R - 1)
         flat = (clamped + nidx * R).reshape(-1)
         acc = torch.zeros(N * R, C, device='cuda')
-        g2 = g.reshape(-1, C).float()
+        g2 = g.reshape(-1, C)
+        g32 = g2.float()
         ms = cuda_ms(lambda: gather.gather_rows(table, idx), 50)
         plain_ms = cuda_ms(lambda: gather.gather_rows_plain(table, idx), 20)
         lib_ms = cuda_ms(lambda: table[nidx, clamped], 50)
         bms = cuda_ms(lambda: gather.scatter_rows_cuda(
             g, idx, R, torch.bfloat16), 50)
+        live, _, zbuf, _, desc = gather._scatter_desc(
+            [g], [idx], [0], [R], [torch.bfloat16])
+        launch_ms = cuda_ms(lambda: gather._launch_scatter(
+            desc, len(live), N, zbuf), 50)
         bplain_ms = cuda_ms(lambda: gather.scatter_rows_plain(
             g, idx, R, torch.bfloat16), 20)
-        blib_ms = cuda_ms(lambda: acc.index_add_(0, flat, g2), 50)
-        zero_ms = cuda_ms(lambda: torch.zeros(N, R, C, device='cuda'), 50)
-        cast_ms = cuda_ms(lambda: acc.to(torch.bfloat16), 50)
+        # the same work as the wrapper, by PyTorch calls: the f32 zero
+        # table, index_add_ of the bf16 gradient (which it takes in f32),
+        # the cast
+        blib_ms = cuda_ms(lambda: torch.zeros(N * R, C, device='cuda')
+                          .index_add_(0, flat, g2.float())
+                          .to(torch.bfloat16), 50)
+        bare_ms = cuda_ms(lambda: acc.index_add_(0, flat, g32), 50)
         ib = idx.element_size()
         bound, by = gather_bound_ms(N, R, P, C, 2, ib)
         bbound, bby = gather_bound_ms(N, R, P, C, 2, ib, backward=True)
@@ -1078,10 +1114,13 @@ def gather_vs_plain():
               f'max err / max|ref| {errs[0][0]:.3g} f32 (<= 1e-5), {errs[1][0]:.3g}'
               f' bf16 (<= 2^-7); bf16 forward kernel {ms:.4f} ms, plain '
               f'{plain_ms:.4f} ms, indexing {lib_ms:.4f} ms, bound '
-              f'{bound:.4f} ms ({by}); backward kernel {bms:.4f} ms, plain '
-              f'{bplain_ms:.4f} ms, index_add_ {blib_ms:.4f} ms (the '
-              f"table's f32 zero-fill {zero_ms:.4f} ms, its cast "
-              f'{cast_ms:.4f} ms), bound {bbound:.4f} ms ({bby})')
+              f'{bound:.4f} ms ({by}); backward wrapper {bms:.4f} ms '
+              f'(the library call alone, zero-fill, kernel and cast: '
+              f'{launch_ms:.4f} ms), plain {bplain_ms:.4f} ms, zero + '
+              f'index_add_ + cast {blib_ms:.4f} ms ('
+              f'{"wins" if bms <= blib_ms else "loses"}; index_add_ of the '
+              f'f32 gradient alone {bare_ms:.4f} ms), bound {bbound:.4f} ms'
+              f' ({bby})')
         if what == 'probe':
             src = 'das_tpu_torch/csrc/gather_rows.cu'
             rep = 'tools/analysis_tools/pallas_gather_probe.py:36'
@@ -1095,7 +1134,7 @@ def gather_vs_plain():
                 replaces=rep + ' (its adjoint: XLA scatter-add)', launches=0,
                 max_abs_err=errs[1][1], ms=bms, plain_ms=bplain_ms,
                 bound_ms=bbound, bound_by=bby, library_ms=blib_ms,
-                shape=shape)
+                launch_ms=launch_ms, library_bare_ms=bare_ms, shape=shape)
     return entries['fwd'], entries['bwd']
 
 
@@ -1113,6 +1152,27 @@ GROUPED_SHAPES = [
          (720, 7, 5000)], 'four segments, the first and third one table'),
     (2, [(1000, 8, 3000), (1000, 6, 3000)], 'clamp'),
 ]
+
+
+def index_add_like(grads, idxs, which, rows, dt):
+    """The grouped adjoint's work by PyTorch calls, as its wrapper does it:
+    one zeroed f32 table a table, ``index_add_`` of each segment's
+    gradient at its flat clamped rows, one cast a table."""
+    import torch
+    out = []
+    for u, R in enumerate(rows):
+        acc = None
+        for g, i, w in zip(grads, idxs, which):
+            if w != u:
+                continue
+            N, P, C = g.shape
+            if acc is None:
+                acc = torch.zeros(N * R, C, device=g.device)
+            flat = i.long().clamp(0, R - 1) \
+                + torch.arange(N, device=g.device)[:, None] * R
+            acc.index_add_(0, flat.reshape(-1), g.reshape(N * P, C).float())
+        out.append(acc.to(dt))
+    return out
 
 
 def grouped_gather_vs_plain():
@@ -1171,6 +1231,8 @@ def grouped_gather_vs_plain():
             cts, idxs, which, rows, [dt] * len(uniq)), 50)
         bplain_ms = cuda_ms(lambda: gather.scatter_grouped_plain(
             cts, idxs, which, rows, [dt] * len(uniq)), 20)
+        blib_ms = cuda_ms(lambda: index_add_like(cts, idxs, which, rows,
+                                                 dt), 50)
         bound = sum(gather_bound_ms(N, R, P, C, 2, i.element_size())[0]
                     for (R, C, P), i in zip(segs, idxs))
         phase('kernel', f'gather_rows_grouped {what} (N={N}, (R, C, P) = '
@@ -1178,8 +1240,10 @@ def grouped_gather_vs_plain():
               f'backward max err / max|ref| {rel:.3g} bf16 (<= 2^-7; f32 <= '
               f'1e-5); bf16 forward one launch {ms:.4f} ms, one launch per '
               f'segment {each:.4f} ms, plain {plain_ms:.4f} ms, bound '
-              f'{bound:.4f} ms (bytes); backward one launch {bms:.4f} ms, '
-              f'plain {bplain_ms:.4f} ms')
+              f'{bound:.4f} ms (bytes); backward one launch {bms:.4f} ms '
+              f'(zero-fill, kernel, casts), plain {bplain_ms:.4f} ms, zero + '
+              f'index_add_ + cast a table {blib_ms:.4f} ms '
+              f'({"wins" if bms <= blib_ms else "loses"})')
 
 
 # (N, H, W, C, P, what): the samples of a B=4 640x1152 request: the RU's
@@ -1277,6 +1341,179 @@ def sampler_vs_plain():
                 'the weights around them)', launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, shape=f'{N}x{H}x{W}x{C} bf16, P={P}')
+    return entry
+
+
+# (N, H, W, C, P, dcn, what): the sampler's backward in training. The
+# 'clip' DCN's nine taps of every level-0 pixel of exp_panoptic's B=4
+# 640x1344 bucket and of exp_mupots' B=4 800x1280 (256 channels, taps
+# outermost); the RU's samples of a train step at its sparse level 0
+# (the sampling offsets C=8 at max_pos=512 points, [uvd, conf] C=6 at
+# 512 x 8 candidates) and at a dense level (level 3: every point, and x 8),
+# for exp_panoptic_tpu (N*J = 4 x 15) and exp_mupots (4 x 21)
+SAMPLER_BWD_SHAPES = [
+    (4, 160, 336, 256, 9 * 53760, True,
+     "exp_panoptic train level 0, 'clip' DCN"),
+    (4, 200, 320, 256, 9 * 64000, True,
+     "exp_mupots train level 0, 'clip' DCN"),
+    (60, 160, 336, 8, 512, False, 'train RU level 0 (sparse), offsets'),
+    (60, 160, 336, 6, 4096, False, 'train RU level 0 (sparse), [uvd, conf]'),
+    (60, 20, 42, 8, 840, False, 'train RU level 3 (dense), offsets'),
+    (60, 20, 42, 6, 6720, False, 'train RU level 3 (dense), [uvd, conf]'),
+    (84, 200, 320, 8, 512, False, 'exp_mupots RU level 0 (sparse), offsets'),
+    (84, 200, 320, 6, 4096, False,
+     'exp_mupots RU level 0 (sparse), [uvd, conf]'),
+    (84, 25, 40, 6, 8000, False,
+     'exp_mupots RU level 3 (dense), [uvd, conf]'),
+]
+
+
+def sampler_backward_bound_ms(x, y, H, W, C, elt):
+    """Least time for one backward of the sampler (image and coordinate
+    gradients): the bytes, the output gradient (N, P, C) and the image
+    read once, x and y read, the image gradient written once in its type
+    and dx, dy in f32; or the f32 operations these points need, two a
+    channel for each in-bounds corner of nonzero weight (its share of the
+    image gradient, product and add) and two for each in-bounds corner
+    (its share of dw_k); the larger."""
+    import torch
+    from das_tpu_torch.ops import gather
+    N, P = x.shape
+    dtype = {2: torch.bfloat16, 4: torch.float32}[elt]
+    _, inbs, ws, _ = gather._corners(x, y, H, W, dtype)
+    inb = sum(int(i.sum()) for i in inbs)
+    terms = sum(int((w != 0).sum()) for w in ws)
+    nbytes = (N * P * C + 2 * N * H * W * C) * elt + 16 * N * P
+    return bound_ms(2.0 * C * (inb + terms), PEAK_F32_FLOPS, nbytes)
+
+
+def dcn_points(N, H, W, g):
+    """A 3x3 DCN's nine taps of every pixel of an H x W map, taps outermost
+    (N, 9 H W): the pixel, the tap's shift and an offset in (-1, 1), a
+    third of the offsets whole numbers and 15% five times farther."""
+    import torch
+    tap = torch.arange(9, dtype=torch.float32)
+    ys = torch.arange(H, dtype=torch.float32)[None, :, None] \
+        + (tap // 3 - 1)[:, None, None]
+    xs = torch.arange(W, dtype=torch.float32)[None, None, :] \
+        + (tap % 3 - 1)[:, None, None]
+    off = torch.rand(2, N, 9, H, W, generator=g) * 2 - 1
+    off[:, :, ::3] = off[:, :, ::3].round()
+    off = torch.where(torch.rand(off.shape, generator=g) < 0.15, off * 5,
+                      off)
+    return (xs + off[0]).reshape(N, -1), (ys + off[1]).reshape(N, -1)
+
+
+def sampler_backward_vs_plain():
+    """The sampler's backward kernel against its closed form
+    (``gather.sample_rows_bilinear_backward_plain``) on the same inputs,
+    in f32 and bf16, for the image alone, the coordinates alone and both:
+    the image gradient, dx and dy within 1e-5 x max|ref| (f32) or one bf16
+    step (bf16); at SAMPLER_BWD_SHAPES. Timed in bf16 with every gradient
+    asked for (training's case) against its bound, the closed form, the
+    plain composition's forward and backward (the weights around K4's
+    row gather and its adjoint, the path before the sampler had a
+    backward) beside the fused forward and this backward, and
+    ``F.grid_sample``'s backward (``aten.grid_sampler_2d_backward`` on the
+    same NCHW view, align_corners=True, input and grid gradients), and the
+    kernel's image gradient alone and coordinates alone. Returns its entry
+    of the kernel table (at exp_panoptic's level-0 'clip' shape)."""
+    import torch
+    from das_tpu_torch.ops import gather
+    gen = torch.Generator().manual_seed(23)
+    entry = None
+    needs_all = (True, True, True)
+    for N, H, W, C, P, dcn, what in SAMPLER_BWD_SHAPES:
+        if not dcn:
+            x = torch.rand(N, P, generator=gen) * (W + 3) - 2
+            y = torch.rand(N, P, generator=gen) * (H + 3) - 2
+        else:
+            x, y = dcn_points(N, H, W, gen)
+        x, y = x.cuda().contiguous(), y.cuda().contiguous()
+        base = torch.randn(N, H * W, C, generator=gen).cuda()
+        gbase = torch.randn(N, P, C, generator=gen).cuda()
+        rel = {}
+        for dt in (torch.float32, torch.bfloat16):
+            flat, ct = base.to(dt), gbase.to(dt)
+            tol = 1e-5 if dt == torch.float32 else BF16_STEP
+            for needs in ((True, False, False), (False, True, True),
+                          needs_all):
+                before = gather.sampler_backward_launches
+                got = gather.sample_rows_bilinear_backward_cuda(
+                    ct, flat, x, y, H, W, needs)
+                want = gather.sample_rows_bilinear_backward_plain(
+                    ct, flat, x, y, H, W, needs)
+                torch.cuda.synchronize()
+                check(gather.sampler_backward_launches == before + 1,
+                      ('sampler backward: one launch', what))
+                for name, a, b in zip(('image', 'x', 'y'), got, want):
+                    check((a is None) == (b is None),
+                          ('sampler backward outputs', what, needs))
+                    if b is None:
+                        continue
+                    scale = b.float().abs().max().item()
+                    err = (a.float() - b.float()).abs().max().item()
+                    check(err <= tol * scale, ('sampler backward', what, dt,
+                                               needs, name, err, scale))
+                    key = (str(dt)[6:], name)
+                    rel[key] = max(rel.get(key, 0.0), err / scale)
+                    if dt == torch.bfloat16 and name == 'image':
+                        abs_err = err
+                del got, want
+        ms = cuda_ms(lambda: gather.sample_rows_bilinear_backward_cuda(
+            ct, flat, x, y, H, W, needs_all), 10)
+        image_ms = cuda_ms(lambda: gather.sample_rows_bilinear_backward_cuda(
+            ct, flat, x, y, H, W, (True, False, False)), 10)
+        xy_ms = cuda_ms(lambda: gather.sample_rows_bilinear_backward_cuda(
+            ct, flat, x, y, H, W, (False, True, True)), 10)
+        plain_ms = cuda_ms(lambda: gather.sample_rows_bilinear_backward_plain(
+            ct, flat, x, y, H, W), 3)
+        leaf = flat.clone().requires_grad_()
+        xl, yl = x.clone().requires_grad_(), y.clone().requires_grad_()
+
+        def composition():
+            out = gather.sample_rows_bilinear_plain(leaf, xl, yl, H, W)
+            torch.autograd.grad(out, (leaf, xl, yl), ct)
+
+        def fused():
+            out = gather.sample_rows_bilinear(leaf, xl, yl, H, W)
+            torch.autograd.grad(out, (leaf, xl, yl), ct)
+        comp_ms = cuda_ms(composition, 3)
+        fused_ms = cuda_ms(fused, 10)
+        nchw = flat.reshape(N, H, W, C).permute(0, 3, 1, 2)
+        grid2 = torch.stack([2 * x / (W - 1) - 1, 2 * y / (H - 1) - 1],
+                            dim=-1)[:, None].to(dt)
+        gout = ct.permute(0, 2, 1)[:, :, None]        # (N, C, 1, P) view
+        lib_ms = cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            gout, nchw, grid2, 0, 0, True, [True, True]), 10)
+        bound, by = sampler_backward_bound_ms(x, y, H, W, C, 2)
+        phase('kernel', f'sample_rows_bilinear_backward {what} '
+              f'({N}x{H}x{W}x{C}, P={P}): vs the closed form, '
+              f'max err / max|ref| '
+              + ', '.join(f'{k[0]} {k[1]} {v:.3g}' for k, v in rel.items())
+              + f' (<= 1e-5 f32, 2^-7 bf16), image alone, coordinates alone'
+              f' and both; bf16, all gradients: kernel {ms:.4f} ms (the '
+              f'image gradient alone {image_ms:.4f}, the coordinates alone '
+              f'{xy_ms:.4f}), bound {bound:.4f} ms ({by}); closed form {plain_ms:.4f}'
+              f' ms; forward + backward: fused sampler and this kernel '
+              f'{fused_ms:.4f} ms, the plain composition through K4\'s '
+              f'gather and adjoint {comp_ms:.4f} ms; '
+              f'aten.grid_sampler_2d_backward {lib_ms:.4f} ms')
+        if what.startswith('exp_panoptic train level 0'):
+            entry = dict(
+                name='sample_rows_bilinear_backward', route='cuda',
+                source='das_tpu_torch/csrc/gather_rows.cu',
+                replaces='tools/analysis_tools/pallas_gather_probe.py:36 '
+                '(the adjoints of the four row gathers of '
+                "das_tpu/ops/interp.py:68-79 ('clip') and of the weights "
+                'around them)', launches=0, max_abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms, image_ms=image_ms, coordinates_ms=xy_ms,
+                forward_backward_ms=fused_ms,
+                composition_ms=comp_ms,
+                shape=f'{N}x{H}x{W}x{C} bf16, P={P}')
+        del flat, ct, leaf
+        torch.cuda.empty_cache()
     return entry
 
 
@@ -1626,37 +1863,57 @@ def loss_grads(model, cfg, batch, featmaps, max_pos):
     return {k: float(v) for k, v in losses.items()}, grads
 
 
-@contextlib.contextmanager
-def k4_launchers(forward, backward):
-    """Within the block, the port's row gathers on CUDA tensors run
-    ``forward`` and ``backward`` in place of K4's grouped launchers
-    (``gather.gather_grouped_cuda``, ``gather.scatter_grouped_cuda``),
-    through which the one-segment gathers go too."""
+K4_LAUNCHERS = ('gather_grouped_cuda', 'scatter_grouped_cuda',
+                'sample_rows_bilinear_cuda',
+                'sample_rows_bilinear_backward_cuda')
+
+
+def k4_plain():
+    """K4's plain versions in the order of K4_LAUNCHERS."""
     from das_tpu_torch.ops import gather
-    saved = gather.gather_grouped_cuda, gather.scatter_grouped_cuda
-    gather.gather_grouped_cuda, gather.scatter_grouped_cuda = forward, \
-        backward
+    return (gather.gather_grouped_plain, gather.scatter_grouped_plain,
+            gather._sample_plain, gather.sample_rows_bilinear_backward_plain)
+
+
+@contextlib.contextmanager
+def k4_launchers(*launchers):
+    """Within the block, K4's launchers on CUDA tensors
+    (``gather.gather_grouped_cuda``, ``gather.scatter_grouped_cuda``,
+    through which the one-segment gathers go too, and the sampler's
+    ``sample_rows_bilinear_cuda`` and ``sample_rows_bilinear_backward_cuda``)
+    are ``launchers``, in that order."""
+    from das_tpu_torch.ops import gather
+    saved = [getattr(gather, k) for k in K4_LAUNCHERS]
+    for k, f in zip(K4_LAUNCHERS, launchers):
+        setattr(gather, k, f)
     try:
         yield
     finally:
-        gather.gather_grouped_cuda, gather.scatter_grouped_cuda = saved
+        for k, f in zip(K4_LAUNCHERS, saved):
+            setattr(gather, k, f)
 
 
 def k4_witness(seen):
-    """K4's grouped launchers, each also holding its result against the
-    plain version on the very same inputs. ``seen`` gets one (direction, N,
-    R, C, P, dtype, max err / max|ref|) per segment of a forward launch and
-    per table of a backward launch (P then counts all its segments'
-    points); the forward's error is 0 when it is equal bit for bit and inf
-    otherwise. ``seen.launches`` counts the launches."""
+    """K4's launchers, each also holding its result against the plain
+    version on the very same inputs. ``seen`` gets one (direction, N, R, C,
+    P, dtype, max err / max|ref|) per segment of a gather launch, per table
+    of an adjoint launch (P then counts all its segments' points), per
+    sample (R = H*W) and per output of a sample backward; a forward's error
+    is 0 where it is equal bit for bit and inf otherwise. ``seen.launches``
+    counts the (gather, adjoint, sample, sample backward) launches."""
     import torch
     from das_tpu_torch.ops import gather
-    kernel_fwd = gather.gather_grouped_cuda
-    kernel_bwd = gather.scatter_grouped_cuda
+    kernel = [getattr(gather, k) for k in K4_LAUNCHERS]
+    plain = k4_plain()
+
+    def rel(got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        return err / scale if scale else (0.0 if err == 0 else math.inf)
 
     def forward(tables, idxs):
-        outs = kernel_fwd(tables, idxs)
-        wants = gather.gather_grouped_plain(tables, idxs)
+        outs = kernel[0](tables, idxs)
+        wants = plain[0](tables, idxs)
         seen.launches[0] += 1
         for t, i, o, w in zip(tables, idxs, outs, wants):
             seen.append(('forward', *t.shape, i.shape[1], t.dtype,
@@ -1664,32 +1921,48 @@ def k4_witness(seen):
         return outs
 
     def backward(grads, idxs, which, rows, dtypes):
-        gots = kernel_bwd(grads, idxs, which, rows, dtypes)
-        wants = gather.scatter_grouped_plain(grads, idxs, which, rows,
-                                             dtypes)
+        gots = kernel[1](grads, idxs, which, rows, dtypes)
+        wants = plain[1](grads, idxs, which, rows, dtypes)
         seen.launches[1] += 1
         for u, (got, want) in enumerate(zip(gots, wants)):
             check((got is None) == (want is None), 'K4 backward: a table')
             if got is None:
                 continue
-            err = (got.float() - want.float()).abs().max().item()
-            scale = want.float().abs().max().item()
             N, R, C = got.shape
             P = sum(i.shape[1] for i, w, g in zip(idxs, which, grads)
                     if w == u and g is not None)
-            seen.append(('backward', N, R, C, P, dtypes[u],
-                         err / scale if scale else (0.0 if err == 0 else
-                                                    math.inf)))
+            seen.append(('backward', N, R, C, P, dtypes[u], rel(got, want)))
         return gots
-    return forward, backward
+
+    def sample(flat, x, y, H, W):
+        out = kernel[2](flat, x, y, H, W)
+        want = plain[2](flat, x, y, H, W)
+        seen.launches[2] += 1
+        seen.append(('sample', *flat.shape, x.shape[1], flat.dtype,
+                     0.0 if torch.equal(out, want) else math.inf))
+        return out
+
+    def sample_backward(grad, flat, x, y, H, W, needs):
+        gots = kernel[3](grad, flat, x, y, H, W, needs)
+        wants = plain[3](grad, flat, x, y, H, W, needs)
+        seen.launches[3] += 1
+        for name, got, want in zip(('image', 'x', 'y'), gots, wants):
+            check((got is None) == (want is None),
+                  ('K4 sample backward: an output', name))
+            if got is not None:
+                seen.append((f'sample backward {name}', *flat.shape,
+                             x.shape[1], flat.dtype, rel(got, want)))
+        return gots
+    return forward, backward, sample, sample_backward
 
 
 class Seen(list):
-    """The witness's records, and its (forward, backward) launches."""
+    """The witness's records, and its (gather, adjoint, sample, sample
+    backward) launches."""
 
     def __init__(self):
         super().__init__()
-        self.launches = [0, 0]
+        self.launches = [0, 0, 0, 0]
 
 
 def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
@@ -1698,14 +1971,17 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
     TrainLoader batch (8 people per image, one per regress range in turn).
     The K4 and K1 counts are set to 0 just before the steps and read just
     after: each step launches K4 and K1 ``train_step_launches`` times (for
-    exp_panoptic_tpu's 'shift' DCNs under the head's remat 24 + 12 and 32 +
-    16: every DCN conv's forward, its recompute and its backward), every
-    backward call of K1 on its tiled pass, and no plain shift expansion.
+    exp_panoptic_tpu's 'shift' DCNs under the head's remat 8 + 4 gathers
+    (the RU's take_at and its recompute) and 16 + 8 samples (the RU's), and
+    32 + 16 K1: every DCN conv's forward, its recompute and its backward),
+    every backward call of K1 on its tiled pass, and no plain shift
+    expansion.
     K1's backward calls are timed inside each step by CUDA events around
     each. With ``profile``, one more step under ``torch.profiler`` gives the
     device's busy ms. Returns the (forward, backward) launches of K4 and of
     K1, and the run: its trained model, config, batch, feature map sizes,
-    max_pos, the launches a step, step times and peak memory."""
+    max_pos, the launches a step, step times and peak memory. The K4
+    launches are (gathers, adjoints, samples, sample backwards)."""
     import numpy as np
     import torch
     from das_tpu_torch.config import Config
@@ -1722,7 +1998,7 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
     t0 = time.perf_counter()
     state, step, _, max_pos = make_trainer(cfg, torch.bfloat16, 'cuda', B,
                                            (H, W))
-    k4f, k4b, k1f, k1b = train_step_launches(cfg, (H, W), max_pos)
+    per_step = train_step_launches(cfg, (H, W), max_pos)
     model = state.model
     trainable = frozen_mask(model, mspn_frozen_prefixes(
         int(cfg.model.backbone.frozen_stages)))
@@ -1745,6 +2021,7 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
           f' parameter tensors frozen')
     torch.cuda.reset_peak_memory_stats()
     gather.launches = gather.backward_launches = 0
+    gather.sampler_launches = gather.sampler_backward_launches = 0
     dcn_shift.launches = dcn_shift.backward_launches = 0
     dcn_shift.backward_tiled_launches = 0
     times = []
@@ -1759,8 +2036,7 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
     spans, k1_bwd_ms = [], []
     try:
         for i in range(steps):
-            f0, b0 = gather.launches, gather.backward_launches
-            k0, kb0 = dcn_shift.launches, dcn_shift.backward_launches
+            c0 = step_counts()
             kt0 = dcn_shift.backward_tiled_launches
             spans.clear()
             torch.cuda.synchronize()
@@ -1772,26 +2048,22 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
             times.append(ev[0].elapsed_time(ev[1]))
             k1_bwd_ms.append(sum(a.elapsed_time(b) for a, b in spans))
             m = {k: float(v) for k, v in metrics.items()}
-            fwd, bwd = gather.launches - f0, gather.backward_launches - b0
-            k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
+            got = tuple(b - a for a, b in zip(c0, step_counts()))
             k1_tiled = dcn_shift.backward_tiled_launches - kt0
             check(all(math.isfinite(v) for v in m.values()), ('train', i, m))
-            check(fwd == k4f and bwd == k4b,
-                  ('train K4 launches', i, fwd, bwd, k4f, k4b))
-            check(k1 == (k1f, k1b) and plain_calls[0] == 0,
-                  ('train K1 launches, plain shift calls', i, k1, k1f, k1b,
-                   plain_calls[0]))
+            check(got == per_step and plain_calls[0] == 0,
+                  ('train launches (K4 gathers, adjoints, samples, sample '
+                   'backwards, K1, K1 backward), plain shift calls', i, got,
+                   per_step, plain_calls[0]))
             # every backward call of the step takes the tiled pass
-            check(k1_tiled == k1b,
+            check(k1_tiled == per_step[5],
                   ('train K1 backward calls on the tiled pass', i, k1_tiled))
             phase('train', f'step {i}: ' + ', '.join(
                 f'{k} {v:.6g}' for k, v in m.items()) + f'; {times[-1]:.2f} '
                 f'ms (CUDA events), of which K1\'s {len(spans)} backward '
                 f'calls {k1_bwd_ms[-1]:.2f} ms (CUDA events around each '
-                f'call, summed); K4 launches {fwd} forward + {bwd} '
-                f'backward; K1 {k1[0]} forward + {k1[1]} backward, '
-                f'{k1_tiled} of them on the tiled pass, no plain shift '
-                f'expansion')
+                f'call, summed); {step_label(got)}, {k1_tiled} K1 backward '
+                f'calls on the tiled pass, no plain shift expansion')
     finally:
         deform_conv._deform_conv_shift = plain_shift
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1808,17 +2080,16 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
           f'backward calls in them {np.median(k1_bwd_ms[1:]):.2f} ms), peak '
           f'memory {peak:.2f} GiB; losses finite; frozen parameters '
           f'unchanged bit for bit; {moved} of {int(sum(trainable.values()))}'
-          f' trainable tensors moved; K4 launches {gather.launches} forward'
-          f' + {gather.backward_launches} backward; K1 {dcn_shift.launches}'
-          f' forward + {dcn_shift.backward_launches} backward, '
-          f'{dcn_shift.backward_tiled_launches} of them on the tiled pass; '
+          f' trainable tensors moved; in all {step_label(step_counts())}, '
+          f'{dcn_shift.backward_tiled_launches} K1 backward calls on the '
+          f'tiled pass; '
           f'K1\'s backward calls summed in each step (CUDA events) '
           + ', '.join(f'{b:.2f} of {t:.2f} ms' for b, t in zip(k1_bwd_ms,
                                                                times)))
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
-    k4 = (gather.launches, gather.backward_launches)
-    k1 = (dcn_shift.launches, dcn_shift.backward_launches)
+    k4 = tuple(step_counts()[:4])
+    k1 = tuple(step_counts()[4:])
     busy = None
     if profile:
         prof = torch.profiler.profile(activities=[
@@ -1836,7 +2107,7 @@ def train_full_width(steps=5, cfg_path=SERVING_CFG, profile=False):
         max_pos=max_pos, median_ms=float(np.median(times)),
         k1_tiled=dcn_shift.backward_tiled_launches,
         k1_in_step_ms=[float(b) for b in k1_bwd_ms],
-        step_ms=[float(t) for t in times], per_step=(k4f, k4b, k1f, k1b),
+        step_ms=[float(t) for t in times], per_step=per_step,
         peak_gib=peak, busy_ms=busy)
 
 
@@ -1847,14 +2118,18 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     ``dtypes``.
 
     Five passes: K4 with each launch held against the plain version on its
-    own inputs (forward bit for bit, backward within 1e-5 (f32) or one bf16
-    step (bf16) of max|ref|: K4 at every shape and on every value the
-    training path gives it), then plain, plain again, K4 again, and plain
-    with the rows of each adjoint segment added in a shuffled order
-    (``reordered_scatter``). The forward is the same bit for bit, so the
-    loss terms must be equal. The gradients differ only where sums are
-    taken with atomics in another order (K4's adjoint, ``index_add_``,
-    cuDNN), so each leaf's K4-vs-plain error must stay within GRAD_NOISE
+    own inputs (the gathers and samples bit for bit, the adjoints and the
+    sample backwards within 1e-5 (f32) or one bf16 step (bf16) of max|ref|:
+    K4 at every shape and on every value the training path gives it), then
+    plain (the plain gather, the adjoint by ``index_add_``, the plain
+    composition and the closed-form sample backward, on the card), plain
+    again, K4 again, and plain with the rows of each adjoint segment and
+    the points of each sample backward added in a shuffled order
+    (``reordered_scatter``, ``reordered_sample_backward``). The forward is
+    the same bit for bit, so the loss terms must be equal. The gradients
+    differ only where sums are taken with atomics in another order (K4's
+    adjoint and sample backward, ``index_add_``, cuDNN), so each leaf's
+    K4-vs-plain error must stay within GRAD_NOISE
     times the largest of the plain-vs-plain, K4-vs-K4 and reordered-vs-plain
     errors of that leaf, or within 1e-3 of the leaf's largest plain gradient
     where that is more; a leaf that is zero to rounding within ZERO_GRAD of
@@ -1873,7 +2148,7 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
     from das_tpu_torch.ops import gather
     model, cfg = run['model'], run['cfg']
     args = (cfg, run['batch'], run['featmaps'], run['max_pos'])
-    plain = (gather.gather_grouped_plain, gather.scatter_grouped_plain)
+    plain = k4_plain()
     for name in dtypes:
         dt = {'bf16': torch.bfloat16, 'f32': torch.float32}[name]
         keep_master_weights(model, dt)
@@ -1886,13 +2161,14 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
             lb, gb = loss_grads(model, *args)
             lc, gc = loss_grads(model, *args)
         ld, gd = loss_grads(model, *args)
-        with k4_launchers(plain[0], reordered_scatter(0)):
+        with k4_launchers(plain[0], reordered_scatter(0), plain[2],
+                          reordered_sample_backward(0)):
             _, ge = loss_grads(model, *args)
         secs = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         tol = 1e-5 if dt == torch.float32 else BF16_STEP
-        fwd = [s for s in seen if s[0] == 'forward']
-        bwd = [s for s in seen if s[0] == 'backward']
+        fwd = [s for s in seen if s[0] in ('forward', 'sample')]
+        bwd = [s for s in seen if s[0] not in ('forward', 'sample')]
         check(fwd and bwd and all(s[-1] == 0.0 for s in fwd),
               ('K4 forward != plain on the training path', name,
                [s for s in fwd if s[-1] != 0.0][:3]))
@@ -1900,8 +2176,10 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
               ('K4 backward vs plain on the training path', name,
                max(bwd, key=lambda s: s[-1])))
         shapes = sorted({s[1:5] for s in seen})
-        check(seen.launches == list(run['per_step'][:2]),
-              ('K4 launches of the gradient pass', name, seen.launches))
+        check(seen.launches == list(run['per_step'][:4]),
+              ('K4 launches of the gradient pass (gathers, adjoints, '
+               'samples, sample backwards)', name, seen.launches,
+               run['per_step'][:4]))
         check(la == lb, ('loss terms, K4 vs plain on the card', name, la,
                          lb))
         eb = leaf_errors(ge, gb)
@@ -1919,11 +2197,12 @@ def train_k4_vs_plain_on_card(run, dtypes=('bf16',)):
         B, H, W = run['batch']['img'].shape[:3]
         phase('train', f'{name} gradient pass, full depth, B={B} {H}x{W}, '
               f'K4 vs its plain pair on the card ({secs:.1f} s for 5 '
-              f'passes, peak memory {peak:.2f} GiB): {seen.launches[0]} forward + '
-              f'{seen.launches[1]} backward K4 launches ({len(fwd)} gathers, '
-              f'{len(bwd)} table gradients) held against plain on their own inputs at '
-              f'{len(shapes)} (N, R, C, P) shapes {shapes}: forward bit for'
-              f' bit, backward max err / max|ref| '
+              f'passes, peak memory {peak:.2f} GiB): K4 launches '
+              f'{seen.launches} (gathers, adjoints, samples, sample '
+              f'backwards; {len(fwd)} gathered segments and samples, '
+              f'{len(bwd)} gradients) held against plain on their own '
+              f'inputs at {len(shapes)} (N, R, C, P) shapes {shapes}: '
+              f'forwards bit for bit, backwards max err / max|ref| '
               f'{max(s[-1] for s in bwd):.3g} (<= {tol:.3g}); loss terms '
               f'equal; gradients: K4 vs plain max err / max|leaf| '
               f'{max(ab[k] / own[k] for k in real):.3g} over {len(real)} '
@@ -1967,6 +2246,30 @@ def reordered_scatter(seed):
             ix.append(i[:, p])
         return gather.scatter_grouped_plain(gs, ix, which, rows, dtypes)
     return scatter
+
+
+def reordered_sample_backward(seed):
+    """The sampler's closed-form backward
+    (``gather.sample_rows_bilinear_backward_plain``) with each call's points
+    in a shuffled order (one permutation from ``seed``, the same for every
+    image): the image gradient's sums taken in another order, dx and dy
+    put back in the points' order."""
+    import torch
+    from das_tpu_torch.ops import gather
+    gen = None
+
+    def backward(grad, flat, x, y, H, W, needs):
+        nonlocal gen
+        if gen is None:
+            gen = torch.Generator(device=x.device)
+            gen.manual_seed(seed)
+        p = torch.randperm(x.shape[1], device=x.device, generator=gen)
+        dflat, dx, dy = gather.sample_rows_bilinear_backward_plain(
+            grad[:, p], flat, x[:, p], y[:, p], H, W, needs)
+        back = torch.argsort(p)
+        return (dflat, None if dx is None else dx[:, back],
+                None if dy is None else dy[:, back])
+    return backward
 
 
 def grads_vs_plain(ga, gb, gc, gd, what, reordered=None):
@@ -2108,7 +2411,7 @@ def train_k1_vs_plain_on_card(run):
     secs = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     keep_master_weights(model, torch.bfloat16)
-    check(len(seen) == run['per_step'][3]
+    check(len(seen) == run['per_step'][5]
           and all(s[-1] <= 1e-5 for s in seen),
           ('K1 backward vs closed form on the training path', len(seen),
            max(seen, key=lambda s: s[-1]) if seen else None))
@@ -2210,17 +2513,14 @@ def train_kernel_vs_plain():
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
     args = (cfg, batch, featmaps, max_pos)
 
-    f0, b0 = gather.launches, gather.backward_launches
-    k0, kb0 = dcn_shift.launches, dcn_shift.backward_launches
+    c0 = step_counts()
     _, gg = loss_grads(gpu.model, *args)
-    gathers = (gather.launches - f0, gather.backward_launches - b0)
-    k1 = (dcn_shift.launches - k0, dcn_shift.backward_launches - kb0)
+    got = tuple(b - a for a, b in zip(c0, step_counts()))
     gg = {k: v.cpu() for k, v in gg.items()}
     _, gc = loss_grads(cpu.model, *args)
     want = train_step_launches(cfg, (H, W), max_pos)
-    check(sorted(gg) == sorted(gc) and min(gathers) > 0
-          and gathers + k1 == want,
-          ('gradient keys, K4 or K1 launches', gathers, k1, want))
+    check(sorted(gg) == sorted(gc) and min(got[:4]) > 0 and got == want,
+          ('gradient keys, K4 or K1 launches', got, want))
     p0 = {k: v.clone() for k, v in cpu.model.state_dict().items()}
     g_worst, _ = leaves_close(gg, gc, 'gradient')
     cpu, mc = cpu_step(cpu, batch)
@@ -2252,8 +2552,8 @@ def train_kernel_vs_plain():
                   for k, w in gc.items() if float(w.abs().max()) >= ZERO_GRAD
                   * top)
     phase('plain', f'train step B={B} {H}x{W} fp32 (backbone 1 stage of 1 '
-          f'block per unit), card (K4 {gathers[0]} forward + {gathers[1]} '
-          f'backward and K1 {k1[0]} + {k1[1]} launches in the gradient pass) '
+          f'block per unit), card ({step_label(got)} launches in the '
+          f'gradient pass) '
           f'vs CPU: ' + ', '.join(f'{k} {mg[k]:.6g}/{mc[k]:.6g}'
                                   for k in mc)
           + f'; gradients: max err / max|leaf| {errs[-1][0]:.3g} '
@@ -2759,8 +3059,9 @@ class TrainWatch:
     ``make_train_step``), its checkpoint manager's save and restore, the
     DCN-offset check, the eval hook's ``run_test`` and its decode, for the
     block. Each step: the counts read just before and just after
-    (``per_step``: K4, its adjoint, K1 and its backward as
-    ``train_step_launches`` derives them, no K3), CUDA events around
+    (``per_step``: K4's gathers, adjoints, samples and sample backwards, K1
+    and its backward as ``train_step_launches`` derives them, no K3), CUDA
+    events around
     it, a sync, every metric finite; the step ``profile_at`` under
     ``torch.profiler``. The eval model's forward (a module hook: a DAS in
     eval mode) marks the counts, its decode reads what each rose by since
@@ -2864,9 +3165,7 @@ class TrainWatch:
             if i == 0 and self.resume_ref is not None:
                 _, m = real(self.resume_ref, batch)
                 self.ref_losses = {k: float(v) for k, v in m.items()}
-            before = (gather.launches, gather.backward_launches,
-                      dcn_shift.launches, dcn_shift.backward_launches,
-                      oks_nms.launches)
+            before = step_counts() + [oks_nms.launches]
             torch.cuda.synchronize()
             t = time.perf_counter()
             if last[0] is not None:
@@ -2887,16 +3186,15 @@ class TrainWatch:
                 self.busy_ms = device_busy_ms(prof)
                 self.profiled_ms = host
             last[0] = time.perf_counter()
-            after = (gather.launches, gather.backward_launches,
-                     dcn_shift.launches, dcn_shift.backward_launches,
-                     oks_nms.launches)
+            after = step_counts() + [oks_nms.launches]
             m = {k: float(v) for k, v in metrics.items()}
             check(all(math.isfinite(v) for v in m.values()),
                   ('trainrun step', state.step, m))
             counts = [b - a for a, b in zip(before, after)]
             check(counts == self.per_step,
-                  ('trainrun step launches (K4, K4 backward, K1, K1 '
-                   'backward, K3)', state.step, counts, self.per_step))
+                  ('trainrun step launches (K4 gathers, adjoints, samples, '
+                   'sample backwards, K1, K1 backward, K3)', state.step,
+                   counts, self.per_step))
             self.steps.append(ev[0].elapsed_time(ev[1]))
             self.host_ms.append(host)
             self.losses.append(m)
@@ -3036,11 +3334,13 @@ def trainrun(eval_data, synthetic_median, smi):
               (dcn_shift, 'backward_launches'): 0,
               (oks_nms, 'launches'): 1, (gather, 'launches'): 3,
               (gather, 'backward_launches'): 0,
-              (gather, 'sampler_launches'): (8, K4_SAMPLES[1])}
+              (gather, 'sampler_launches'): (8, K4_SAMPLES[1]),
+              (gather, 'sampler_backward_launches'): 0}
     counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
               (dcn_shift, 'backward_tiled_launches'),
               (oks_nms, 'launches'), (gather, 'launches'),
-              (gather, 'backward_launches'), (gather, 'sampler_launches')]
+              (gather, 'backward_launches'), (gather, 'sampler_launches'),
+              (gather, 'sampler_backward_launches')]
     for mod, attr in counts:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -3076,8 +3376,8 @@ def trainrun(eval_data, synthetic_median, smi):
     phase('trainrun', f'train_model exp_panoptic_tpu, B=4 640x1344 bf16 on '
           f'f32 master weights from the disk mix: {TRAIN_STEPS} steps in '
           f'{secs:.1f} s (build, loader, saves, checks, eval included); '
-          f'every loss finite; K4 launches {per_step[0]} + {per_step[1]} '
-          f'and K1 {per_step[2]} + {per_step[3]} each step, no K3; losses '
+          f'every loss finite; {step_label(per_step)} each step, no K3; '
+          f'losses '
           + ', '.join(f"{m['loss']:.5g}" for m in w.losses))
     # the profiler's overhead stretches the profiled step several times
     # over: its device busy time is held against the other steps' median
@@ -3153,7 +3453,8 @@ DP_DEVICE = 'cuda:0'
 KERNEL_COUNTS = ('dcn_shift.launches', 'dcn_shift.backward_launches',
                  'conv_gn.launches',
                  'oks_nms.launches', 'gather.launches',
-                 'gather.backward_launches', 'gather.sampler_launches')
+                 'gather.backward_launches', 'gather.sampler_launches',
+                 'gather.sampler_backward_launches')
 
 
 def kernel_counts():
@@ -3214,8 +3515,8 @@ def dp_train_job(rank, group, dev, opts, work):
     """``train_model`` on exp_panoptic_tpu from phase 8's mix on disk, this
     rank's DP_BATCH a step of the global batch, bf16 on f32 master weights,
     DP_STEPS steps (one epoch: the save, the DCN-offset check, the sharded
-    eval hook). Each step: K4 and K1 ``tpu_step()`` times (with remat 24 +
-    12 and 32 + 16), no K3, every metric finite, host ms around it (synchronised) and around its gradient
+    eval hook). Each step: K4 and K1 ``tpu_step()`` times (with remat 8 + 4
+    gathers, 16 + 8 samples and 32 + 16 K1), no K3, every metric finite, host ms around it (synchronised) and around its gradient
     all-reduce. Returns those, the run's launches, this rank's peak memory
     and its elements that differ from rank 0's replica."""
     import numpy as np
@@ -3249,13 +3550,12 @@ def dp_train_job(rank, group, dev, opts, work):
             torch.cuda.synchronize(dev)
             steps.append((time.perf_counter() - t) * 1e3)
             after = kernel_counts()
-            got = [after[k] - before[k] for k in (
-                'gather.launches', 'gather.backward_launches',
-                'dcn_shift.launches', 'dcn_shift.backward_launches',
-                'oks_nms.launches')]
+            got = [after[k] - before[k] for k in STEP_COUNTS
+                   + ('oks_nms.launches',)]
             check(got == list(per_step) + [0],
-                  ('dataparallel step launches (K4, K4 backward, K1, K1 '
-                   'backward, K3)', rank, state.step, got, per_step))
+                  ('dataparallel step launches (K4 gathers, adjoints, '
+                   'samples, sample backwards, K1, K1 backward, K3)', rank,
+                   state.step, got, per_step))
             m = {k: float(v) for k, v in metrics.items()}
             check(all(math.isfinite(v) for v in m.values()),
                   ('dataparallel step', rank, state.step, m))
@@ -3487,9 +3787,7 @@ def dp_full_width_nccl(group, dev):
         state, metrics = step(state, batch)
         torch.cuda.synchronize(dev)
         after = kernel_counts()
-        n = [after[k] - before[k] for k in (
-            'gather.launches', 'gather.backward_launches',
-            'dcn_shift.launches', 'dcn_shift.backward_launches')]
+        n = [after[k] - before[k] for k in STEP_COUNTS]
         m = {k: float(v) for k, v in metrics.items()}
         check(n == per_step and all(math.isfinite(v) for v in m.values()),
               ('full-width step', name, n, m))
@@ -3548,7 +3846,7 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
           f'1e-4 (grad_norm 1e-3), updates within {w1[0]:.3g} of their '
           f'tolerance ({CARD_CPU_RTOL:g} of each leaf\'s largest; zero '
           f'leaves {w1[1]:.3g}); full width bf16 B=4 640x1344 step over '
-          f'NCCL: K4, K1 launches {list(tpu_step())}, finite, loss terms '
+          f'NCCL: {step_label(tpu_step())}, finite, loss terms '
           f'vs group=None '
           + ', '.join(f'{k} {v:.3g}' for k, v in full.items())
           + ' (relative, not held: full depth amplifies the order of the '
@@ -3587,7 +3885,9 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
         check(n['dcn_shift.launches'] > 0 and n['oks_nms.launches'] > 0 and
               n['gather.launches'] > 0 and
               n['gather.backward_launches'] == per_step[1] * DP_STEPS and
-              n['dcn_shift.backward_launches'] == per_step[3] * DP_STEPS and
+              n['gather.sampler_backward_launches']
+              == per_step[3] * DP_STEPS and
+              n['dcn_shift.backward_launches'] == per_step[5] * DP_STEPS and
               n['gather.sampler_launches'] > 0,
               ('W=2 train_model launches', n))
     evals = [r['eval'] for r in gloo]
@@ -3602,8 +3902,7 @@ def dataparallel(eval_data, served_sd, served_outs, train_opts, median8,
           f'tolerance (zero leaves {w2[1]:.3g}), replicas bit-equal; '
           f'train_model exp_panoptic_tpu at B={DP_BATCH} a rank (global '
           f'{2 * DP_BATCH}) 640x1344 bf16, {DP_STEPS} steps: every loss '
-          f'finite, K4 {per_step[0]} + {per_step[1]} and K1 {per_step[2]} '
-          f'+ {per_step[3]} a step on each rank, '
+          f'finite, {step_label(per_step)} a step on each rank, '
           f"{tr[0]['tensors']} tensors and the momentum bit-equal across "
           f'ranks, one checkpoint ({ckpts[1]}), the eval hook and DCN check '
           f'in rank 0\'s log; losses '
@@ -4051,7 +4350,8 @@ def recipe_expect(cfg, hw):
             (dcn_shift, 'backward_launches'): 0, (conv_gn, 'launches'): 0,
             (oks_nms, 'launches'): 1, (gather, 'launches'): gathers,
             (gather, 'backward_launches'): 0,
-            (gather, 'sampler_launches'): samples}
+            (gather, 'sampler_launches'): samples,
+            (gather, 'sampler_backward_launches'): 0}
 
 
 def panoptic_serving():
@@ -4071,26 +4371,25 @@ def panoptic_serving():
 
 def panoptic_training():
     """Phase 12 ("train"): exp_panoptic's train step, its 'clip' DCNs (K4's
-    row gather and adjoint at every DCN), at B=4 640x1344 bf16 on f32
+    sampler and its backward at every DCN), at B=4 640x1344 bf16 on f32
     master weights: ``train_full_width`` (3 steps and one profiled step:
     step ms, peak memory, device busy ms; K4's launches a step as
     ``train_step_launches`` derives them under the head's remat, no K1),
     then its gradient pass with K4 against K4's plain pair on the card
-    (``train_k4_vs_plain_on_card``). Returns the steps' (forward,
-    backward) K4 launches."""
+    (``train_k4_vs_plain_on_card``). Returns the steps' K4 launches
+    (gathers, adjoints, samples, sample backwards)."""
     import torch
-    (fwd, bwd), (k1, k1b), run = train_full_width(3, PANOPTIC_CFG,
-                                                  profile=True)
+    k4, (k1, k1b), run = train_full_width(3, PANOPTIC_CFG, profile=True)
     check(k1 == k1b == 0, ('exp_panoptic trains no K1', k1, k1b))
     train_k4_vs_plain_on_card(run, ('bf16',))
     phase('train', f"exp_panoptic B=4 640x1344 bf16 ('clip'): steps "
           + ', '.join(f'{t:.2f}' for t in run['step_ms'])
           + f" ms, peak memory {run['peak_gib']:.2f} GiB, device busy "
-          f"{run['busy_ms']:.2f} ms a step; K4 {run['per_step'][0]} + "
-          f"{run['per_step'][1]} a step")
+          f"{run['busy_ms']:.2f} ms a step; {step_label(run['per_step'])} "
+          f"a step")
     del run
     torch.cuda.empty_cache()
-    return fwd, bwd
+    return k4
 
 
 def write_mupots_data(n_seq=20, people=2, h=1080, w=1920, seed=0):
@@ -4326,9 +4625,9 @@ def mupots_training(smi):
     as ``train_step_launches`` derives them: 'clip' DCNs, two RU layers, no
     K1 or K3; one step profiled for the device's busy ms); then
     ``remat_vs_plain`` at B=4: the step with ``remat`` as shipped and with
-    ``remat=False``. If the plain step does not fit on the card, that is
-    printed as a finding and the comparison runs at B=2 (named as the
-    cut). Returns the run's launches."""
+    ``remat=False``, as the recipe ships. If the plain step does not fit on
+    the card, that is printed as a finding and the comparison runs at B=2
+    (named as the cut). Returns the run's launches."""
     import numpy as np
     import torch
     from das_tpu_torch.apis import train_model
@@ -4356,7 +4655,8 @@ def mupots_training(smi):
         shutil.rmtree(work)
     counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
               (oks_nms, 'launches'), (gather, 'launches'),
-              (gather, 'backward_launches'), (gather, 'sampler_launches')]
+              (gather, 'backward_launches'), (gather, 'sampler_launches'),
+              (gather, 'sampler_backward_launches')]
     for mod, attr in counts:
         setattr(mod, attr, 0)
     torch.cuda.synchronize()
@@ -4382,8 +4682,8 @@ def mupots_training(smi):
           f'loader, save included); steps (CUDA events) '
           + ', '.join(f'{x:.2f}' for x in w.steps)
           + f' ms, step {w.profile_at} profiled: device busy '
-          f'{w.busy_ms:.2f} ms; peak memory {peak:.2f} GiB; K4 '
-          f'{per_step[0]} + {per_step[1]} a step, no K1, no K3; losses '
+          f'{w.busy_ms:.2f} ms; peak memory {peak:.2f} GiB; '
+          f'{step_label(per_step)} a step, no K3; losses '
           + ', '.join(f"{m['loss']:.5g}" for m in w.losses) + f'; {smi}')
     del state
     torch.cuda.empty_cache()
@@ -4423,9 +4723,9 @@ def train_run_short(smi):
     process on exp_panoptic_tpu ('shift': K1 forward and backward) for
     RUN_STEPS steps of B=4 512x960 bf16 from RUN_IMAGES synthetic JPEGs (2
     epochs: 2 saves, the DCN-offset check at each): its artifact parses
-    from its file, its losses are finite, the run's K4 adjoint and K1
-    backward launches are ``train_step_launches``'s a step. Returns the
-    run's launches."""
+    from its file, its losses are finite, the run's K4 adjoint, sample
+    backward and K1 backward launches are ``train_step_launches``'s a step.
+    Returns the run's launches."""
     import torch
     from das_tpu_torch.config import Config
     from das_tpu_torch.ops import dcn_shift, gather, oks_nms
@@ -4438,7 +4738,7 @@ def train_run_short(smi):
     counts = [(dcn_shift, 'launches'), (dcn_shift, 'backward_launches'),
               (dcn_shift, 'backward_tiled_launches'), (oks_nms, 'launches'),
               (gather, 'launches'), (gather, 'backward_launches'),
-              (gather, 'sampler_launches')]
+              (gather, 'sampler_launches'), (gather, 'sampler_backward_launches')]
     for mod, attr in counts:
         setattr(mod, attr, 0)
     t = time.perf_counter()
@@ -4459,12 +4759,15 @@ def train_run_short(smi):
           and art['checkpoints'][-1] == f'step_{RUN_STEPS:08d}.pt',
           ('train_run artifact', art))
     check(launches['gather.backward_launches'] == per_step[1] * RUN_STEPS
-          and launches['dcn_shift.backward_launches']
+          and launches['gather.sampler_backward_launches']
           == per_step[3] * RUN_STEPS
+          and launches['dcn_shift.backward_launches']
+          == per_step[5] * RUN_STEPS
           and launches['dcn_shift.backward_tiled_launches']
           == launches['dcn_shift.backward_launches']
           and launches['gather.launches'] >= per_step[0] * RUN_STEPS
-          and launches['dcn_shift.launches'] >= per_step[2] * RUN_STEPS,
+          and launches['gather.sampler_launches'] >= per_step[2] * RUN_STEPS
+          and launches['dcn_shift.launches'] >= per_step[4] * RUN_STEPS,
           ('train_run launches', launches, per_step))
     phase('train_run', f'python -m das_tpu_torch.tools.train_run --config '
           f'configs/das/exp_panoptic_tpu.py --steps {RUN_STEPS} (B=4 '
@@ -4472,9 +4775,9 @@ def train_run_short(smi):
           f"finite {art['finite']}, decreasing {art['decreasing']}, loss "
           f"first-10 {art['loss_first10']}, last-10 {art['loss_last10']}, "
           f"step s p50 {art['step_s_p50']} p90 {art['step_s_p90']}, "
-          f"checkpoints {art['checkpoints']}; launches {launches} (K4 "
-          f'{per_step[0]} + {per_step[1]} and K1 {per_step[2]} + '
-          f'{per_step[3]} a step, the DCN checks\' forwards beside); {smi}')
+          f"checkpoints {art['checkpoints']}; launches {launches} "
+          f"({step_label(per_step)} a step, the DCN checks' forwards "
+          f'beside); {smi}')
     return launches
 
 
@@ -4490,6 +4793,7 @@ def main():
     k4, k4b = gather_vs_plain()
     grouped_gather_vs_plain()
     k4s = sampler_vs_plain()
+    k4sb = sampler_backward_vs_plain()
 
     def expect(convs):
         return {(dcn_shift, 'launches'): 16,
@@ -4497,7 +4801,8 @@ def main():
                 (dcn_shift, 'backward_launches'): 0,
                 (conv_gn, 'launches'): convs, (oks_nms, 'launches'): 1,
                 (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
-                (gather, 'sampler_launches'): K4_SAMPLES}
+                (gather, 'sampler_launches'): K4_SAMPLES,
+                (gather, 'sampler_backward_launches'): 0}
     eval_data = write_eval_data('full', 8, 1080, 1920, seed=0)
     model, _, n1, _, _ = main_path(SERVING_CFG, 2, expect(0))
     e1, ips1, outs1 = eval_sweep(model, SERVING_CFG, eval_data, expect(0))
@@ -4518,7 +4823,7 @@ def main():
           f' 8 frames): exp_panoptic_tpu {ips1:.2f}, '
           f'exp_panoptic_tpu_fused_gn {ips2:.2f}; {smi}')
     torch.cuda.empty_cache()
-    (fwd, bwd), (k1_fwd, k1_bwd), run = train_full_width()
+    k4n, (k1_fwd, k1_bwd), run = train_full_width()
     for n, e in ((n1, e1), (n2, e2)):
         for k in n:
             n[k] += e[k]
@@ -4530,17 +4835,18 @@ def main():
     k1b['step_ms'] = run['step_ms']
     k2['launches'] = n2['conv_gn.launches']
     k3['launches'] = n1['oks_nms.launches'] + n2['oks_nms.launches']
-    k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + fwd
-    k4b['launches'] = bwd
+    k4['launches'] = n1['gather.launches'] + n2['gather.launches'] + k4n[0]
+    k4b['launches'] = k4n[1]
     k4s['launches'] = n1['gather.sampler_launches'] \
-        + n2['gather.sampler_launches']
+        + n2['gather.sampler_launches'] + k4n[2]
+    k4sb['launches'] = k4n[3]
     train_k4_vs_plain_on_card(run, ('bf16', 'f32'))
     train_k1_vs_plain_on_card(run)
     synthetic_median = run['median_ms']
     del run
     torch.cuda.empty_cache()
     n8, train_opts, median8 = trainrun(eval_data, synthetic_median, smi)
-    for k in (k1, k1b, k2, k3, k4, k4b, k4s):
+    for k in (k1, k1b, k2, k3, k4, k4b, k4s, k4sb):
         check(k['launches'] > 0, f'the main path launched no {k["name"]}')
     k1['launches'] += n8['dcn_shift.launches']
     k1b['launches'] += n8['dcn_shift.backward_launches']
@@ -4553,7 +4859,9 @@ def main():
     k4['launches'] += n8['gather.launches']
     k4b['launches'] += n8['gather.backward_launches']
     k4s['launches'] += n8['gather.sampler_launches']
+    k4sb['launches'] += n8['gather.sampler_backward_launches']
     check(n8['gather.launches'] > 0 and n8['gather.backward_launches'] > 0
+          and n8['gather.sampler_backward_launches'] > 0
           and n8['dcn_shift.launches'] > 0
           and n8['dcn_shift.backward_launches'] > 0
           and n8['oks_nms.launches'] > 0
@@ -4567,7 +4875,8 @@ def main():
                    (k2, 'conv_gn.launches'),
                    (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
                    (k4b, 'gather.backward_launches'),
-                   (k4s, 'gather.sampler_launches')):
+                   (k4s, 'gather.sampler_launches'),
+                   (k4sb, 'gather.sampler_backward_launches')):
         k['phase9_launches_per_rank'] = [n[key] for n in n9]
     n10 = tools(served_sd, expect(0), smi)
     del served_sd
@@ -4598,30 +4907,35 @@ def main():
         + n14['gather.backward_launches'] + n15['gather.backward_launches'],
         'gather.sampler_launches': n11['gather.sampler_launches']
         + n13['gather.sampler_launches']
-        + n13_sweep['gather.sampler_launches']
-        + n15['gather.sampler_launches'],
+        + n13_sweep['gather.sampler_launches'] + n12[2]
+        + n14['gather.sampler_launches'] + n15['gather.sampler_launches'],
+        'gather.sampler_backward_launches': n12[3]
+        + n14['gather.sampler_backward_launches']
+        + n15['gather.sampler_backward_launches'],
         'dcn_shift.launches': n15['dcn_shift.launches'],
         'dcn_shift.backward_launches': n15['dcn_shift.backward_launches']}
-    check(n11['gather.sampler_launches'] > 0 and n12[0] > 0 and n12[1] > 0
+    check(n11['gather.sampler_launches'] > 0 and min(n12) > 0
           and n13['oks_nms.launches'] > 0 and n14['gather.launches'] > 0
           and n14['gather.backward_launches'] > 0
+          and n14['gather.sampler_backward_launches'] > 0
           and n15['dcn_shift.backward_launches'] > 0,
           ('the recipes left a kernel of their path unlaunched', recipes))
     for k, key in ((k1, 'dcn_shift.launches'),
                    (k1b, 'dcn_shift.backward_launches'),
                    (k3, 'oks_nms.launches'), (k4, 'gather.launches'),
                    (k4b, 'gather.backward_launches'),
-                   (k4s, 'gather.sampler_launches')):
+                   (k4s, 'gather.sampler_launches'),
+                   (k4sb, 'gather.sampler_backward_launches')):
         k['launches'] += recipes[key]
         k['recipes_launches'] = recipes[key]
     k1b['tiled_launches'] += n15['dcn_shift.backward_tiled_launches']
-    phase('recipes', f'exp_panoptic served ({n11}), trained (K4 {n12[0]} + '
-          f'{n12[1]}); exp_mupots served ({n13}), evaluated ({n13_sweep}), '
+    phase('recipes', f'exp_panoptic served ({n11}), trained (K4 gathers, '
+          f'adjoints, samples, sample backwards {n12}); exp_mupots served ({n13}), evaluated ({n13_sweep}), '
           f'trained ({n14}); train_run ({n15})')
     kernel_path_vs_plain_path(SERVING_CFG, (16, 0))
     kernel_path_vs_plain_path(FUSED_CFG, (16, 36))
     train_kernel_vs_plain()
-    print(json.dumps({'kernels': [k1, k1b, k2, k3, k4, k4b, k4s]}),
+    print(json.dumps({'kernels': [k1, k1b, k2, k3, k4, k4b, k4s, k4sb]}),
           flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': name,

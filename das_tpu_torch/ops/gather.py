@@ -1,5 +1,5 @@
 """Row gather kernel (CUDA, sm_90a), its adjoint, the fused bilinear
-sampler, and their plain versions.
+sampler and its backward, and their plain versions.
 
 Counterpart of ``tools/analysis_tools/pallas_gather_probe.py::gather_pl``,
 the in-kernel row gather that the JAX package runs as
@@ -15,14 +15,16 @@ the gather. ``gather_rows_grouped`` does up to ``MAX_SEGMENTS`` such
 gathers that share N in one launch, and their adjoints in one launch:
 gathers of the same table add into one buffer, zeroed once and cast once.
 ``sample_rows_bilinear`` is a whole zero-padded bilinear sample of the flat
-image in one launch, for callers that ask for no gradient.
+image in one launch; where autograd records it, its backward is one launch
+too (``SampleRowsBilinear``), which keeps only the image and the
+coordinates: no corner row is saved or scattered.
 
 On a CUDA tensor a wrapper launches the hand-written kernels
 (``das_tpu_torch/csrc/gather_rows.cu``) or raises; on a CPU tensor it runs
-the plain versions. The gathers go through ``torch.autograd.Function``s
-that take their forward and backward as arguments. The kernels are built
-with ``nvcc`` at first use into ``build/das_tpu_torch/``
-(``ops/cuda_build.py``).
+the plain versions. The gathers and the sampler go through
+``torch.autograd.Function``s that take their forward and backward as
+arguments. The kernels are built with ``nvcc`` at first use into
+``build/das_tpu_torch/`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
@@ -36,15 +38,19 @@ from .cuda_build import INT, LONG, PTR, CudaLibrary, check_launch, \
     on_device, raw_stream
 
 LIB = CudaLibrary('gather_rows.cu', {
-    'gather_rows_grouped': [PTR, INT, LONG, INT, PTR],
+    'gather_rows_grouped': [PTR, INT, LONG, PTR],
+    'scatter_rows_grouped': [PTR, INT, LONG, PTR, LONG, PTR],
     'sample_rows_bilinear': [PTR, PTR, PTR, PTR, LONG, INT, INT, LONG, INT,
-                             INT, PTR]})
+                             INT, PTR],
+    'sample_rows_bilinear_backward': [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
+                                      LONG, INT, INT, LONG, INT, INT, PTR]})
 
-# Kernel launches since the last reset: the gather, its adjoint and the
-# fused sampler; the main path's run reads them.
+# Kernel launches since the last reset: the gather, its adjoint, the fused
+# sampler and its backward; the main path's run reads them.
 launches = 0
 backward_launches = 0
 sampler_launches = 0
+sampler_backward_launches = 0
 
 MAX_SEGMENTS = 8
 _IDX_TYPES = (torch.int32, torch.int64)
@@ -120,12 +126,24 @@ def _check_segment(what: str, t: torch.Tensor, idx: torch.Tensor, dev):
         raise ValueError(f'{what} and idx must be contiguous')
 
 
-def _launch_grouped(desc: List[int], n: int, N: int, backward: int, dev):
+def _launch_grouped(desc: List[int], n: int, N: int, dev):
     lib = LIB.load()
     arr = (ctypes.c_longlong * len(desc))(*desc)
     with on_device(dev):
-        err = lib.gather_rows_grouped(arr, n, N, backward, raw_stream(dev))
+        err = lib.gather_rows_grouped(arr, n, N, raw_stream(dev))
     check_launch('gather_rows_grouped', err)
+
+
+def _launch_scatter(desc: List[int], n: int, N: int, flat: torch.Tensor):
+    """One call of the adjoint: zero ``flat`` (every table's f32 buffer),
+    add the segments of ``desc``, cast the bf16 tables."""
+    lib = LIB.load()
+    arr = (ctypes.c_longlong * len(desc))(*desc)
+    dev = flat.device
+    with on_device(dev):
+        err = lib.scatter_rows_grouped(arr, n, N, flat.data_ptr(),
+                                       flat.numel() * 4, raw_stream(dev))
+    check_launch('scatter_rows_grouped', err)
 
 
 def gather_grouped_cuda(tables: Sequence[torch.Tensor],
@@ -147,19 +165,20 @@ def gather_grouped_cuda(tables: Sequence[torch.Tensor],
         outs.append(out)
         desc += [table.data_ptr(), idx.data_ptr(), out.data_ptr(), R, P,
                  C * table.element_size(), int(idx.dtype == torch.int64)]
-    _launch_grouped(desc, len(tables), N, 0, dev)
+    _launch_grouped(desc, len(tables), N, dev)
     launches += 1
     return outs
 
 
-def scatter_grouped_cuda(grads: Sequence[Optional[torch.Tensor]],
-                         idxs: Sequence[torch.Tensor], which: Sequence[int],
-                         rows: Sequence[int], dtypes: Sequence[torch.dtype]
-                         ) -> List[Optional[torch.Tensor]]:
-    """Launch the adjoint kernel once for all segments (arguments as
-    ``scatter_grouped_plain``): every table's f32 buffer is a slice of one
-    allocation, zeroed in one call; each is cast to its table's type."""
-    global backward_launches
+def _scatter_desc(grads: Sequence[Optional[torch.Tensor]],
+                  idxs: Sequence[torch.Tensor], which: Sequence[int],
+                  rows: Sequence[int], dtypes: Sequence[torch.dtype]):
+    """Check the adjoint's segments and lay out its buffers: every table's
+    f32 buffer is a slice of one allocation, each starting on 16 bytes,
+    which the call zeroes; a bf16 table's gradient is a tensor of its own,
+    which the call casts into once. Returns (live segments, N, the
+    allocation, the gradient of each table or None, the descriptor). The
+    host's time here is part of every adjoint's: few tensor operations."""
     live = [s for s, g in enumerate(grads) if g is not None]
     if not 1 <= len(live) <= MAX_SEGMENTS:
         raise ValueError(f'1 to {MAX_SEGMENTS} segments with a gradient '
@@ -167,32 +186,58 @@ def scatter_grouped_cuda(grads: Sequence[Optional[torch.Tensor]],
     dev, N = grads[live[0]].device, grads[live[0]].shape[0]
     width = {}
     for s in live:
-        _check_segment('gradient', grads[s], idxs[s], dev)
-        if grads[s].shape[:2] != idxs[s].shape:
-            raise ValueError(f'gradient {tuple(grads[s].shape)} does not '
-                             f'match idx {tuple(idxs[s].shape)}')
-        if grads[s].shape[0] != N or \
-                width.setdefault(which[s], grads[s].shape[2]) \
-                != grads[s].shape[2]:
-            raise ValueError('the segments of one launch share N, those of '
-                             'one table C')
-    sizes = [N * rows[u] * width[u] if u in width else 0
-             for u in range(len(rows))]
-    flat = torch.zeros(sum(sizes), dtype=torch.float32, device=dev)
-    bufs, at = [], 0
-    for size in sizes:
-        bufs.append(flat[at:at + size])
-        at += size
-    desc = []
+        g, idx = grads[s], idxs[s]
+        _check_segment('gradient', g, idx, dev)
+        n, P, C = g.shape
+        if n != N or idx.shape[1] != P:
+            raise ValueError(f'gradient {tuple(g.shape)} does not match idx '
+                             f'{tuple(idx.shape)}, or the segments of one '
+                             f'launch differ in N')
+        if width.setdefault(which[s], C) != C:
+            raise ValueError('the segments of one table share C')
+    at, offset = 0, {}
+    for u in sorted(width):
+        if dtypes[u] not in _TABLE_TYPES:
+            raise TypeError(f'the kernel makes f32 or bf16 gradients (got '
+                            f'{dtypes[u]})')
+        offset[u] = at
+        at += -(-N * rows[u] * width[u] // 4) * 4
+    flat = torch.empty(at, dtype=torch.float32, device=dev)
+    base = flat.data_ptr()
+    outs: List[Optional[torch.Tensor]] = [None] * len(rows)
+    for u, o in offset.items():
+        shape = (N, rows[u], width[u])
+        outs[u] = flat[o:o + N * rows[u] * width[u]].view(shape) \
+            if dtypes[u] == torch.float32 else \
+            torch.empty(shape, dtype=dtypes[u], device=dev)
+    desc, cast = [], set()
     for s in live:
         g, idx, u = grads[s], idxs[s], which[s]
-        desc += [g.data_ptr(), idx.data_ptr(), bufs[u].data_ptr(), rows[u],
+        out = 0
+        if dtypes[u] != torch.float32 and u not in cast:
+            cast.add(u)
+            out = outs[u].data_ptr()
+        desc += [g.data_ptr(), idx.data_ptr(), base + 4 * offset[u], rows[u],
                  idx.shape[1], width[u], int(g.dtype == torch.bfloat16)
-                 | int(idx.dtype == torch.int64) << 1]
-    _launch_grouped(desc, len(live), N, 1, dev)
+                 | int(idx.dtype == torch.int64) << 1, out,
+                 N * rows[u] * width[u]]
+    return live, N, flat, outs, desc
+
+
+def scatter_grouped_cuda(grads: Sequence[Optional[torch.Tensor]],
+                         idxs: Sequence[torch.Tensor], which: Sequence[int],
+                         rows: Sequence[int], dtypes: Sequence[torch.dtype]
+                         ) -> List[Optional[torch.Tensor]]:
+    """Call the adjoint once for all segments (arguments as
+    ``scatter_grouped_plain``): every table's f32 buffer is a slice of one
+    allocation, zeroed by the call, which adds the segments and casts each
+    bf16 table once."""
+    global backward_launches
+    live, N, flat, outs, desc = _scatter_desc(grads, idxs, which, rows,
+                                              dtypes)
+    _launch_scatter(desc, len(live), N, flat)
     backward_launches += 1
-    return [bufs[u].reshape(N, rows[u], width[u]).to(dtypes[u])
-            if u in width else None for u in range(len(rows))]
+    return outs
 
 
 def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor
@@ -310,18 +355,11 @@ def gather_rows_grouped(tables: Sequence[torch.Tensor],
     return list(fwd(tables, idxs))
 
 
-def sample_rows_bilinear_plain(flat: torch.Tensor, x: torch.Tensor,
-                               y: torch.Tensor, H: int, W: int,
-                               gather=gather_rows) -> torch.Tensor:
-    """Plain version of the fused sampler, and the sampler of every path
-    that asks for a gradient: bilinear sample of the flat image ``flat``
-    (N, H*W, C) at absolute pixel coordinates ``x``, ``y`` (N, P) f32, zero
-    outside the image. The corner weights are computed in f32 and cast to
-    ``flat.dtype`` before they multiply; the four corners are fetched by
-    one ``gather`` (``gather_rows``: the row gather with 4 P indices) and
-    summed in ``flat.dtype`` in the order (x0,y0), (x1,y0), (x0,y1),
-    (x1,y1). Returns (N, P, C)."""
-    P = x.shape[1]
+def _corners(x: torch.Tensor, y: torch.Tensor, H: int, W: int, dtype):
+    """The four corners of each point, in the order (x0,y0), (x1,y0),
+    (x0,y1), (x1,y1): their clamped rows (N, P) int64, in-bounds masks and
+    weights cast to ``dtype`` (zero outside the image), as
+    ``sample_rows_bilinear_plain`` forms them; and (wx0, wx1, wy0, wy1)."""
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     x1 = x0 + 1.0
@@ -330,26 +368,70 @@ def sample_rows_bilinear_plain(flat: torch.Tensor, x: torch.Tensor,
     wy1 = y - y0
     wx0 = 1.0 - wx1
     wy0 = 1.0 - wy1
-
-    def corner(xi, yi, wgt):
+    rows, inbs, ws = [], [], []
+    for xi, yi, wgt in ((x0, y0, wx0 * wy0), (x1, y0, wx1 * wy0),
+                        (x0, y1, wx0 * wy1), (x1, y1, wx1 * wy1)):
         inb = (xi >= 0) & (xi <= W - 1) & (yi >= 0) & (yi <= H - 1)
-        xi_c = xi.clamp(0, W - 1).long()
-        yi_c = yi.clamp(0, H - 1).long()
-        return yi_c * W + xi_c, (wgt * inb).to(flat.dtype)
+        rows.append(yi.clamp(0, H - 1).long() * W + xi.clamp(0, W - 1).long())
+        inbs.append(inb)
+        ws.append((wgt * inb).to(dtype))
+    return rows, inbs, ws, (wx0, wx1, wy0, wy1)
 
-    corners = [corner(x0, y0, wx0 * wy0), corner(x1, y0, wx1 * wy0),
-               corner(x0, y1, wx0 * wy1), corner(x1, y1, wx1 * wy1)]
-    vals = gather(flat, torch.cat([c[0] for c in corners], dim=1))
-    v = [vals[:, k * P:(k + 1) * P] * corners[k][1][..., None]
-         for k in range(4)]
+
+def sample_rows_bilinear_plain(flat: torch.Tensor, x: torch.Tensor,
+                               y: torch.Tensor, H: int, W: int,
+                               gather=gather_rows) -> torch.Tensor:
+    """Plain version of the fused sampler: bilinear sample of the flat
+    image ``flat`` (N, H*W, C) at absolute pixel coordinates ``x``, ``y``
+    (N, P) f32, zero outside the image. The corner weights are computed in
+    f32 and cast to ``flat.dtype`` before they multiply; the four corners
+    are fetched by one ``gather`` (``gather_rows``: the row gather with 4 P
+    indices) and summed in ``flat.dtype`` in the order (x0,y0), (x1,y0),
+    (x0,y1), (x1,y1). Returns (N, P, C)."""
+    P = x.shape[1]
+    rows, _, ws, _ = _corners(x, y, H, W, flat.dtype)
+    vals = gather(flat, torch.cat(rows, dim=1))
+    v = [vals[:, k * P:(k + 1) * P] * ws[k][..., None] for k in range(4)]
     return v[0] + v[1] + v[2] + v[3]
 
 
-def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
-                              y: torch.Tensor, H: int, W: int
-                              ) -> torch.Tensor:
-    """Launch the fused sampler kernel."""
-    global sampler_launches
+def sample_rows_bilinear_backward_plain(grad: torch.Tensor,
+                                        flat: torch.Tensor, x: torch.Tensor,
+                                        y: torch.Tensor, H: int, W: int,
+                                        needs=(True, True, True)):
+    """Plain version of the sampler's backward: the vector-Jacobian product
+    of ``sample_rows_bilinear_plain`` at ``grad`` (N, P, C) in the image's
+    type T, in closed form and without autograd, with autograd's roundings:
+
+    - d flat: each corner's term ``round_T(grad * w_k)`` added at its
+      clamped row into a zero f32 buffer (f64 for f64), cast to T
+      (``scatter_rows_plain``, the gather's adjoint);
+    - d x, d y (the coordinates' type): ``dw_k = round_T(sum_c
+      round_T(grad_c * v_kc))`` over corner k's row ``v_k``, masked by
+      its in-bounds test, then through the weights ``wx1 = x - floor(x)``,
+      ``wx0 = 1 - wx1`` (and the same in y), ``floor`` having no slope.
+
+    ``needs`` says which of (flat, x, y) to return; the rest are None."""
+    P = x.shape[1]
+    rows, inbs, ws, (wx0, wx1, wy0, wy1) = _corners(x, y, H, W, flat.dtype)
+    idx = torch.cat(rows, dim=1)
+    dflat = dx = dy = None
+    if needs[0]:
+        terms = torch.cat([grad * w[..., None] for w in ws], dim=1)
+        dflat = scatter_rows_plain(terms, idx, H * W, flat.dtype)
+    if needs[1] or needs[2]:
+        vals = gather_rows_plain(flat, idx)
+        dw = [(grad * vals[:, k * P:(k + 1) * P]).sum(-1).to(x.dtype)
+              * inbs[k] for k in range(4)]
+        dx = (dw[1] * wy0 + dw[3] * wy1) - (dw[0] * wy0 + dw[2] * wy1)
+        dy = (dw[2] * wx0 + dw[3] * wx1) - (dw[0] * wx0 + dw[1] * wx1)
+    return dflat, dx if needs[1] else None, dy if needs[2] else None
+
+
+def _check_sample(flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
+                  H: int, W: int):
+    """Raise unless the sampler's kernels take ``flat`` (N, H*W, C) f32 or
+    bf16 and ``x``, ``y`` (N, P) f32, all contiguous on one CUDA device."""
     if flat.dtype not in _TABLE_TYPES:
         raise TypeError(f'the kernel takes f32 or bf16 images '
                         f'(got {flat.dtype})')
@@ -369,6 +451,15 @@ def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
         raise ValueError('flat, x and y must be contiguous')
     if dev.type != 'cuda':
         raise ValueError(f'the kernel runs on a CUDA device (got {dev})')
+
+
+def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
+                              y: torch.Tensor, H: int, W: int
+                              ) -> torch.Tensor:
+    """Launch the fused sampler kernel."""
+    global sampler_launches
+    _check_sample(flat, x, y, H, W)
+    dev = flat.device
     N, _, C = flat.shape
     P = x.shape[1]
     out = flat.new_empty((N, P, C))
@@ -382,22 +473,94 @@ def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def sample_rows_bilinear_backward_cuda(grad: torch.Tensor,
+                                       flat: torch.Tensor, x: torch.Tensor,
+                                       y: torch.Tensor, H: int, W: int,
+                                       needs=(True, True, True)):
+    """Launch the sampler's backward kernel (arguments and results as
+    ``sample_rows_bilinear_backward_plain``): the image gradient into an f32
+    buffer that the call zeroes and casts once to the image's type; dx and
+    dy f32."""
+    global sampler_backward_launches
+    _check_sample(flat, x, y, H, W)
+    dev = flat.device
+    N, _, C = flat.shape
+    P = x.shape[1]
+    if grad.dtype != flat.dtype or tuple(grad.shape) != (N, P, C) \
+            or grad.device != dev or not grad.is_contiguous():
+        raise ValueError(f'grad must be a contiguous ({N},{P},{C}) '
+                         f'{flat.dtype} tensor on {dev}, got '
+                         f'{tuple(grad.shape)} {grad.dtype} on {grad.device}')
+    want_flat, want_xy = bool(needs[0]), bool(needs[1] or needs[2])
+    bf16 = flat.dtype == torch.bfloat16
+    dtable = dflat = None
+    if want_flat:
+        dtable = torch.empty((N, H * W, C), dtype=torch.float32, device=dev)
+        dflat = torch.empty_like(flat) if bf16 else dtable
+    dxy = torch.empty((2, N, P), dtype=torch.float32, device=dev) \
+        if want_xy else None
+    ptrs = (dtable.data_ptr() if want_flat else 0,
+            dflat.data_ptr() if want_flat and bf16 else 0,
+            *((dxy[0].data_ptr(), dxy[1].data_ptr()) if want_xy else (0, 0)))
+    lib = LIB.load()
+    with on_device(dev):
+        err = lib.sample_rows_bilinear_backward(
+            flat.data_ptr(), grad.data_ptr(), x.data_ptr(), y.data_ptr(),
+            *ptrs, N, H, W, P, C, int(bf16), raw_stream(dev))
+    check_launch('sample_rows_bilinear_backward', err)
+    sampler_backward_launches += 1
+    return (dflat, dxy[0] if needs[1] else None,
+            dxy[1] if needs[2] else None)
+
+
+class SampleRowsBilinear(torch.autograd.Function):
+    """``forward(flat, x, y, H, W)`` with the gradient
+    ``backward(grad, flat, x, y, H, W, needs)``; both are arguments,
+    so the plain pair can be checked with ``gradcheck`` in f64. Saves only
+    the image and the coordinates."""
+
+    @staticmethod
+    def forward(ctx, flat, x, y, H, W, forward, backward):
+        ctx.save_for_backward(flat, x, y)
+        ctx.hw, ctx.vjp = (H, W), backward
+        return forward(flat, x, y, H, W)
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat, x, y = ctx.saved_tensors
+        dflat, dx, dy = ctx.vjp(grad.contiguous(), flat, x, y, *ctx.hw,
+                                tuple(ctx.needs_input_grad[:3]))
+        return dflat, dx, dy, None, None, None, None
+
+
+def _sample_plain(flat, x, y, H, W):
+    return sample_rows_bilinear_plain(flat, x, y, H, W,
+                                      gather=gather_rows_plain)
+
+
+def _sampler_launchers(device: torch.device):
+    """(forward, backward) of the sampler for tensors on ``device``."""
+    if device.type == 'cpu':
+        return _sample_plain, sample_rows_bilinear_backward_plain
+    if device.type == 'cuda':
+        return sample_rows_bilinear_cuda, sample_rows_bilinear_backward_cuda
+    raise ValueError(f'no sampler kernel for device {device}')
+
+
 def sample_rows_bilinear(flat: torch.Tensor, x: torch.Tensor,
                          y: torch.Tensor, H: int, W: int) -> torch.Tensor:
     """Zero-padded bilinear sample of the flat image ``flat`` (N, H*W, C),
     contiguous, at ``x``, ``y`` (N, P) f32 -> (N, P, C).
 
-    CUDA tensors with no gradient asked for launch the fused kernel, which
-    equals the plain composition bit for bit. Where autograd records (the
-    image or a coordinate requires a gradient), and on the CPU, the plain
-    composition runs around one row gather of all four corners, so the
-    gradients of the image, x and y come from autograd and the gather's
-    adjoint."""
-    wants_grad = torch.is_grad_enabled() and (
-        flat.requires_grad or x.requires_grad or y.requires_grad)
-    if flat.device.type == 'cuda' and not wants_grad:
-        return sample_rows_bilinear_cuda(flat, x.contiguous(),
-                                         y.contiguous(), H, W)
-    if flat.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'no sampler kernel for device {flat.device}')
-    return sample_rows_bilinear_plain(flat, x, y, H, W)
+    CUDA tensors launch the fused kernel, which equals the plain
+    composition bit for bit; where autograd records (the image or a
+    coordinate requires a gradient) the backward is one launch of the
+    sampler's backward kernel. CPU tensors run the plain composition and
+    the closed-form backward."""
+    fwd, bwd = _sampler_launchers(flat.device)
+    if flat.device.type == 'cuda':
+        x, y = x.contiguous(), y.contiguous()
+    if torch.is_grad_enabled() and (
+            flat.requires_grad or x.requires_grad or y.requires_grad):
+        return SampleRowsBilinear.apply(flat, x, y, H, W, fwd, bwd)
+    return fwd(flat, x, y, H, W)

@@ -34,10 +34,11 @@ def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
     weights are computed in f32 and cast to ``img.dtype`` before they
     multiply, and the four corners are summed in ``img.dtype`` in the order
     (x0,y0), (x1,y0), (x0,y1), (x1,y1), as the JAX function does. The whole
-    sample is one launch of K4 (``ops/gather.py``): the fused sampler on
-    the card where no gradient is asked for, else one row gather of all
-    four corners of the flat (N, H*W, C) image, as the JAX function's
-    ``'clip'`` row gathers, with the weights around it.
+    sample is one launch of K4's fused sampler (``ops/gather.py``) on the
+    card, and where autograd records it its backward is one launch too; on
+    the CPU the plain composition of one row gather of all four corners of
+    the flat (N, H*W, C) image, as the JAX function's ``'clip'`` row
+    gathers, with the weights around it, and its closed-form backward.
 
     Returns (N, *x.shape[1:], C).
     """

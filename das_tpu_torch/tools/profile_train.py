@@ -8,11 +8,12 @@ trainable model: f32 master weights, bf16 compute, random weights from a
 seed, on the card. Trains ``--steps`` steps on one synthetic batch in the
 TrainLoader's format at the config's train bucket (640x1344 for the shipped
 pipeline) and prints one JSON line: each step's time from CUDA events and on
-the host clock, the peak device memory, the row gather's (K4's) and the
-DCN kernel's (K1's, forward and backward) launches per step, and, for one
-more step under ``torch.profiler``, its device busy
-ms (the sum of its kernels' device time) and the kernels with the most
-device time. The profiler's table and trace go to ``--out`` (default
+the host clock, the peak device memory, K4's launches per step (row
+gathers, their adjoints, samples, sample backwards) and the DCN kernel's
+(K1's, forward and backward), and, for one more step under
+``torch.profiler``, its device busy ms (the sum of its kernels' device
+time), the kernels with the most device time, and PyTorch's elementwise
+kernels' launches and device ms. The profiler's table and trace go to ``--out`` (default
 ``build/profile_train``).
 
 ``make_trainer`` and ``synthetic_batch`` are what ``chip_smoke.py`` trains
@@ -137,6 +138,14 @@ def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
     return state, step, lr_fn, max_pos
 
 
+def k4_launches():
+    """K4's launches so far: (row gathers, their adjoints, samples, sample
+    backwards)."""
+    return [gather.launches, gather.backward_launches,
+            getattr(gather, 'sampler_launches', 0),
+            getattr(gather, 'sampler_backward_launches', 0)]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--config', default=CFG)
@@ -157,7 +166,7 @@ def main():
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     steps, host, launches, k1 = [], [], [], []
     for _ in range(args.steps):
-        before = gather.launches + gather.backward_launches
+        before = k4_launches()
         k1_before = dcn_shift.launches, dcn_shift.backward_launches
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -167,7 +176,7 @@ def main():
         torch.cuda.synchronize()
         host.append((time.perf_counter() - t) * 1e3)
         steps.append(ev[0].elapsed_time(ev[1]))
-        launches.append(gather.launches + gather.backward_launches - before)
+        launches.append([b - a for a, b in zip(before, k4_launches())])
         k1.append([dcn_shift.launches - k1_before[0],
                    dcn_shift.backward_launches - k1_before[1]])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -190,15 +199,18 @@ def main():
                        getattr(e, 'self_cuda_time_total', 0.0))
     kernels = [e for e in ka if e.device_type != DeviceType.CPU]
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
+    elementwise = [e for e in kernels if 'elementwise' in e.key]
     print(json.dumps(dict(
         config=os.path.relpath(args.config), batch=args.batch, hw=[H, W],
         max_pos=max_pos, device=torch.cuda.get_device_name(0),
         step_ms_cuda_events=steps, step_ms_host=host,
-        peak_memory_gib=peak, gather_launches_per_step=launches,
+        peak_memory_gib=peak, k4_launches_per_step=launches,
         dcn_shift_launches_per_step=k1,
         loss={k: float(v) for k, v in metrics.items()},
         profiled_step_ms=profiled_ms,
         profiled_device_busy_ms=sum(dev_us(e) for e in kernels) / 1e3,
+        elementwise_launches=sum(e.count for e in elementwise),
+        elementwise_ms=sum(dev_us(e) for e in elementwise) / 1e3,
         top_kernels=[dict(name=e.key[:90], ms=dev_us(e) / 1e3,
                           calls=e.count) for e in top])))
 

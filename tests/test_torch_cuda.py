@@ -18,6 +18,7 @@ from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.models import build_trainable_model
 from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
+from das_tpu_torch.ops.interp import sample_bilinear_abs as interp_sample
 from das_tpu_torch.parallel import (TrainState, frozen_mask, make_lr_fn,
                                     make_optimizer, make_train_step,
                                     mspn_frozen_prefixes, param_groups)
@@ -727,7 +728,8 @@ def test_fused_sampler_kernel_matches_plain_bit_for_bit(cuda, shape, dt):
     """One launch per sample, equal bit for bit to the plain composition
     (torch elementwise weights around the plain row gather), with points
     outside the image and whole coordinates on and past its border; under
-    autograd the sampler takes the gather path and launches no sampler."""
+    autograd the same one launch (the sampler's Function) and no row
+    gather."""
     N, H, W, C, P = shape
     g = torch.Generator().manual_seed(0)
     x = torch.rand(N, P, generator=g) * (W + 3) - 2
@@ -749,7 +751,7 @@ def test_fused_sampler_kernel_matches_plain_bit_for_bit(cuda, shape, dt):
     leaf = flat.clone().requires_grad_()
     out = gather.sample_rows_bilinear(leaf, x, y, H, W)
     assert (gather.sampler_launches, gather.launches) == \
-        (before[0] + 1, before[1] + 1)
+        (before[0] + 2, before[1])
     assert torch.equal(out, want)
 
 
@@ -765,6 +767,198 @@ def test_fused_sampler_kernel_refuses_what_it_does_not_take(cuda):
         gather.sample_rows_bilinear(flat, x[:1], y, 6, 5)
     with pytest.raises(ValueError):
         gather.sample_rows_bilinear(flat, x, y, 6, 6)
+
+
+def _offset_copy(t, offset):
+    """``t`` copied into a contiguous tensor whose base lies ``offset``
+    elements past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    out = buf[offset:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _sample_points(N, H, W, P, grid, g):
+    """(x, y) (N, P) f32: generic points, whole numbers, the borders and
+    points wholly outside; for a ``grid`` (G, H, W), a 3x3 DCN's taps of
+    every pixel (taps outermost) with offsets in (-1, 1), a third of them
+    whole and 15% five times farther."""
+    if grid is None:
+        x = torch.rand(N, P, generator=g) * (W + 3) - 2
+        y = torch.rand(N, P, generator=g) * (H + 3) - 2
+        x[:, 36:72] = x[:, 36:72].round()
+        y[:, 60:90] = y[:, 60:90].round()
+    else:
+        G = grid[0]
+        tap = torch.arange(G, dtype=torch.float32)
+        ys = torch.arange(H, dtype=torch.float32)[None, :, None] \
+            + (tap // 3 - 1)[:, None, None]
+        xs = torch.arange(W, dtype=torch.float32)[None, None, :] \
+            + (tap % 3 - 1)[:, None, None]
+        off = torch.rand(2, N, G, H, W, generator=g) * 2 - 1
+        off[:, :, ::3] = off[:, :, ::3].round()
+        off = torch.where(torch.rand(off.shape, generator=g) < 0.15,
+                          off * 5, off)
+        x = (xs + off[0]).reshape(N, -1)
+        y = (ys + off[1]).reshape(N, -1)
+    x[:, :36] = torch.tensor([-1.0, 0.0, W - 1.0, float(W), -0.5, W - 0.5]) \
+        .repeat_interleave(6)
+    y[:, :36] = torch.tensor([-1.0, 0.0, H - 1.0, float(H), -0.5, H - 0.5]) \
+        .repeat(6)
+    return x.contiguous(), y.contiguous()
+
+
+# (N, H, W, C, P, grid): the RU's rows (C = 3, 6, 8), an odd C, and the
+# DCN's nine taps of every pixel on 256- and 64-channel maps
+SAMPLER_BWD_SHAPES = [(4, 9, 13, 3, 300, None), (4, 9, 13, 6, 700, None),
+                      (4, 9, 13, 8, 300, None), (2, 9, 13, 5, 300, None),
+                      (2, 12, 40, 256, 9 * 480, (9, 12, 40)),
+                      (2, 11, 37, 64, 9 * 407, (9, 11, 37))]
+NEEDS = [(True, False, False), (False, True, True), (True, True, True)]
+
+
+@pytest.mark.parametrize('shape', SAMPLER_BWD_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('needs', NEEDS, ids=['image', 'coordinates', 'all'])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'base+1'])
+def test_sampler_backward_kernel_matches_closed_form(cuda, shape, dt, needs,
+                                                     offset):
+    """The sampler's backward kernel against the closed form
+    ``sample_rows_bilinear_backward_plain`` on the same inputs: the image
+    gradient, dx and dy within 1e-5 x max|ref| in f32 and one bf16 step
+    (2^-7 x max|ref|) in bf16 (f32 atomics and sums in another order), at
+    the RU's narrow rows, an odd C, the DCN's nine taps on 256- and
+    64-channel maps, with bases one element past 16 bytes (the narrow
+    units), for each gradient subset, one launch a call."""
+    N, H, W, C, P, grid = shape
+    g = torch.Generator().manual_seed(1)
+    x, y = (t.to(cuda) for t in _sample_points(N, H, W, P, grid, g))
+    flat = _offset_copy(torch.randn(N, H * W, C, generator=g).to(cuda, dt),
+                        offset)
+    ct = _offset_copy(torch.randn(N, P, C, generator=g).to(cuda, dt), offset)
+    want = gather.sample_rows_bilinear_backward_plain(ct, flat, x, y, H, W,
+                                                      needs)
+    tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    before = gather.sampler_backward_launches
+    got = gather.sample_rows_bilinear_backward_cuda(ct, flat, x, y, H, W,
+                                                    needs)
+    torch.cuda.synchronize()
+    assert gather.sampler_backward_launches == before + 1
+    for name, a, b in zip(('flat', 'x', 'y'), got, want):
+        assert (a is None) == (b is None), name
+        if b is None:
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= tol * scale, (name, err, scale)
+
+
+class _FailingLibrary:
+    """A built library whose every function reports a CUDA error."""
+
+    def __getattr__(self, name):
+        return lambda *args: 1
+
+
+def test_sampler_backward_kernel_refuses_what_it_does_not_take(cuda,
+                                                                monkeypatch):
+    """The backward's wrapper raises on a type, a stride, a shape or a
+    device that the kernel does not take; where the library reports a failed launch, or the build
+    fails, the sampler's backward and the row adjoint raise rather than
+    run anything else."""
+    flat = torch.randn(2, 30, 4, device=cuda)
+    x = torch.rand(2, 9, device=cuda) * 4
+    y = torch.rand(2, 9, device=cuda) * 5
+    ct = torch.randn(2, 9, 4, device=cuda)
+    bwd = gather.sample_rows_bilinear_backward_cuda
+    with pytest.raises(TypeError):
+        bwd(ct.half(), flat.half(), x, y, 6, 5)
+    with pytest.raises(ValueError):           # grad in another type
+        bwd(ct.bfloat16(), flat, x, y, 6, 5)
+    with pytest.raises(ValueError):           # a strided gradient
+        bwd(torch.randn(2, 4, 9, device=cuda).transpose(1, 2), flat, x, y,
+            6, 5)
+    with pytest.raises(ValueError):
+        bwd(ct[:, :8], flat, x, y, 6, 5)
+    with pytest.raises(ValueError):
+        bwd(ct.cpu(), flat, x, y, 6, 5)
+    idx = torch.randint(0, 30, (2, 9), device=cuda)
+    monkeypatch.setattr(gather.LIB, 'load', lambda: _FailingLibrary())
+    with pytest.raises(RuntimeError, match='launch failed'):
+        bwd(ct, flat, x, y, 6, 5)
+    with pytest.raises(RuntimeError, match='launch failed'):
+        gather.scatter_rows_cuda(ct, idx, 30, torch.float32)
+
+    def no_build():
+        raise RuntimeError('nvcc failed on gather_rows.cu')
+    monkeypatch.setattr(gather.LIB, 'load', no_build)
+    leaf = flat.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        gather.sample_rows_bilinear(leaf, x, y, 6, 5)
+    with pytest.raises(RuntimeError, match='nvcc failed'):
+        bwd(ct, flat, x, y, 6, 5)
+
+
+def test_grad_recording_samples_launch_the_sampler_pair(cuda):
+    """A sample that autograd records on the card is one fused sampler
+    launch and, in the backward, one launch of its backward kernel, with
+    no row gather and no adjoint; so are the 'clip' DCN's nine taps."""
+    g = torch.Generator().manual_seed(2)
+    img = torch.randn(2, 9, 13, 6, generator=g).to(cuda).requires_grad_()
+    x, y = (t.to(cuda).requires_grad_()
+            for t in _sample_points(2, 9, 13, 300, None, g))
+    before = _k4_counts()
+    out = interp_sample(img, x, y)
+    out.backward(torch.randn(out.shape, generator=g).to(cuda))
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k4_counts(), before)) == (0, 0, 1, 1)
+    assert img.grad is not None and x.grad is not None
+    a = [t.requires_grad_() for t in
+         _inputs(2, 16, 40, 64, 32, torch.bfloat16, cuda)]
+    before = _k4_counts()
+    out = modulated_deform_conv(*a, gather_mode='clip')
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_k4_counts(), before)) == (0, 0, 1, 1)
+    assert all(t.grad is not None for t in a)
+
+
+# (N, [(R, C, P)]): the row adjoint's narrow and unaligned rows: tables
+# whose f32 buffers are no multiple of 16 bytes, before others
+ADJOINT_SHAPES = [(3, [(5, 3, 40), (7, 8, 30)]),
+                  (3, [(5, 6, 40), (9, 5, 70), (4, 128, 50)])]
+
+
+@pytest.mark.parametrize('shape', ADJOINT_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('offset', [0, 1], ids=['aligned', 'base+1'])
+def test_row_adjoint_kernel_narrow_and_unaligned(cuda, shape, dt, offset):
+    """The row adjoint against ``scatter_grouped_plain`` (tolerances of
+    test_grouped_gather_kernel_matches_plain) where the output gradients'
+    bases lie one element past 16 bytes (the narrow units) and a table's
+    buffer follows one of an odd size in the one allocation."""
+    N, segs = shape
+    g = torch.Generator().manual_seed(3)
+    grads, idxs = [], []
+    for R, C, P in segs:
+        grads.append(_offset_copy(torch.randn(N, P, C, generator=g)
+                                  .to(cuda, dt), offset))
+        idxs.append(torch.randint(-2, R + 2, (N, P), generator=g).to(cuda))
+    which = list(range(len(segs)))
+    rows = [R for R, _, _ in segs]
+    before = gather.backward_launches
+    got = gather.scatter_grouped_cuda(grads, idxs, which, rows,
+                                      [dt] * len(segs))
+    torch.cuda.synchronize()
+    assert gather.backward_launches == before + 1
+    want = gather.scatter_grouped_plain(grads, idxs, which, rows,
+                                        [dt] * len(segs))
+    tol = 1e-5 if dt == torch.float32 else 2.0 ** -7
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        assert (a.float() - b.float()).abs().max() \
+            <= tol * b.float().abs().max()
 
 
 J = 4
@@ -868,15 +1062,22 @@ def test_train_gradients_k4_vs_plain_on_the_card(cuda, monkeypatch):
                 {k: p.grad.clone() for k, p in model.named_parameters()
                  if p.grad is not None})
 
-    before = gather.launches, gather.backward_launches
+    before = (gather.launches, gather.backward_launches,
+              gather.sampler_launches, gather.sampler_backward_launches)
     lk, gk = grads()
     assert gather.launches > before[0] and gather.backward_launches > before[1]
+    assert gather.sampler_launches > before[2] and \
+        gather.sampler_backward_launches > before[3]
     # every row gather on the card, the one-segment ones too, goes through
-    # the grouped launchers
+    # the grouped launchers; every sample through the sampler's pair
     monkeypatch.setattr(gather, 'gather_grouped_cuda',
                         gather.gather_grouped_plain)
     monkeypatch.setattr(gather, 'scatter_grouped_cuda',
                         gather.scatter_grouped_plain)
+    monkeypatch.setattr(gather, 'sample_rows_bilinear_cuda',
+                        gather._sample_plain)
+    monkeypatch.setattr(gather, 'sample_rows_bilinear_backward_cuda',
+                        gather.sample_rows_bilinear_backward_plain)
     lp, gp = grads()
     _, gq = grads()
     assert lk == lp
@@ -991,6 +1192,12 @@ MUPOTS_MODEL = dict(
                   sparse_refine=True))
 
 
+def _k4_counts():
+    """(gathers, adjoints, samples, sample backwards) launched so far."""
+    return (gather.launches, gather.backward_launches,
+            gather.sampler_launches, gather.sampler_backward_launches)
+
+
 def _remat(cfg, on):
     return dict(cfg, backbone=dict(cfg['backbone'], remat=on),
                 bbox_head=dict(cfg['bbox_head'], remat=on))
@@ -1023,32 +1230,33 @@ def test_remat_step_on_the_card_matches_the_plain_step(cuda):
     agrees within 1e-3 of its largest plain value, or within 10x the
     difference of two plain passes where that is more (as K4 against its
     plain pair); a leaf zero to rounding (below 1e-6 of the largest of all)
-    within that 1e-6. The remat pass launches K4's forward once more for
-    each recomputed gather (the 12 tower DCN calls, the RU's 8 DCN calls
-    and its 8 + 10 samples at 64x96 with max_pos 64) and its adjoint as
-    often as the plain pass."""
+    within that 1e-6. The remat pass launches K4's forwards once more for
+    each recomputed sample and gather (the 12 tower DCN calls, the RU's 8
+    DCN calls, its 8 + 8 samples and 2 take_at gathers at 64x96 with
+    max_pos 64) and the backwards as often as the plain pass."""
     hw = (64, 96)
     b = synthetic_batch(2, *hw, MUPOTS_J, root_idx=14, seed=2)
     out = {}
     for on in (False, True):
         model = build_trainable_model(_remat(MUPOTS_MODEL, on), device=cuda,
                                       seed=1)
-        before = gather.launches, gather.backward_launches
+        before = _k4_counts()
         first = _mupots_grads(model, b, cuda, hw)
-        ran = (gather.launches - before[0],
-               gather.backward_launches - before[1])
+        ran = tuple(a - b for a, b in zip(_k4_counts(), before))
         again = _mupots_grads(model, b, cuda, hw)
         out[on] = first, again, ran
-    (lp, gp, sp), (_, gq, _), (fp, bp) = out[False]
-    (lr, gr, sr), _, (fr, br) = out[True]
+    (lp, gp, sp), (_, gq, _), plain_ran = out[False]
+    (lr, gr, sr), _, remat_ran = out[True]
     assert lr == lp
     assert sorted(sr) == sorted(sp)
     for k in sp:
         assert torch.equal(sr[k], sp[k]), k
-    # levels 0-1 (384, 96 points) sparse, 2-3 dense: 3 + 3 + 2 + 2 samples
-    # in the last RU layer, 8 in the first; 12 + 8 DCN calls
-    assert (fp, bp) == (20 + 18, 20 + 18)
-    assert (fr, br) == (fp + 12 + 8 + 18, bp)
+    # levels 0-1 (384, 96 points) sparse, 2-3 dense: a take_at gather at
+    # each sparse level and two samples a level in the last RU layer, 8
+    # samples in the first; 12 + 8 DCN calls, one sample each; (gathers,
+    # adjoints, samples, sample backwards)
+    assert plain_ran == (2, 2, 20 + 16, 20 + 16)
+    assert remat_ran == (2 + 2, 2, 36 + 12 + 8 + 16, 36)
     assert sorted(gr) == sorted(gp)
     top = max(float(v.abs().max()) for v in gp.values())
     for k, want in gp.items():
@@ -1065,8 +1273,10 @@ def test_k4_counts_of_a_patch_request_and_a_clip_step(cuda):
     (12 + 8), two samples a level in the first RU layer (8) and in the
     last (8), and a grouped take_at where a level has more than nms_pre
     (100) points (levels 0-1: 2), with no row gather under autograd; a
-    'clip' train step at 64x96 makes 38 gathers and 38 adjoints (12 + 8 DCN
-    calls, 8 + 10 RU samples)."""
+    'clip' train step at 64x96 makes 36 samples and 36 sample backwards
+    (12 + 8 DCN calls, 8 + 8 RU samples), and 2 gathers and 2 adjoints
+    (the take_at at the two sparse levels): no DCN or RU sample goes
+    through the row gather."""
     from das_tpu_torch.models import build_model
     model = build_model(MUPOTS_MODEL, dtype=torch.bfloat16, device=cuda)
     img = torch.randn(2, 128, 192, 3, device=cuda)
@@ -1081,9 +1291,8 @@ def test_k4_counts_of_a_patch_request_and_a_clip_step(cuda):
     trainable = build_trainable_model(MUPOTS_MODEL, dtype=torch.bfloat16,
                                       device=cuda)
     b = synthetic_batch(2, 64, 96, MUPOTS_J, root_idx=14, seed=2)
-    before = (gather.launches, gather.backward_launches,
-              gather.sampler_launches)
+    before = _k4_counts()
     _mupots_grads(trainable, b, cuda, (64, 96))
     torch.cuda.synchronize()
-    assert (gather.launches - before[0], gather.backward_launches - before[1],
-            gather.sampler_launches - before[2]) == (38, 38, 0)
+    assert tuple(a - b for a, b in zip(_k4_counts(), before)) == \
+        (2, 2, 36, 36)

@@ -195,8 +195,9 @@ REGIONS = (SingleStageNetwork, ConvModule, RecursiveUpdateLayer)
 def _loss_step(cfg, seed=2):
     """Losses, gradients, state after one forward and backward of
     ``model.loss`` on _fake_batch; the calls of each kind of remat region
-    (SingleStageNetwork, head ConvModule, RU layer) and the bytes autograd
-    saved outside the regions."""
+    (SingleStageNetwork, head ConvModule, RU layer); the bytes autograd
+    saved while no region body ran and while one did, and the bytes of the
+    regions' tensor inputs in the forward; the number of head convs."""
     joints = cfg['bbox_head']['num_joints']
     model = build_trainable_model(cfg, device='cpu', seed=seed)
     b = _fake_batch(J=joints)
@@ -212,31 +213,41 @@ def _loss_step(cfg, seed=2):
     bodies = [(SingleStageNetwork, 'forward'), (ConvModule, '_forward'),
               (RecursiveUpdateLayer, 'forward')]
     originals = [getattr(c, f) for c, f in bodies]
+    # bytes saved outside and inside region bodies, the regions' inputs
+    saved, inputs, depth, forward = [0, 0], [0], [0], [True]
 
     def counted(cls, fn):
         def body(self, *a):
-            if cls is not ConvModule or id(self) in head_convs:
+            region = cls is not ConvModule or id(self) in head_convs
+            if region:
                 calls[cls.__name__] += 1
-            return fn(self, *a)
+                if forward[0]:
+                    inputs[0] += sum(t.numel() * t.element_size() for t in a
+                                     if isinstance(t, torch.Tensor))
+            depth[0] += region
+            try:
+                return fn(self, *a)
+            finally:
+                depth[0] -= region
         return body
     for (cls, f), fn in zip(bodies, originals):
         setattr(cls, f, counted(cls, fn))
-    saved = [0]
 
     def pack(t):
-        saved[0] += t.numel() * t.element_size()
+        saved[depth[0] > 0] += t.numel() * t.element_size()
         return t
     try:
         with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
             losses = model.loss(torch.from_numpy(b['img']), targets,
                                 MAX_POS)
+        forward[0] = False
         sum(v for k, v in losses.items() if 'loss' in k).backward()
     finally:
         for (cls, f), fn in zip(bodies, originals):
             setattr(cls, f, fn)
     return (losses, {k: p.grad for k, p in model.named_parameters()
                      if p.grad is not None}, model.state_dict(), calls,
-            saved[0], len(head_convs))
+            saved, inputs[0], len(head_convs))
 
 
 @pytest.mark.parametrize('name', ['mupots', 'clip15'])
@@ -245,8 +256,10 @@ def test_remat_step_is_bit_equal_and_recomputes(name):
     weights, same batch: every loss term, every gradient and every state
     tensor (BatchNorm running statistics included: the recompute must not
     update them a second time) equal bit for bit. With remat every region
-    runs twice (forward and recompute) and autograd keeps under half the
-    activation bytes outside them; without it each runs once."""
+    runs twice (forward and recompute) and autograd keeps none of the bytes
+    the regions save without it: exactly what the plain pass saves outside
+    the regions, and the regions' inputs (which the checkpoint keeps for the
+    recompute); without it each region runs once."""
     cfg = dict(mupots=MUPOTS_MODEL, clip15=CLIP15_MODEL)[name]
     plain = _loss_step(_remat(cfg, False))
     rem = _loss_step(_remat(cfg, True))
@@ -260,12 +273,16 @@ def test_remat_step_is_bit_equal_and_recomputes(name):
                for k, v in plain[2].items() if k.endswith('running_var'))
     stages = cfg['backbone']['num_stages']
     layers = cfg['bbox_head']['recursive_update']['num_layers']
-    levels, convs = len(STRIDES), plain[5]
+    levels, convs = len(STRIDES), plain[6]
     assert plain[3] == dict(SingleStageNetwork=stages,
                             ConvModule=convs * levels,
                             RecursiveUpdateLayer=layers * levels)
     assert rem[3] == {k: 2 * v for k, v in plain[3].items()}
-    assert rem[4] < 0.5 * plain[4], (rem[4], plain[4])
+    (plain_out, plain_in), (rem_out, rem_in) = plain[4], rem[4]
+    assert plain_in > 0 and rem_in == 0, (plain[4], rem[4])
+    assert rem[5] == plain[5] > 0
+    assert rem_out == plain_out + rem[5], (rem[4], plain[4], rem[5])
+    assert rem_out < plain_out + plain_in
 
 
 def test_remat_recompute_leaves_running_stats_alone():
