@@ -4264,7 +4264,7 @@ def traced_request(ckpt):
         import shutil
         shutil.rmtree(log_dir)
     with profiling.trace(log_dir):
-        with profiling.annotate('demo_request'):
+        with profiling.span('demo_request'):
             predict(x, sf)
     files = glob.glob(os.path.join(log_dir, '*.pt.trace.json'))
     check(len(files) == 1, ('profiling.trace files', files))

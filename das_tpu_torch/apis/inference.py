@@ -20,6 +20,7 @@ from ..models import DAS, build_model
 from ..models.layers import DeformConv2d
 from ..ops.deform_conv import deform_offset_overflow
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def init_model(config, checkpoint: Optional[str] = None,
@@ -138,12 +139,13 @@ def make_predict_fn(model: DAS, test_cfg: Dict, num_joints: int, strides,
 
     @torch.inference_mode()
     def predict(img, scale_factors):
-        img = torch.as_tensor(img, dtype=torch.float32).to(model_dev)
-        sf = torch.as_tensor(scale_factors, dtype=torch.float32) \
-            .to(model_dev)
-        cls_scores, pose_preds, centernesses, _ = model(img)
-        return decode_batch(cls_scores, pose_preds, centernesses, strides,
-                            sf, num_joints, test_cfg)
+        with span('das.predict'):
+            img = torch.as_tensor(img, dtype=torch.float32).to(model_dev)
+            sf = torch.as_tensor(scale_factors, dtype=torch.float32) \
+                .to(model_dev)
+            cls_scores, pose_preds, centernesses, _ = model(img)
+            return decode_batch(cls_scores, pose_preds, centernesses,
+                                strides, sf, num_joints, test_cfg)
 
     return predict
 
@@ -192,18 +194,19 @@ def inference_detector(model: DAS, cfg, image, predict_fn=None) -> Dict:
 def results_to_host(decoded, image_paths: List[str]) -> List[Dict]:
     """Fixed-shape device output -> the reference's per-image result dicts
     (ref das_head.py:680-687)."""
-    scores = decoded['scores'].cpu().numpy()
-    poses = decoded['poses'].cpu().numpy()
-    centers = decoded['centers'].cpu().numpy()
-    vis = decoded['vis'].cpu().numpy()
-    valid = decoded['valid'].cpu().numpy()
-    out = []
-    for i, path in enumerate(image_paths):
-        m = valid[i]
-        out.append(dict(
-            poses=poses[i][m],
-            vis=vis[i][m],
-            centers=centers[i][m],
-            image_paths=[path],
-            scores=scores[i][m].tolist()))
-    return out
+    with span('das.to_host'):
+        scores = decoded['scores'].cpu().numpy()
+        poses = decoded['poses'].cpu().numpy()
+        centers = decoded['centers'].cpu().numpy()
+        vis = decoded['vis'].cpu().numpy()
+        valid = decoded['valid'].cpu().numpy()
+        out = []
+        for i, path in enumerate(image_paths):
+            m = valid[i]
+            out.append(dict(
+                poses=poses[i][m],
+                vis=vis[i][m],
+                centers=centers[i][m],
+                image_paths=[path],
+                scores=scores[i][m].tolist()))
+        return out

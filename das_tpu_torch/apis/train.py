@@ -312,7 +312,7 @@ def train_model(cfg: Config,
 
     # ---------------- loop
     host_step = state.step              # resume-aware
-    t_last = time.perf_counter()
+    logger.start(host_step)
     batches = iter(loader)
     on_card = prefetch_to_device(batches, dev)
     try:
@@ -321,9 +321,7 @@ def train_model(cfg: Config,
                 break
             state, metrics = step_fn(state, batch)
             host_step += 1
-            logger.log(host_step, metrics, global_batch,
-                       time.perf_counter() - t_last)
-            t_last = time.perf_counter()
+            logger.log(host_step, metrics, global_batch)
             if host_step % steps_per_epoch == 0:
                 epoch = host_step // steps_per_epoch
                 save_and_check(host_step, eval_dataset is not None and

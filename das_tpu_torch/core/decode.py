@@ -25,6 +25,7 @@ from typing import Dict, Sequence
 import torch
 
 from ..ops.oks_nms import default_sigmas, oks_nms_sorted, soft_oks_nms_fixed
+from ..utils.profiling import span
 from .targets import make_points
 
 
@@ -161,12 +162,13 @@ def decode_candidates(cls_scores, pose_preds, centernesses, strides,
 def decode_batch(cls_scores, pose_preds, centernesses, strides,
                  scale_factors, num_joints, test_cfg):
     """Decode a batch: level tensors are (N, H, W, C)."""
-    return _decode(
-        cls_scores, pose_preds, centernesses,
-        _level_points(cls_scores, strides),
-        torch.as_tensor(scale_factors), num_joints,
-        nms_pre=int(test_cfg.get('nms_pre', 1000)),
-        nms_post=int(test_cfg.get('nms_post', 100)),
-        nms_thr=float(test_cfg.get('nms_thr', 0.9)),
-        score_thr=float(test_cfg.get('score_thr', 0.07)),
-        nms_type=str(test_cfg.get('nms_type', 'hard')))
+    with span('das.decode'):
+        return _decode(
+            cls_scores, pose_preds, centernesses,
+            _level_points(cls_scores, strides),
+            torch.as_tensor(scale_factors), num_joints,
+            nms_pre=int(test_cfg.get('nms_pre', 1000)),
+            nms_post=int(test_cfg.get('nms_post', 100)),
+            nms_thr=float(test_cfg.get('nms_thr', 0.9)),
+            score_thr=float(test_cfg.get('score_thr', 0.07)),
+            nms_type=str(test_cfg.get('nms_type', 'hard')))

@@ -29,6 +29,7 @@ from ..config.registry import HEADS
 from ..losses import (binary_cross_entropy, rle_loss, sigmoid_focal_loss,
                       smooth_l1_loss)
 from ..parallel.mesh import sum_over
+from ..utils.profiling import span
 from .layers import ConvModule, DeformConv2d, Scale, conv2d, he_normal_, \
     normal_
 from .real_nvp import RealNVP
@@ -270,9 +271,10 @@ class DASHead(nn.Module):
         return cls_score.float(), pose_pred, centerness.float(), ref_flat
 
     def forward(self, feats: Sequence[torch.Tensor], select_idx=None):
-        outs = [self.forward_single(
-                    f, i, None if select_idx is None else select_idx[i])
-                for i, f in enumerate(feats)]
+        with span('das.head'):
+            outs = [self.forward_single(
+                        f, i, None if select_idx is None else select_idx[i])
+                    for i, f in enumerate(feats)]
         cls_scores, pose_preds, centernesses, ref_uvds = zip(*outs)
         return list(cls_scores), list(pose_preds), list(centernesses), \
             list(ref_uvds)

@@ -18,6 +18,7 @@ from ..config import wrap_cfg
 from ..config.registry import BACKBONES, HEADS, MODELS, NECKS, \
     build_from_cfg
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .das_head import positives_first
 from .layers import DeformConv2d, cast_compute, keep_master_weights, \
     lecun_normal_
@@ -42,10 +43,13 @@ class DAS(nn.Module):
 
     def extract_feat(self, img: torch.Tensor):
         """img (N,H,W,3) -> FPN maps (NCHW)."""
-        x = img.permute(0, 3, 1, 2)
-        if x.is_cuda:
-            x = x.contiguous(memory_format=torch.channels_last)
-        return self.neck(self.backbone(x))
+        with span('das.backbone'):
+            x = img.permute(0, 3, 1, 2)
+            if x.is_cuda:
+                x = x.contiguous(memory_format=torch.channels_last)
+            x = self.backbone(x)
+        with span('das.neck'):
+            return self.neck(x)
 
     def forward(self, img: torch.Tensor, select_idx=None):
         """Per-level head outputs (cls_scores, pose_preds, centernesses,
@@ -76,10 +80,13 @@ class DAS(nn.Module):
                 begin += N * n
                 select.append(None if n <= max_pos else positives_first(
                     lab < head.bg_label, max_pos))
-        cls_scores, pose_preds, centernesses, ref_uvds = self(img, select)
-        return self.bbox_head.loss(cls_scores, pose_preds, centernesses,
-                                   ref_uvds, targets, max_pos=max_pos,
-                                   group=group)
+        with span('das.train.forward'):
+            cls_scores, pose_preds, centernesses, ref_uvds = self(img,
+                                                                  select)
+        with span('das.train.loss'):
+            return self.bbox_head.loss(cls_scores, pose_preds, centernesses,
+                                       ref_uvds, targets, max_pos=max_pos,
+                                       group=group)
 
     def init_weights(self, seed: int = 0):
         """Seeded init: flax's defaults (LeCun-normal kernels, zero biases,

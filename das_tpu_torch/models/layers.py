@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import conv_gn
 from ..ops.deform_conv import modulated_deform_conv
+from ..utils.profiling import span
 
 
 def normal_(t: torch.Tensor, std: float, gen: torch.Generator):
@@ -166,7 +167,8 @@ def remat(module: nn.Module, fn, *args):
         for m in norms:
             m.recomputing = True
         try:
-            return fn(*a)
+            with span('das.remat.recompute'):
+                return fn(*a)
         finally:
             for m in norms:
                 m.recomputing = False

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .interp import sample_bilinear_abs
 
 
@@ -83,14 +84,15 @@ def make_preprocess_fn(in_hw: Tuple[int, int],
         if tuple(raw.shape[1:3]) != tuple(in_hw):
             raise ValueError(f'images of {tuple(raw.shape[1:3])}, the fn '
                              f'was built for {tuple(in_hw)}')
-        x = resize_bilinear(raw.float(), *resized_hw)
-        if to_rgb:
-            x = x.flip(-1)
-        x = (x - torch.from_numpy(mean_np).to(x.device)) \
-            / torch.from_numpy(std_np).to(x.device)
-        pad_h = pad_hw[0] - resized_hw[0]
-        pad_w = pad_hw[1] - resized_hw[1]
-        return torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h))
+        with span('das.preprocess'):
+            x = resize_bilinear(raw.float(), *resized_hw)
+            if to_rgb:
+                x = x.flip(-1)
+            x = (x - torch.from_numpy(mean_np).to(x.device)) \
+                / torch.from_numpy(std_np).to(x.device)
+            pad_h = pad_hw[0] - resized_hw[0]
+            pad_w = pad_hw[1] - resized_hw[1]
+            return torch.nn.functional.pad(x, (0, 0, 0, pad_w, 0, pad_h))
 
     return preprocess
 

@@ -37,6 +37,7 @@ import torch.nn as nn
 
 from ..core.targets import get_targets
 from ..models.layers import BatchNorm, GroupNorm
+from ..utils.profiling import span
 from .mesh import all_reduce_grads, sum_over
 
 
@@ -167,6 +168,10 @@ def make_train_step(tx_update, featmap_sizes, strides, regress_ranges,
     featmap_sizes = [tuple(s) for s in featmap_sizes]
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        with span('das.train.step'):
+            return step(state, batch)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         model = state.model.train()
         params = dict(model.named_parameters())
         dev = next(iter(params.values())).device
@@ -180,20 +185,22 @@ def make_train_step(tx_update, featmap_sizes, strides, regress_ranges,
             std = torch.tensor(img_norm['std'], dtype=torch.float32,
                                device=dev)
             img = (img - mean) / std
-        targets = get_targets(
-            featmap_sizes, strides, regress_ranges, batch['gt_poses_3d'],
-            batch['gt_centers2d'], batch['gt_depths'], batch['gt_valid'],
-            num_joints, center_sample_radius, centerness_alpha, bg_label)
+        with span('das.train.targets'):
+            targets = get_targets(
+                featmap_sizes, strides, regress_ranges, batch['gt_poses_3d'],
+                batch['gt_centers2d'], batch['gt_depths'], batch['gt_valid'],
+                num_joints, center_sample_radius, centerness_alpha, bg_label)
         for p in params.values():
             p.grad = None
         losses = model.loss(img, targets, max_pos, group=group)
         total = sum(v for k, v in losses.items() if 'loss' in k)
-        total.backward()
+        with span('das.train.backward'):
+            total.backward()
         grads = {k: torch.zeros_like(p) if p.grad is None else p.grad
                  for k, p in params.items()}
         if group is not None:
             all_reduce_grads(grads.values(), group)
-        with torch.no_grad():
+        with torch.no_grad(), span('das.train.optimizer'):
             updates, opt_state, gnorm = tx_update(grads, state.opt_state,
                                                   params)
             for k, p in params.items():

@@ -3,7 +3,8 @@ ref configs/_base_/default_runtime.py:5-10): text log + a jsonl metrics
 stream + native TensorBoard event files (utils/tb_events.py); the port's
 copy of ``das_tpu/utils/logging.py``. ``MetricLogger.log`` turns the
 metrics into floats (a host sync for tensors on the card) only on its
-interval."""
+interval, and logs ``img_per_s`` as the images stepped since the previous
+logged line over the host time since that line's sync."""
 
 from __future__ import annotations
 
@@ -51,15 +52,29 @@ class MetricLogger:
         if tensorboard:
             from .tb_events import EventWriter
             self.tb = EventWriter(os.path.join(work_dir, 'tf_logs'))
+        self.start(0)
 
     def text(self, msg: str):
         self.logger.info(msg)
 
-    def log(self, step: int, metrics: Dict, batch_size: int, dt: float):
+    def start(self, step: int):
+        """Start the rate's clock: the loop's next step is ``step + 1``."""
+        self.mark = (step, time.perf_counter())
+
+    def log(self, step: int, metrics: Dict, batch_size: int):
+        """On the interval: the metrics as floats, and ``img_per_s``, the
+        ``batch_size`` images of each step since the previous logged line
+        (or ``start``; the logger starts at step 0) over the host time
+        since then. Each line's ``float`` waits for the card, so that is a
+        rate of images trained, not of steps enqueued."""
         if step % self.interval != 0:
             return
         vals = {k: float(v) for k, v in metrics.items()}
-        vals.update(step=step, img_per_s=batch_size / max(dt, 1e-9))
+        now = time.perf_counter()
+        last, since = self.mark
+        self.mark = (step, now)
+        vals.update(step=step, img_per_s=batch_size * (step - last)
+                    / max(now - since, 1e-9))
         self.jsonl.write(json.dumps(vals) + '\n')
         self.jsonl.flush()
         if self.tb is not None:
@@ -87,7 +102,10 @@ class NullLogger:
     def text(self, msg: str):
         pass
 
-    def log(self, step: int, metrics: Dict, batch_size: int, dt: float):
+    def start(self, step: int):
+        pass
+
+    def log(self, step: int, metrics: Dict, batch_size: int):
         pass
 
     def close(self):

@@ -1,21 +1,27 @@
 """Profiling and tracing, the port's counterpart of
-``das_tpu/utils/profiling.py``: a device trace of a block of code, a rolling
-per-step timer and named regions for the trace.
+``das_tpu/utils/profiling.py``: a device trace of a block of code, and the
+program's named spans in it.
 
 ``trace`` runs ``torch.profiler`` over the block, with the card's activity
 where a card is there, and writes the trace as a Chrome trace JSON file
 (``*.pt.trace.json``) into ``log_dir``, which TensorBoard's profiler plugin
 and Perfetto read.
+
+``span(name)`` marks a region of the program. While a ``torch.profiler``
+session records, it is a ``record_function`` range, so it lands in the same
+trace as the CUDA runtime's calls and the device's kernels, on one clock;
+otherwise it is one shared no-op context, which costs a check of the
+profiler's state. The program's spans are named ``das.<layer>``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Optional
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -37,31 +43,9 @@ def trace(log_dir: str):
             torch.cuda.synchronize()
 
 
-class StepTimer:
-    """Rolling per-step wall-clock stats."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._last: Optional[float] = None
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        dt = 0.0 if self._last is None else now - self._last
-        self._last = now
-        if dt > 0:
-            self.times.append(dt)
-            self.times = self.times[-self.window:]
-        return dt
-
-    @property
-    def mean(self) -> float:
-        return sum(self.times) / len(self.times) if self.times else 0.0
-
-    def img_per_s(self, batch_size: int) -> float:
-        return batch_size / self.mean if self.mean else 0.0
-
-
-def annotate(name: str):
-    """Named region for profile traces."""
-    return torch.profiler.record_function(name)
+def span(name: str):
+    """A context marking the region ``name`` in a profiler's trace while
+    one records; the shared no-op context otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF

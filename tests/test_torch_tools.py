@@ -21,7 +21,6 @@ import os
 import pickle
 import subprocess
 import sys
-import time
 
 import cv2
 import numpy as np
@@ -35,7 +34,6 @@ from das_tpu.checkpoint.torch_bridge import (  # noqa: E402
     save_torch_checkpoint as jsave_torch_checkpoint)
 from das_tpu.core import visualize as jvisualize  # noqa: E402
 from das_tpu.models import build_model as jbuild_model  # noqa: E402
-from das_tpu.utils import profiling as jprofiling  # noqa: E402
 from das_tpu_torch.apis import init_model  # noqa: E402
 from das_tpu_torch.checkpoint import (CheckpointManager,  # noqa: E402
                                       state_dict_from_flax)
@@ -328,34 +326,36 @@ def test_vis_3d_matches_mytools():
                                rtol=1e-6)
 
 
-def test_profiling_trace_annotate_and_step_timer(tmp_path, monkeypatch):
+def test_profiling_trace_annotate_and_step_timer(tmp_path):
     """trace writes a Chrome trace JSON (TensorBoard and Perfetto read it)
-    holding the annotated region and the ops under it; StepTimer gives
-    what the JAX one gives on the same clock."""
+    holding a span's region and the ops under it; a span is the one
+    shared no-op context while no profiler records, and a
+    ``record_function`` range while one does (the JAX package's
+    ``StepTimer`` has no counterpart: a rolling mean of host intervals is
+    no rate)."""
+    off = profiling.span('das_region')
+    assert off is profiling.span('das_other')
+    assert not isinstance(off, torch.profiler.record_function)
+    with off, off:
+        pass
     log_dir = str(tmp_path / 'trace')
     with profiling.trace(log_dir) as prof:
-        with profiling.annotate('das_region'):
+        on = profiling.span('das_region')
+        assert isinstance(on, torch.profiler.record_function)
+        with on:
             torch.relu(torch.ones(8, 8)) @ torch.ones(8, 8)
+    assert profiling.span('das_region') is off
     files = glob.glob(os.path.join(log_dir, '*.pt.trace.json'))
     assert len(files) == 1
     with open(files[0]) as f:
-        names = {e.get('name') for e in json.load(f)['traceEvents']}
-    assert 'das_region' in names and 'aten::relu' in names
+        events = json.load(f)['traceEvents']
+    region = [e for e in events if e.get('name') == 'das_region']
+    assert [e.get('cat') for e in region] == ['user_annotation']
+    relu = [e for e in events if e.get('name') == 'aten::relu']
+    assert len(relu) == 1
+    lo, hi = region[0]['ts'], region[0]['ts'] + region[0]['dur']
+    assert lo <= relu[0]['ts'] and relu[0]['ts'] + relu[0]['dur'] <= hi
     assert any(e.key == 'das_region' for e in prof.key_averages())
-
-    ticks = [1.0, 1.5, 2.5, 2.75, 4.0]
-
-    def run(timer):
-        clock = iter(ticks)
-        with monkeypatch.context() as m:
-            m.setattr(time, 'perf_counter', lambda: next(clock))
-            return [timer.tick() for _ in ticks]
-    mine, theirs = profiling.StepTimer(window=3), jprofiling.StepTimer(3)
-    got, want = run(mine), run(theirs)
-    assert got == want == [0.0, 0.5, 1.0, 0.25, 1.25]
-    assert mine.times == theirs.times and mine.mean == theirs.mean
-    assert mine.img_per_s(4) == theirs.img_per_s(4) == 4 / mine.mean
-    assert profiling.StepTimer().img_per_s(4) == 0.0
 
 
 def test_collect_env_keys(capsys):

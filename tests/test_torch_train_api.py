@@ -18,6 +18,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -111,22 +112,35 @@ class Counted:
         return self.v
 
 
-def test_metric_logger_converts_only_on_its_interval(tmp_path):
+def test_metric_logger_converts_only_on_its_interval(tmp_path, monkeypatch):
     """MetricLogger.log turns the metrics into floats on its interval only,
-    and writes the JAX logger's jsonl lines; the logger is
-    'das_tpu_torch'."""
+    and writes the JAX logger's jsonl lines but for ``img_per_s``: the
+    port's is the images since the previous logged line over the host
+    time since that line (whose floats waited for the card), where the
+    JAX logger divides one step's images by the time it is given; the
+    logger is 'das_tpu_torch'."""
     ms = [dict(loss=Counted(2.5 + s), grad_norm=Counted(10.0 * s))
           for s in range(1, 6)]
+    # the host clock when the logger is made, then at the lines of steps
+    # 2 and 4
+    clock = iter([10.0, 11.0, 14.5])
+    monkeypatch.setattr(plogging, 'time', types.SimpleNamespace(
+        strftime=time.strftime, perf_counter=lambda: next(clock)))
     lines = []
     for mod, sub in ((plogging, 'port'), (jlogging, 'jax')):
         log = mod.MetricLogger(str(tmp_path / sub), interval=2,
                                tensorboard=False)
         for s, m in enumerate(ms, start=1):
-            log.log(s, {k: v.v for k, v in m.items()} if mod is jlogging
-                    else m, 4, 0.5)
+            if mod is jlogging:
+                log.log(s, {k: v.v for k, v in m.items()}, 4, 0.5)
+            else:
+                log.log(s, m, 4)
         log.jsonl.flush()
-        lines.append(open(log.jsonl.name).read().splitlines())
+        lines.append([json.loads(x) for x in
+                      open(log.jsonl.name).read().splitlines()])
+    rates = [[r.pop('img_per_s') for r in rows] for rows in lines]
     assert lines[0] == lines[1] and len(lines[0]) == 2
+    assert rates == [[4 * 2 / 1.0, 4 * 2 / 3.5], [4 / 0.5, 4 / 0.5]]
     assert [m['loss'].n for m in ms] == [0, 1, 0, 1, 0]
     assert plogging.get_root_logger().name == 'das_tpu_torch'
 
