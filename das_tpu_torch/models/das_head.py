@@ -30,6 +30,7 @@ from ..losses import (binary_cross_entropy, rle_loss, sigmoid_focal_loss,
                       smooth_l1_loss)
 from ..parallel.mesh import sum_over
 from ..utils.profiling import span
+from .graphs import Graphs
 from .layers import ConvModule, DeformConv2d, Scale, conv2d, he_normal_, \
     normal_
 from .real_nvp import RealNVP
@@ -147,10 +148,22 @@ class DASHead(nn.Module):
         # read from the RU config itself, as JAX das_head.py:173 does
         self.prev_loss = bool(ru.get('prev_loss', False))
 
+        # each level's eval rescale of the refined uvd, on the model's
+        # device from the start: no upload at a call
+        self.register_buffer('uvd_scale', torch.tensor(
+            [[s, s, z_norm] for s in self.strides], dtype=torch.float32),
+            persistent=False)
+        self._graphs = Graphs('trunk')
+
         self.flow3d = RealNVP(dim=3)
         self.flow2d = RealNVP(dim=2)
         self.flow3d_update = RealNVP(dim=3)
         self.flow2d_update = RealNVP(dim=2)
+        # the modules ``_trunk`` calls: what its graphs' gate looks at
+        self._trunk_modules = [
+            m for name, m in self.named_modules()
+            if name and not name.startswith(('recursive_update_branch',
+                                             'flow'))]
 
     def init_weights(self, gen: torch.Generator):
         """The reference head init (anchor_free_mono3d_pose_head.py:92-98,
@@ -184,15 +197,13 @@ class DASHead(nn.Module):
             x = m(x)
         return x
 
-    def forward_single(self, x: torch.Tensor, lvl: int,
-                       select_idx: Optional[torch.Tensor] = None):
-        """One level. x (N,C,H,W); returns NHWC cls, pose_pred, centerness,
-        ref_uvd, all f32. ``select_idx`` (N, K) restricts the RU
-        re-sampling to those flat points (training: the assigned positives
-        from ``DAS.loss``)."""
+    def _trunk(self, x: torch.Tensor, lvl: int, nms_pre: int):
+        """One level's towers, branches, prediction convs and ``Scale``s:
+        NHWC cls and centerness, the scaled offset and depth, the raw
+        uvd (root dz pinned) and sigma (root sigma-z pinned), flat over the
+        joints, the pose tower's features; and with ``nms_pre`` > 0 the
+        (N, nms_pre) points the RU re-samples, else None."""
         J = self.num_joints
-        stride = self.strides[lvl]
-
         cls_feat = self._run(self.cls_convs, x)
         cls_score = _nhwc(conv2d(self.conv_cls,
                                  self._run(self.conv_cls_prev, cls_feat)))
@@ -225,23 +236,46 @@ class DASHead(nn.Module):
         sigma = sigma.reshape(*sigma.shape[:3], J * 3)
         uvd_flat = uvd.reshape(*uvd.shape[:3], J * 3)
 
+        select_idx = None
+        if nms_pre:
+            N, Hf, Wf = cls_score.shape[:3]
+            ranked = torch.sigmoid(cls_score.float()) \
+                * torch.sigmoid(centerness.float())
+            select_idx = torch.topk(ranked.reshape(N, Hf * Wf), nms_pre,
+                                    dim=1).indices
+        return (cls_score, centerness, offset, depth, uvd_flat, sigma,
+                pose_feat, select_idx)
+
+    def forward_single(self, x: torch.Tensor, lvl: int,
+                       select_idx: Optional[torch.Tensor] = None):
+        """One level. x (N,C,H,W); returns NHWC cls, pose_pred, centerness,
+        ref_uvd, all f32. ``select_idx`` (N, K) restricts the RU
+        re-sampling to those flat points (training: the assigned positives
+        from ``DAS.loss``). The trunk (``_trunk``) and the RU's body run
+        from CUDA graphs where ``graphs.Graphs`` allows, else eagerly;
+        what this returns never shares memory with a graph."""
+        J = self.num_joints
+        N, _, Hf, Wf = x.shape
+
         # Sparse eval refinement (test_cfg.sparse_refine): the decode keeps
         # at most nms_pre candidates per level, ranked by score*centerness,
         # which this branch does not change; so the re-sampling runs only
         # at those points, selected with the decode's own key and k. Never
         # under training, where DAS.loss passes the positives or None.
-        N, Hf, Wf = cls_score.shape[:3]
         nms_pre = int(self.test_cfg.get('nms_pre', 1000))
         ru = self.recursive_update_branch
         if ru.num_layers == 0:
             select_idx = None
-        elif select_idx is None and not self.training \
-                and bool(self.test_cfg.get('sparse_refine', False)) \
-                and Hf * Wf > nms_pre:
-            ranked = torch.sigmoid(cls_score.float()) \
-                * torch.sigmoid(centerness.float())
-            select_idx = torch.topk(ranked.reshape(N, Hf * Wf), nms_pre,
-                                    dim=1).indices
+        ranks = ru.num_layers > 0 and select_idx is None \
+            and not self.training \
+            and bool(self.test_cfg.get('sparse_refine', False)) \
+            and Hf * Wf > nms_pre
+        cls_score, centerness, offset, depth, uvd_flat, sigma, pose_feat, \
+            ranked_idx = self._graphs.run(
+                self._trunk, (x, lvl, nms_pre if ranks else 0), self,
+                self._trunk_modules, fresh=(0, 1))
+        if ranks:
+            select_idx = ranked_idx
 
         dt = pose_feat.dtype
         ref_out = ru(pose_feat, uvd_flat.to(dt), select_idx)
@@ -260,9 +294,7 @@ class DASHead(nn.Module):
             pose_pred = torch.cat([offset, depth, uvd_flat, sigma], dim=-1)
         else:
             # eval path: fold the refined uvd in and rescale (ref :256-262)
-            out_uvd = ref_uvd * torch.tensor(
-                [stride, stride, self.z_norm], dtype=torch.float32,
-                device=x.device)
+            out_uvd = ref_uvd * self.uvd_scale[lvl]
             depth = depth / self.depth_factor
             pose_pred = torch.cat(
                 [offset, depth, out_uvd.reshape(*out_uvd.shape[:3], J * 3),

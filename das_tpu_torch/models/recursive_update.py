@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from ..ops.gather import gather_rows_grouped
 from ..ops.interp import sample_bilinear_abs
+from .graphs import Graphs
 from .layers import ConvModule, conv2d, remat
 
 
@@ -231,9 +232,20 @@ class RecursiveUpdateBranch(nn.Module):
                 dcn_train_gather_mode=dcn_train_gather_mode,
                 dcn_shift_radius=dcn_shift_radius,
                 dcn_shift_budget=dcn_shift_budget))
+        self._graphs = Graphs('ru')
+        self._body_modules = list(self.modules())[1:]
 
     def forward(self, feat: torch.Tensor, offset: torch.Tensor,
                 select_idx: Optional[torch.Tensor] = None):
+        """The body runs from a CUDA graph where ``graphs.Graphs`` allows
+        (eval, no grad, on the card, no hook inside): this call, and any
+        hook on this module, still runs. What it returns then is the
+        graph's memory, which the next call at the same shapes overwrites:
+        a hook that keeps it keeps a copy."""
+        return self._graphs.run(self._body, (feat, offset, select_idx),
+                                self, self._body_modules)
+
+    def _body(self, feat, offset, select_idx):
         feat = self.reduction(feat)
         for i in range(self.num_layers):
             sel = select_idx if i == self.num_layers - 1 else None

@@ -95,10 +95,12 @@ def modulated_deform_conv(x: torch.Tensor,
     return out
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=None)
 def _tap_shift(K: int, padding: int, axis: int, device) -> torch.Tensor:
     """(K*K,) f32: each tap's row (``axis`` 0) or column (1) shift,
-    ``kh - padding`` or ``kw - padding``, taps row-major."""
+    ``kh - padding`` or ``kw - padding``, taps row-major. Kept for the
+    process's life: a CUDA graph that captured a DCN reads it at its
+    address."""
     return torch.tensor([float(divmod(k, K)[axis] - padding)
                          for k in range(K * K)], device=device)
 
