@@ -1,9 +1,9 @@
 """Training driver: the program's train step, set up as ``train_model``
 sets it (``make_trainer``, glue copied from the program's
-``tools/profile_train.py``: the recipe's SGD, schedule, frozen stages and
-positive budget), stepped back to back on a pool of synthetic batches on
-the device, with no loader and no synchronise between steps: the window
-closes with one.
+``tools/profile_train.py``: the recipe's SGD, schedule and positive
+budget, and the frozen stages by the reference backbone's rule), stepped
+back to back on a pool of synthetic batches on the device, with no
+loader and no synchronise between steps: the window closes with one.
 
 Set-up loads the seed's weights, then drives the step's first steps
 through the same call and feed as the window, each on another batch,
@@ -23,6 +23,7 @@ from typing import Dict, List
 import torch
 
 from .. import check, weights
+from ..reference import train as ref_train
 
 # one person in every four reaches this far (px) from its root: a
 # positive in each of the shipped head's regress ranges
@@ -75,11 +76,12 @@ def synthetic_batch(B: int, H: int, W: int, J: int, root: int, people: int,
 def make_trainer(cfg, dtype, device, batch: int, hw):
     """(model, tx_init, step, max_pos) as ``train_model`` sets them up for
     ``cfg`` (the program's ``tools/profile_train.make_trainer``, one
-    process, 1000 steps an epoch)."""
+    process, 1000 steps an epoch). The parameters held still are those of
+    the reference's rule for ``cfg``'s backbone (``reference.train.
+    frozen_prefixes``), the tuple the reference's trainer takes."""
     from das_tpu_torch.models import build_trainable_model
     from das_tpu_torch.parallel import (make_lr_fn, make_optimizer,
-                                        make_train_step,
-                                        mspn_frozen_prefixes)
+                                        make_train_step)
     model = build_trainable_model(cfg.model, dtype=dtype, device=device)
     head = cfg.model.bbox_head
     opt = dict(cfg.get('optimizer') or {})
@@ -93,8 +95,7 @@ def make_trainer(cfg, dtype, device, batch: int, hw):
         model, lr_fn, momentum=float(opt.get('momentum', 0.9)),
         weight_decay=float(opt.get('weight_decay', 1e-4)),
         grad_clip=float(clip.get('max_norm', 35.0)),
-        frozen_prefixes=mspn_frozen_prefixes(
-            int(cfg.model.backbone.get('frozen_stages', -1))))
+        frozen_prefixes=ref_train.frozen_prefixes(cfg.model))
     H, W = hw
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]

@@ -2,12 +2,14 @@
 loss (focal classification, smooth-L1 depth, the RLE pose loss through
 RealNVP flows, centerness BCE) and SGD as the recipe configures it (a
 global-norm clip, coupled weight decay, momentum, linear warm-up, bias
-learning-rate and decay multipliers, frozen MSPN stages), in float32.
+learning-rate and decay multipliers, the backbone's frozen stages), in
+float32.
 
 The step is dense: every point's RU field is re-sampled, where the
 program re-samples only the positives the loss reads, which gives the
-same loss. Each MSPN stage and each head level is one checkpointed
-region, so that the float32 step fits beside nothing else on the card.
+same loss. Each of the backbone's regions and each head level is one
+checkpointed region, so that the float32 step fits beside nothing else
+on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn as nn
 
+from . import backbones
 from .model import DAS, BatchNorm, GroupNorm
 
 
@@ -195,12 +198,9 @@ def learning_rate(opt: Dict, count: int) -> float:
 
 
 def frozen_prefixes(cfg: Dict) -> Tuple[str, ...]:
-    k = cfg['backbone']['frozen_stages']
-    if k < 0:
-        return ()
-    return ('backbone.top.',) + tuple(
-        f'backbone.multi_stage_mspn.0.downsample.layer{i}.'
-        for i in range(1, k + 1))
+    """The prefixes of the parameters that training holds still, by the
+    rule of the backbone's type."""
+    return backbones.find(cfg['backbone']).frozen_prefixes(cfg['backbone'])
 
 
 class Trainer:

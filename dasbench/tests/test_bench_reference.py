@@ -1,7 +1,9 @@
 """The plain reference computes the program's model: at tiny sizes on the
 CPU, in float32, the reference's serving outputs and training step
-against das_tpu_torch's plain CPU path; and each benchmark configuration
-is the repo configuration it names, as the program builds it."""
+against das_tpu_torch's plain CPU path; each benchmark configuration is
+the repo configuration it names, as the program builds it, its backbone
+by the keys its type compares; and the backbone's frozen rule is the
+program's."""
 
 import json
 from pathlib import Path
@@ -14,11 +16,12 @@ from das_tpu_torch.apis.inference import init_model, make_predict_fn
 from das_tpu_torch.config import Config
 from das_tpu_torch.datasets.loader import train_pad_hw_from_cfg
 from das_tpu_torch.models import build_model
-from das_tpu_torch.parallel import TrainState
+from das_tpu_torch.parallel import TrainState, mspn_frozen_prefixes
 from dasbench import check, weights
 from dasbench.drivers import train as train_driver
 from dasbench.reference import model as ref_model
-from dasbench.reference import precision
+from dasbench.reference import backbones, precision
+from dasbench.reference import train as ref_train
 from dasbench.tests import tiny
 
 REPO = Path(__file__).resolve().parents[2]
@@ -100,14 +103,34 @@ def test_one_train_step_matches_the_program(tiny_root):
     assert nums['grad_gap'] < 0.05 and nums['change_gap'] < 0.05
 
 
+def configs(name):
+    cfg = json.loads((REPO / f'dasbench/configs/{name}.json').read_text())
+    return cfg, Config.fromfile(str(REPO / cfg['repo_config']))
+
+
+def plain(v):
+    return [plain(x) for x in v] if isinstance(v, (list, tuple)) else v
+
+
+@pytest.mark.parametrize('name', ['exp_panoptic', 'exp_mupots'])
+def test_backbone_is_the_repo_backbone(name):
+    """The keys the backbone's type compares, and its maps' channels as
+    the repo's FPN takes them."""
+    cfg, pcfg = configs(name)
+    b, pb = cfg['model']['backbone'], pcfg.model.backbone
+    kind = backbones.find(b)
+    assert b['type'] == pb['type']
+    assert kind.REPO_KEYS
+    for k in kind.REPO_KEYS:
+        assert plain(b[k]) == plain(pb[k]), k
+    assert kind.out_channels(b) == plain(pcfg.model.neck.in_channels)
+
+
 @pytest.mark.parametrize('name', ['exp_panoptic', 'exp_mupots'])
 def test_configuration_is_the_repo_config(name):
-    cfg = json.loads((REPO / f'dasbench/configs/{name}.json').read_text())
-    pcfg = Config.fromfile(str(REPO / cfg['repo_config']))
-    m, b, h = cfg['model'], pcfg.model.backbone, pcfg.model.bbox_head
-    for k in ('unit_channels', 'num_stages', 'num_units', 'frozen_stages'):
-        assert m['backbone'][k] == b[k]
-    assert list(m['backbone']['num_blocks']) == list(b['num_blocks'])
+    """The head's and the recipe's keys, and the whole module tree."""
+    cfg, pcfg = configs(name)
+    m, h = cfg['model'], pcfg.model.bbox_head
     for k in ('num_joints', 'root_idx', 'depth_factor', 'z_norm',
               'center_sample_radius', 'stacked_convs', 'feat_channels'):
         assert m[k] == h[k], k
@@ -152,3 +175,15 @@ def test_weights_are_made_from_the_seed():
     assert off and all(not torch.equal(a[k], c[k]) for k in off)
     assert all(float(a[k].abs().max()) > 0 for k in off)
     assert np.isclose(float(a['bbox_head.conv_cls.bias'][0]), -2.0)
+
+
+@pytest.mark.parametrize('stages', range(-1, 5))
+def test_frozen_rule_is_the_programs(stages):
+    """The reference's frozen prefixes are the program's own MSPN2 rule,
+    and the train driver hands the program's optimizer the tuple the
+    reference takes from the repo configuration's backbone."""
+    cfg, pcfg = configs('exp_panoptic')
+    b = dict(cfg['model']['backbone'], frozen_stages=stages)
+    pcfg.model.backbone.frozen_stages = stages
+    assert ref_train.frozen_prefixes(dict(backbone=b)) == \
+        ref_train.frozen_prefixes(pcfg.model) == mspn_frozen_prefixes(stages)

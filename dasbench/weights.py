@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -46,8 +46,9 @@ def _std(key: str, shape, w: Dict) -> float:
     return lecun
 
 
-def _constant(key: str, w: Dict):
-    """The value of a leaf that is not drawn, or None for a drawn one."""
+def _constant(key: str, w: Dict, norm: bool):
+    """The value of a leaf that is not drawn, or None for a drawn one;
+    ``norm``: the leaf is a norm module's."""
     leaf = key.rsplit('.', 1)[-1]
     if leaf == 'running_mean':
         return 0.0
@@ -59,20 +60,34 @@ def _constant(key: str, w: Dict):
         return w['cls_bias']
     if leaf == 'bias':
         return 0.0
-    owner = key.rsplit('.', 2)[-2]
-    if owner.startswith(('bn', 'gn')):
+    if norm:
         return 1.0
     return None
+
+
+def leaves(model_cfg: Dict, scheme: Dict) -> List[Tuple]:
+    """(key, shape, std, constant) of each leaf of the reference's state,
+    in its order: a drawn leaf's standard deviation and None, or None and
+    the value of one that is not drawn. A leaf is a norm's where its
+    module is the reference's ``BatchNorm`` or ``GroupNorm``."""
+    model = ref_model.build(model_cfg, 'meta')
+    norms = {name for name, m in model.named_modules()
+             if isinstance(m, (ref_model.BatchNorm, ref_model.GroupNorm))}
+    out = []
+    for k, v in model.state_dict().items():
+        s = tuple(v.shape)
+        const = _constant(k, scheme, k.rsplit('.', 1)[0] in norms)
+        out.append((k, s, _std(k, s, scheme) if const is None else None,
+                    const))
+    return out
 
 
 def make_state(model_cfg: Dict, scheme: Dict, seed: int, device
                ) -> Dict[str, torch.Tensor]:
     """The state dict (float32, on ``device``) of the reference's keys for
     ``seed``. Its normal draws come from one generator on the device."""
-    shapes = {k: tuple(v.shape) for k, v in ref_model.build(
-        model_cfg, 'meta').state_dict().items()}
-    drawn = [(k, s, _std(k, s, scheme)) for k, s in shapes.items()
-             if _constant(k, scheme) is None]
+    table = leaves(model_cfg, scheme)
+    drawn = [(k, s, std) for k, s, std, const in table if const is None]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % 2 ** 63)
     total = sum(math.prod(s) for _, s, _ in drawn)
@@ -82,8 +97,7 @@ def make_state(model_cfg: Dict, scheme: Dict, seed: int, device
         n = math.prod(s)
         state[k] = z[begin:begin + n].view(s).mul_(std)
         begin += n
-    for k, s in shapes.items():
-        if k not in state:
-            state[k] = torch.full(s, float(_constant(k, scheme)),
-                                  device=device)
-    return OrderedDict((k, state[k]) for k in shapes)
+    for k, s, _, const in table:
+        if const is not None:
+            state[k] = torch.full(s, float(const), device=device)
+    return OrderedDict((k, state[k]) for k, *_ in table)
