@@ -40,10 +40,10 @@ from ..checkpoint import (CheckpointManager, load_checkpoint_report,
 from ..config import Config
 from ..datasets import build_dataset
 from ..datasets.loader import TrainLoader, train_pad_hw_from_cfg
-from ..models import build_model, build_trainable_model
+from ..models import MSPN2, build_model, build_trainable_model
 from ..parallel.mesh import replicate, shard_args
 from ..parallel.train_step import (TrainState, make_lr_fn, make_optimizer,
-                                   make_train_step, mspn_frozen_prefixes)
+                                   make_train_step)
 from ..utils.device import resolve_device
 from ..utils.logging import MetricLogger, NullLogger
 
@@ -138,6 +138,16 @@ def prefetch_to_device(batches: Iterable[Dict[str, np.ndarray]], device,
         yield _ready(*queue.popleft())
 
 
+def load_pretrained_backbone(model, path: str) -> Dict:
+    """Load a pretrained backbone checkpoint into ``model.backbone`` by
+    the backbone's loader; only MSPN2 has one (``load_mspn_pretrained``)."""
+    if not isinstance(model.backbone, MSPN2):
+        raise NotImplementedError(
+            f'no pretrained loader for a {type(model.backbone).__name__} '
+            f'backbone ({path}): only MSPN2 has one, load_mspn_pretrained')
+    return load_mspn_pretrained(model, path)
+
+
 def train_model(cfg: Config,
                 work_dir: str = 'work_dirs/exp',
                 resume_from: Optional[str] = None,
@@ -190,7 +200,7 @@ def train_model(cfg: Config,
     if load_from:
         load_checkpoint_report(model, load_from, strict=False)
     elif ckpt_path and os.path.exists(ckpt_path):
-        report = load_mspn_pretrained(model, ckpt_path)
+        report = load_pretrained_backbone(model, ckpt_path)
         logger.text(f'loaded pretrained backbone {ckpt_path}; '
                     f'{len(report["missing"])} leaves left at init')
 
@@ -212,8 +222,7 @@ def train_model(cfg: Config,
         grad_clip=float(clip_cfg.get('max_norm', 35.0)),
         bias_lr_mult=float(pw.get('bias_lr_mult', 2.0)),
         bias_decay_mult=float(pw.get('bias_decay_mult', 0.0)),
-        frozen_prefixes=mspn_frozen_prefixes(
-            int(cfg.model.backbone.get('frozen_stages', -1))))
+        frozen_prefixes=model.backbone.frozen_prefixes())
     state = TrainState(0, model, tx_init(dict(model.named_parameters())))
 
     manager = CheckpointManager(

@@ -10,12 +10,12 @@ strides 4/8/16/32, lowest stride first. Module names are the reference's
 Under training, ``frozen_stages`` K >= 0 keeps the stem and the first K
 units of the first stage's downsample tower in eval mode (running-average
 norms whose statistics do not move), as the JAX module runs them; the
-optimizer masks their updates (``parallel/train_step.mspn_frozen_prefixes``).
+optimizer masks their updates (``MSPN2.frozen_prefixes``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -24,6 +24,18 @@ import torch.nn.functional as F
 from ..config.registry import BACKBONES
 from ..ops.interp import interpolate_bilinear_ac
 from .layers import BatchNorm, ConvModule, conv2d, max_pool_3x3_s2, remat
+
+
+def mspn_frozen_prefixes(frozen_stages: int, prefix: str = 'backbone.'
+                         ) -> Tuple[str, ...]:
+    """Parameter prefixes frozen by ``frozen_stages`` (ref
+    mspn_mmpose.py:635-646): the stem, plus layer1..layerK of the first
+    stage's downsample tower, under the backbone's ``prefix``."""
+    if frozen_stages < 0:
+        return ()
+    return (f'{prefix}top.',) + tuple(
+        f'{prefix}multi_stage_mspn.0.downsample.layer{i}.'
+        for i in range(1, frozen_stages + 1))
 
 
 def _nhwc(fn, x, *args):
@@ -225,6 +237,11 @@ class MSPN2(nn.Module):
         down = self.multi_stage_mspn[0].downsample
         return [self.top] + [getattr(down, f'layer{u + 1}') for u in range(
             min(self.frozen_stages, down.num_units))]
+
+    def frozen_prefixes(self, prefix: str = 'backbone.') -> Tuple[str, ...]:
+        """The parameter prefixes the optimizer holds still, under the
+        backbone's own ``prefix`` in the model."""
+        return mspn_frozen_prefixes(self.frozen_stages, prefix)
 
     def train(self, mode: bool = True):
         super().train(mode)

@@ -7,9 +7,9 @@ weight decay ``g + wd * wd_mult * p``; momentum ``m = 0.9 m + g``; the
 update ``p -= lr(count) * lr_mult * trainable * m`` with ``count`` from 0.
 Non-norm biases take ``bias_lr_mult=2`` and ``bias_decay_mult=0``; the
 learning rate warms up linearly over 250 iterations from 1/3 and drops by
-10x at epochs 16 and 20. ``frozen_stages`` freezes the MSPN stem and the
-first units of its first stage by masking their updates; their gradients
-still count in the clip, as in the JAX step.
+10x at epochs 16 and 20. The backbone's frozen parameters (the prefixes
+its ``frozen_prefixes`` gives) are held still by masking their updates;
+their gradients still count in the clip, as in the JAX step.
 
 The parameters and batch statistics live in the model, which the step
 updates in place (the JAX step returns new trees); ``TrainState`` carries
@@ -37,6 +37,7 @@ import torch.nn as nn
 
 from ..core.targets import get_targets
 from ..models.layers import BatchNorm, GroupNorm
+from ..models.mspn import mspn_frozen_prefixes  # noqa: F401 (exported)
 from ..utils.profiling import span
 from .mesh import all_reduce_grads, sum_over
 
@@ -92,17 +93,6 @@ def frozen_mask(model: nn.Module, frozen_prefixes: Sequence[str]
     """1.0 for trainable parameters, 0.0 for frozen ones."""
     return {k: 0.0 if any(k.startswith(f) for f in frozen_prefixes) else 1.0
             for k, _ in model.named_parameters()}
-
-
-def mspn_frozen_prefixes(frozen_stages: int) -> Tuple[str, ...]:
-    """Parameter prefixes frozen by ``frozen_stages`` (ref
-    mspn_mmpose.py:635-646): the stem, plus layer1..layerK of the first
-    stage's downsample tower."""
-    if frozen_stages < 0:
-        return ()
-    return ('backbone.top.',) + tuple(
-        f'backbone.multi_stage_mspn.0.downsample.layer{i}.'
-        for i in range(1, frozen_stages + 1))
 
 
 def make_optimizer(model: nn.Module, lr_fn: Callable[[int], float],

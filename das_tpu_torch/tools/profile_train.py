@@ -37,8 +37,7 @@ from ..datasets.loader import train_pad_hw_from_cfg
 from ..models import build_trainable_model
 from ..ops import dcn_shift, gather
 from ..parallel import (TrainState, make_lr_fn, make_optimizer,
-                        make_train_step, mspn_frozen_prefixes, replicate,
-                        world_size)
+                        make_train_step, replicate, world_size)
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'configs', 'das', 'exp_panoptic_tpu.py')
@@ -102,10 +101,11 @@ def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
                  hw: Sequence[int], seed: int = 0, group=None):
     """(state, step_fn, lr_fn, max_pos) for ``cfg`` as ``train_model`` would
     set it up: the schedule of ``cfg.optimizer`` and ``cfg.lr_config`` with
-    1000 steps per epoch, the MSPN frozen prefixes, ``train_cfg.max_pos`` or
-    128 per image of the global batch, and the config's image normalisation
-    on the device. With ``group``, ``batch`` is this rank's share: the model
-    is replicated over the group and the step is data-parallel."""
+    1000 steps per epoch, the backbone's frozen prefixes,
+    ``train_cfg.max_pos`` or 128 per image of the global batch, and the
+    config's image normalisation on the device. With ``group``, ``batch``
+    is this rank's share: the model is replicated over the group and the
+    step is data-parallel."""
     model = build_trainable_model(cfg.model, dtype=dtype, device=device,
                                   seed=seed)
     if group is not None:
@@ -122,8 +122,7 @@ def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
         model, lr_fn, momentum=float(opt.get('momentum', 0.9)),
         weight_decay=float(opt.get('weight_decay', 1e-4)),
         grad_clip=float(clip.get('max_norm', 35.0)),
-        frozen_prefixes=mspn_frozen_prefixes(
-            int(cfg.model.backbone.get('frozen_stages', -1))))
+        frozen_prefixes=model.backbone.frozen_prefixes())
     H, W = hw
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
                 for i in range(len(head.strides))]
