@@ -1341,7 +1341,76 @@ def sampler_vs_plain():
                 'the weights around them)', launches=0, max_abs_err=err,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 library_ms=lib_ms, shape=f'{N}x{H}x{W}x{C} bf16, P={P}')
+    entry.update(masked_sampler_and_dcn(gen))
     return entry
+
+
+def masked_sampler_and_dcn(gen):
+    """The served DCN at exp_panoptic's level 0 of a B=4 640x1152 request
+    (4x160x288x256, nine taps a pixel): the masked sampler bit for bit
+    against the unmasked kernel then the product and against the plain
+    sampler then the product, in f32 and bf16, and timed in bf16 beside
+    the unmasked kernel and its bound; then one DCN call (bias, offsets
+    and mask as strided views of the offset conv's output, the kernel a
+    permuted view as the layer passes it) by the per-tap route and by the
+    im2col route (one masked sample, one matmul). Returns the fields it
+    adds to the sampler's kernel table entry."""
+    import torch
+    from das_tpu_torch.ops import deform_conv, gather
+    N, H, W, C = 4, 160, 288, 256
+    P = 9 * H * W
+    raw = torch.randn(N, 27, H, W, generator=gen).cuda().permute(0, 2, 3, 1)
+    off = raw[..., :18] * 1.4
+    x = torch.rand(N, P, generator=gen).cuda() * (W + 3) - 2
+    y = torch.rand(N, P, generator=gen).cuda() * (H + 3) - 2
+    base = torch.randn(N, H * W, C, generator=gen).cuda()
+    m32 = torch.sigmoid(torch.randn(N, P, generator=gen).cuda())
+    for dt in (torch.float32, torch.bfloat16):
+        flat, mask = base.to(dt), m32.to(dt)
+        before = gather.sampler_launches, gather.sampler_masked_launches
+        got = gather.sample_rows_bilinear(flat, x, y, H, W, mask)
+        check((gather.sampler_launches, gather.sampler_masked_launches)
+              == (before[0] + 1, before[1] + 1),
+              'masked sampler: one launch, counted as masked')
+        want = gather.sample_rows_bilinear(flat, x, y, H, W) \
+            * mask[..., None]
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), ('masked sampler == sampler * mask',
+                                       dt))
+        del want
+        check(torch.equal(got, gather._sample_plain(flat, x, y, H, W, mask)),
+              ('masked sampler == plain sampler * mask', dt))
+        del got
+    masked_ms = cuda_ms(
+        lambda: gather.sample_rows_bilinear(flat, x, y, H, W, mask), 20)
+    unmasked_ms = cuda_ms(
+        lambda: gather.sample_rows_bilinear(flat, x, y, H, W), 20)
+    bound, by = bound_ms(11.0 * N * P * C, PEAK_F32_FLOPS,
+                         (H * W + P) * N * C * 2 + 8 * N * P + 2 * N * P)
+    img = base.to(torch.bfloat16).reshape(N, H, W, C)
+    dmask = torch.sigmoid(raw[..., 18:]).to(torch.bfloat16)
+    kernel = (torch.randn(C, C, 3, 3, generator=gen) * 0.02).cuda() \
+        .to(torch.bfloat16).permute(2, 3, 1, 0)
+    bias = torch.randn(C, generator=gen).cuda().to(torch.bfloat16)
+    args = (img, off, dmask, kernel, bias, 3, 1)
+    with torch.inference_mode():
+        per_tap_ms = cuda_ms(lambda: deform_conv._deform_conv_per_tap(*args),
+                             10)
+        im2col_ms = cuda_ms(lambda: deform_conv._deform_conv_im2col(*args),
+                            10)
+    dcn_bound, dcn_by = dcn_bound_ms(N, H, W, C, C, 2, PEAK_BF16_FLOPS)
+    phase('kernel', f'sample_rows_bilinear masked, exp_panoptic level-0 DCN '
+          f'({N}x{H}x{W}x{C}, P={P}): == unmasked kernel * mask and '
+          f'== plain sampler * mask bit for bit in f32 and bf16; bf16 '
+          f'masked {masked_ms:.4f} ms, unmasked {unmasked_ms:.4f} ms, '
+          f'bound {bound:.4f} ms ({by}); one bf16 DCN call: per-tap route '
+          f'{per_tap_ms:.4f} ms, im2col route (masked sample + one matmul) '
+          f'{im2col_ms:.4f} ms, DCN bound {dcn_bound:.4f} ms ({dcn_by})')
+    return dict(masked_ms=masked_ms, unmasked_ms=unmasked_ms,
+                masked_bound_ms=bound,
+                masked_shape=f'{N}x{H}x{W}x{C} bf16, P={P}',
+                dcn_per_tap_ms=per_tap_ms, dcn_im2col_ms=im2col_ms,
+                dcn_bound_ms=dcn_bound)
 
 
 # (N, H, W, C, P, dcn, what): the sampler's backward in training. The
@@ -1738,7 +1807,9 @@ def main_path(cfg_path, requests, expect, hw=(640, 1152)):
               tuple(out['poses'].shape))
         counts = ', '.join(f'{n} {count_label(key)}'
                            for key, n in got.items())
-        k4 = sum(n for key, n in got.items() if 'gather' in count_label(key))
+        # the masked samples are counted among the samples too
+        k4 = sum(n for key, n in got.items() if 'gather' in count_label(key)
+                 and key[1] != 'sampler_masked_launches')
         phase('main', f'{name} request {i}: B=4 {H}x{W} in '
               f'{times[-1]:.2f} ms, {int(out["valid"].sum())} valid poses, '
               f'launches: {counts}')
@@ -1934,9 +2005,9 @@ def k4_witness(seen):
             seen.append(('backward', N, R, C, P, dtypes[u], rel(got, want)))
         return gots
 
-    def sample(flat, x, y, H, W):
-        out = kernel[2](flat, x, y, H, W)
-        want = plain[2](flat, x, y, H, W)
+    def sample(flat, x, y, H, W, mask=None):
+        out = kernel[2](flat, x, y, H, W, mask)
+        want = plain[2](flat, x, y, H, W, mask)
         seen.launches[2] += 1
         seen.append(('sample', *flat.shape, x.shape[1], flat.dtype,
                      0.0 if torch.equal(out, want) else math.inf))
@@ -4322,13 +4393,13 @@ RUN_IMAGES = 80
 
 
 def serve_launches(cfg, hw):
-    """(row gathers, fused samples) of one served B=4 request of an
-    exact-gather ('patch') config at the ``hw`` bucket, derived from the
-    model code: every DCN call (the 3 towers' last convs and each RU
-    layer's update conv at 4 levels) one fused sample of its nine taps;
-    each RU layer but the last two samples a level; the last, at a level
-    of more than ``nms_pre`` points, the grouped take_at and two samples,
-    else two samples."""
+    """(row gathers, fused samples, of them masked) of one served B=4
+    request of an exact-gather ('patch') config at the ``hw`` bucket,
+    derived from the model code: every DCN call (the 3 towers' last convs
+    and each RU layer's update conv at 4 levels) one masked fused sample
+    of its nine taps; each RU layer but the last two samples a level; the
+    last, at a level of more than ``nms_pre`` points, the grouped take_at
+    and two samples, else two samples."""
     head = cfg.model.bbox_head
     check(head.get('dcn_gather_mode', 'patch') == 'patch',
           'serve_launches counts the exact gather only')
@@ -4338,19 +4409,21 @@ def serve_launches(cfg, hw):
     big = [(hw[0] // (4 * 2 ** i)) * (hw[1] // (4 * 2 ** i)) > nms_pre
            for i in range(4)]
     gathers = sum(big) if sparse else 0
-    return gathers, (12 + 4 * layers) + 8 * layers
+    dcn = 12 + 4 * layers
+    return gathers, dcn + 8 * layers, dcn
 
 
 def recipe_expect(cfg, hw):
     """main_path's and eval's per-request counts of a 'patch' config: no K1
     or K2, one K3 (the decode's), ``serve_launches``'s K4."""
     from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
-    gathers, samples = serve_launches(cfg, hw)
+    gathers, samples, masked = serve_launches(cfg, hw)
     return {(dcn_shift, 'launches'): 0, (dcn_shift, 'wgmma_launches'): 0,
             (dcn_shift, 'backward_launches'): 0, (conv_gn, 'launches'): 0,
             (oks_nms, 'launches'): 1, (gather, 'launches'): gathers,
             (gather, 'backward_launches'): 0,
             (gather, 'sampler_launches'): samples,
+            (gather, 'sampler_masked_launches'): masked,
             (gather, 'sampler_backward_launches'): 0}
 
 

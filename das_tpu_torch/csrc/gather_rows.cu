@@ -13,14 +13,16 @@
 //                                   of grad_out[n, p, :]   (f32 accumulator)
 //   sampler:  out[n, p, :] = the zero-padded bilinear sample of the
 //             (N, H*W, C) image at (x[n, p], y[n, p]): four row reads, each
-//             times its corner weight, summed
+//             times its corner weight, summed; with a mask (N, P), that sum
+//             times mask[n, p]
 //   sampler backward: the vector-Jacobian product of the sampler, the image
 //             gradient into an f32 accumulator, dx and dy in f32
 //
 // Bound: bytes. The gather reads each output row once, writes it once and
 // reads each index once; the sampler reads four rows and two coordinates
-// per point and writes one row. At the serving shapes (rows of 3 to 256
-// channels, 512 to 18432 points per table) those bytes take 0.0002 to 0.04
+// per point (and a masked one its mask value) and writes one row. At the
+// serving shapes (rows of 3 to 256 channels, 512 to 18432 points per
+// table) those bytes take 0.0002 to 0.04
 // ms at an H100's 3.35 TB/s: mostly less than one launch costs the host.
 // So what bounds the callers is the number of launches, and the design is
 // about that:
@@ -42,10 +44,21 @@
 // * A whole sample is one launch: floor, the four weights in f32, the
 //   in-bounds test, the cast of each weight to the table's type, four row
 //   reads, four products and three sums, each rounded as the plain
-//   composition of PyTorch calls rounds it (__fmul_rn and __fadd_rn, so
-//   nothing contracts into a fused multiply-add), in the order (x0,y0),
-//   (x1,y0), (x0,y1), (x1,y1). It equals that composition bit for bit in
-//   f32 and bf16.
+//   composition of PyTorch calls rounds it (the _rn intrinsics, so
+//   nothing contracts into a fused multiply-add; bf16 in packed pairs),
+//   in the order (x0,y0), (x1,y0), (x0,y1), (x1,y1). It equals that
+//   composition bit for bit in f32 and bf16. The four rows are loaded
+//   before any arithmetic, and offsets are 32-bit where they fit: at a
+//   DCN's 256 channels the per-element arithmetic and the 64-bit
+//   divisions, not the bytes, had set the time (1.0849 ms against a
+//   0.2867 ms bound at exp_panoptic's level 0; 0.78 ms after).
+// * The served DCN's sample is masked (the MASKED instance of the same
+//   kernel): each point's sum, rounded to T, is multiplied by the point's
+//   modulation value in T and rounded once more, as PyTorch's product of
+//   the sample and the mask rounds it. Its points are the nine taps of
+//   each pixel in turn, so its output is the (N*H*W, 9*C) im2col matrix
+//   of the DCN, which one GEMM contracts. It has no backward: training
+//   samples unmasked and multiplies under autograd.
 // * Its backward is one call too (zero-fill, kernel, cast), and needs only
 //   the image and the coordinates: the training path saves no corner rows
 //   and scatters none. In the 'clip' DCN of a B=4 640x1344 train step
@@ -284,46 +297,68 @@ inline int adjoint_elems(uintptr_t grad, uintptr_t dst, int C, int bf16) {
 
 // ---- the fused sampler ---------------------------------------------------
 
-__device__ __forceinline__ float mul_t(float v, float w) {
-  return __fmul_rn(v, w);
-}
-__device__ __forceinline__ __nv_bfloat16 mul_t(__nv_bfloat16 v,
-                                               __nv_bfloat16 w) {
-  return __float2bfloat16_rn(
-      __fmul_rn(__bfloat162float(v), __bfloat162float(w)));
-}
-__device__ __forceinline__ float add_t(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ __nv_bfloat16 add_t(__nv_bfloat16 a,
-                                               __nv_bfloat16 b) {
-  return __float2bfloat16_rn(
-      __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
-}
 __device__ __forceinline__ void cast_t(float w, float& out) { out = w; }
 __device__ __forceinline__ void cast_t(float w, __nv_bfloat16& out) {
   out = __float2bfloat16_rn(w);
 }
 
-// T: the table's type; E: elements per unit. One thread per (point, unit);
+// acc (E elements) = v * w where first, else acc + v * w, each product
+// and sum rounded to T, none contracted into a fused multiply-add. In
+// bf16 (in pairs where E is even) the bf16 instructions round once, as
+// PyTorch's f32 operation then cast does: a product of two bf16 values
+// is exact in f32, and an f32 sum of two rounds away only bits far below
+// bf16's half ulp.
+template <int E>
+__device__ __forceinline__ void mul_add(float* acc, const float* v, float w,
+                                        bool first) {
+#pragma unroll
+  for (int e = 0; e < E; ++e) {
+    const float p = __fmul_rn(v[e], w);
+    acc[e] = first ? p : __fadd_rn(acc[e], p);
+  }
+}
+template <int E>
+__device__ __forceinline__ void mul_add(__nv_bfloat16* acc,
+                                        const __nv_bfloat16* v,
+                                        __nv_bfloat16 w, bool first) {
+  if constexpr (E % 2 == 0) {
+    const __nv_bfloat162 w2 = __bfloat162bfloat162(w);
+    __nv_bfloat162* a2 = reinterpret_cast<__nv_bfloat162*>(acc);
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(v);
+#pragma unroll
+    for (int e = 0; e < E / 2; ++e) {
+      const __nv_bfloat162 p = __hmul2_rn(v2[e], w2);
+      a2[e] = first ? p : __hadd2_rn(a2[e], p);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const __nv_bfloat16 p = __hmul_rn(v[e], w);
+      acc[e] = first ? p : __hadd_rn(acc[e], p);
+    }
+  }
+}
+
+// T: the table's type; E: elements per unit; MASKED: each point's sum
+// times mask[point] (N, P) in T; I: the offsets' type, int where the
+// work items and the table's units fit. One thread per (point, unit);
 // the threads of a point each form its weights again.
-template <typename T, int E>
+template <typename T, int E, bool MASKED, typename I>
 __global__ void sample_rows_bilinear_kernel(
     const T* __restrict__ table, const float* __restrict__ x,
-    const float* __restrict__ y, T* __restrict__ out, long long rows,
-    long long P, int H, int W, int units) {
+    const float* __restrict__ y, const T* __restrict__ mask,
+    T* __restrict__ out, I rows, I P, int H, int W, int units) {
   using U = typename Unit<E * sizeof(T)>::type;
-  const long long total = rows * units;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long R = static_cast<long long>(H) * W;
+  const I total = rows * units;
+  const I step = static_cast<I>(gridDim.x) * blockDim.x;
+  const I R = static_cast<I>(H) * W;
   const float xmax = static_cast<float>(W - 1);
   const float ymax = static_cast<float>(H - 1);
-  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
+  for (I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
        t < total; t += step) {
-    const long long row = t / units;
-    const long long u = t - row * units;
-    const long long n = row / P;
+    const I row = t / units;
+    const I u = t - row * units;
+    const I n = row / P;
     const float xf = __ldg(x + row), yf = __ldg(y + row);
     const float x0 = floorf(xf), y0 = floorf(yf);
     const float x1 = __fadd_rn(x0, 1.f), y1 = __fadd_rn(y0, 1.f);
@@ -331,40 +366,59 @@ __global__ void sample_rows_bilinear_kernel(
     const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
     const float xs[2] = {x0, x1}, ys[2] = {y0, y1};
     const float wxs[2] = {wx0, wx1}, wys[2] = {wy0, wy1};
-    __align__(16) T acc[E];
+    U bits[4];
+    T w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {          // (x0,y0), (x1,y0), (x0,y1), (x1,y1)
       const float xi = xs[k & 1], yi = ys[k >> 1];
       const bool inb = xi >= 0.f && xi <= xmax && yi >= 0.f && yi <= ymax;
-      T w;
       cast_t(__fmul_rn(__fmul_rn(wxs[k & 1], wys[k >> 1]), inb ? 1.f : 0.f),
-             w);
-      const long long xc =
-          static_cast<long long>(fminf(fmaxf(xi, 0.f), xmax));
-      const long long yc =
-          static_cast<long long>(fminf(fmaxf(yi, 0.f), ymax));
-      const U bits = __ldg(reinterpret_cast<const U*>(table) +
-                           (n * R + yc * W + xc) * units + u);
-      const T* v = reinterpret_cast<const T*>(&bits);
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const T p = mul_t(v[e], w);
-        acc[e] = k == 0 ? p : add_t(acc[e], p);
-      }
+             w[k]);
+      const I xc = static_cast<I>(fminf(fmaxf(xi, 0.f), xmax));
+      const I yc = static_cast<I>(fminf(fmaxf(yi, 0.f), ymax));
+      bits[k] = __ldg(reinterpret_cast<const U*>(table) +
+                      (n * R + yc * W + xc) * units + u);
     }
+    __align__(16) T acc[E];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      mul_add<E>(acc, reinterpret_cast<const T*>(&bits[k]), w[k], k == 0);
+    if (MASKED) mul_add<E>(acc, acc, mask[row], true);
     reinterpret_cast<U*>(out)[t] = *reinterpret_cast<const U*>(acc);
   }
 }
 
+template <typename T, int E, typename I>
+void launch_sampler(const void* table, const float* x, const float* y,
+                    const void* mask, void* out, I rows, I P, int H, int W,
+                    int units, int grid, cudaStream_t stream) {
+  if (mask != nullptr)
+    sample_rows_bilinear_kernel<T, E, true, I>
+        <<<grid, kThreads, 0, stream>>>(
+            static_cast<const T*>(table), x, y, static_cast<const T*>(mask),
+            static_cast<T*>(out), rows, P, H, W, units);
+  else
+    sample_rows_bilinear_kernel<T, E, false, I>
+        <<<grid, kThreads, 0, stream>>>(
+            static_cast<const T*>(table), x, y, nullptr,
+            static_cast<T*>(out), rows, P, H, W, units);
+}
+
 template <typename T, int E>
 void launch_sampler(const void* table, const float* x, const float* y,
-                    void* out, long long rows, long long P, int H, int W,
-                    int row_bytes, cudaStream_t stream) {
+                    const void* mask, void* out, long long N, long long P,
+                    int H, int W, int row_bytes, cudaStream_t stream) {
   const int units = row_bytes / static_cast<int>(E * sizeof(T));
-  sample_rows_bilinear_kernel<T, E>
-      <<<grid_for(rows * units), kThreads, 0, stream>>>(
-          static_cast<const T*>(table), x, y, static_cast<T*>(out), rows, P,
-          H, W, units);
+  const long long rows = N * P;
+  const int grid = grid_for(rows * units);
+  // an int t never passes 2^31 - 1, even one grid stride past the end
+  if (rows * units + static_cast<long long>(grid) * kThreads < (1LL << 31) &&
+      N * H * W * static_cast<long long>(units) < (1LL << 31))
+    launch_sampler<T, E, int>(table, x, y, mask, out, static_cast<int>(rows),
+                              static_cast<int>(P), H, W, units, grid, stream);
+  else
+    launch_sampler<T, E, long long>(table, x, y, mask, out, rows, P, H, W,
+                                    units, grid, stream);
 }
 
 // ---- the sampler's backward ----------------------------------------------
@@ -654,11 +708,13 @@ int scatter_rows_grouped(const long long* desc, int n, long long N,
   return static_cast<int>(cudaGetLastError());
 }
 
-// table (N, H*W, C) f32 or bf16 (bf16 != 0), x and y (N, P) f32, out
-// (N, P, C) in the table's type.
+// table (N, H*W, C) f32 or bf16 (bf16 != 0), x and y (N, P) f32, mask
+// (N, P) in the table's type or null (no mask), out (N, P, C) in the
+// table's type.
 int sample_rows_bilinear(const void* table, const float* x, const float* y,
-                         void* out, long long N, int H, int W, long long P,
-                         int C, int bf16, cudaStream_t stream) {
+                         const void* mask, void* out, long long N, int H,
+                         int W, long long P, int C, int bf16,
+                         cudaStream_t stream) {
   const long long rows = N * P;
   if (rows > 0 && C > 0) {
     const int row_bytes = C * (bf16 ? 2 : 4);
@@ -666,7 +722,7 @@ int sample_rows_bilinear(const void* table, const float* x, const float* y,
                                  reinterpret_cast<uintptr_t>(out) |
                                  static_cast<uintptr_t>(row_bytes));
 #define SAMPLE(T, E) \
-  launch_sampler<T, E>(table, x, y, out, rows, P, H, W, row_bytes, stream)
+  launch_sampler<T, E>(table, x, y, mask, out, N, P, H, W, row_bytes, stream)
     if (bf16) {
       if (shift == 4) SAMPLE(__nv_bfloat16, 8);
       else if (shift == 3) SAMPLE(__nv_bfloat16, 4);

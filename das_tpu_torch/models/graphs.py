@@ -64,6 +64,7 @@ LIMIT = 16          # captured keys a module keeps; further keys run eagerly
 HOST_SYNC = ('hybrid', 'hybrid_pallas')
 # the hand kernels' launch counters that a replay advances
 KERNEL_COUNTERS = ((gather, 'launches'), (gather, 'sampler_launches'),
+                   (gather, 'sampler_masked_launches'),
                    (dcn_shift, 'launches'), (dcn_shift, 'wgmma_launches'),
                    (conv_gn, 'launches'))
 

@@ -8,7 +8,14 @@ are mask logits passed through a sigmoid; sampling pads with zeros.
 ``gather_mode`` takes the config's names as they are:
 
 * ``'patch'`` (and the bit-equal ``'clip'``, ``'fill'``, ``'one_hot'``,
-  ``'xpack'``) — the exact bilinear gather;
+  ``'xpack'``) — the exact bilinear gather. Where autograd records (the
+  training lowering ``'clip'``), the nine taps are sampled in one sample,
+  then each is multiplied by its mask, contracted and added in
+  ``x.dtype`` (``_deform_conv_per_tap``, JAX's order and roundings).
+  Where it does not (serving), one masked sample writes the (N*H*W,
+  K*K*Cin) im2col matrix and one matmul contracts all taps, summing in
+  f32 and rounding once (``_deform_conv_im2col``); in f32 the two agree
+  to rounding, in bf16 the matmul is the more precise;
 * ``'shift_pallas'`` — the hand kernel ``dcn_shift.deform_conv_shift``,
   exact while every offset lies within ``shift_radius``;
 * ``'hybrid_pallas'`` — the hand kernel plus ``_hybrid_repair``, the exact
@@ -72,7 +79,21 @@ def modulated_deform_conv(x: torch.Tensor,
     if gather_mode not in EXACT_MODES:
         raise ValueError(f'unknown gather_mode {gather_mode!r}; '
                          f'expected one of {MODES}')
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, offset, mask, weight, bias)):
+        return _deform_conv_per_tap(x, offset, mask, weight, bias, K,
+                                    padding)
+    return _deform_conv_im2col(x, offset, mask, weight, bias, K, padding)
 
+
+def _deform_conv_per_tap(x: torch.Tensor, offset: torch.Tensor,
+                         mask: torch.Tensor, weight: torch.Tensor,
+                         bias: Optional[torch.Tensor], K: int,
+                         padding: int) -> torch.Tensor:
+    """The exact DCN under autograd: the nine taps in one sample, taps
+    outermost, then per tap the mask product, the contraction and the sum,
+    each rounded to ``x.dtype``."""
     N, H, W, Cin = x.shape
     Cout = weight.shape[-1]
     # coordinate math stays f32 in every dtype
@@ -93,6 +114,30 @@ def modulated_deform_conv(x: torch.Tensor,
         tap = taps[:, k] * mask[..., k:k + 1]
         out = out + tap @ weight[kh, kw]
     return out
+
+
+def _deform_conv_im2col(x: torch.Tensor, offset: torch.Tensor,
+                        mask: torch.Tensor, weight: torch.Tensor,
+                        bias: Optional[torch.Tensor], K: int,
+                        padding: int) -> torch.Tensor:
+    """The exact DCN where autograd does not record: the points in the
+    offsets' own order, pixel-major and tap-minor, one masked sample (the
+    sample times the mask, rounded as ``_deform_conv_per_tap`` rounds that
+    product), which is the (N*H*W, K*K*Cin) im2col matrix, and one matmul
+    with the (K*K*Cin, Cout) kernel that adds the bias."""
+    N, H, W, Cin = x.shape
+    Cout = weight.shape[-1]
+    ys = torch.arange(H, dtype=torch.float32, device=x.device)[:, None, None]
+    xs = torch.arange(W, dtype=torch.float32, device=x.device)[:, None]
+    # (N, H, W, K*K) points: the taps of a pixel innermost
+    sy = ys + _tap_shift(K, padding, 0, x.device) + offset[..., 0::2].float()
+    sx = xs + _tap_shift(K, padding, 1, x.device) + offset[..., 1::2].float()
+    cols = sample_bilinear_abs(x, sx, sy, mask.to(x.dtype)) \
+        .reshape(N * H * W, K * K * Cin)
+    kernel = weight.reshape(K * K * Cin, Cout)
+    out = cols @ kernel if bias is None else \
+        torch.addmm(bias.to(x.dtype), cols, kernel)
+    return out.reshape(N, H, W, Cout)
 
 
 @functools.lru_cache(maxsize=None)

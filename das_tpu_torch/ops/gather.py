@@ -17,7 +17,9 @@ gathers of the same table add into one buffer, zeroed once and cast once.
 ``sample_rows_bilinear`` is a whole zero-padded bilinear sample of the flat
 image in one launch; where autograd records it, its backward is one launch
 too (``SampleRowsBilinear``), which keeps only the image and the
-coordinates: no corner row is saved or scattered.
+coordinates: no corner row is saved or scattered. Where autograd does not
+record, the same launch can multiply each point's sample by a modulation
+value (``mask``): the served DCN's im2col rows.
 
 On a CUDA tensor a wrapper launches the hand-written kernels
 (``das_tpu_torch/csrc/gather_rows.cu``) or raises; on a CPU tensor it runs
@@ -40,17 +42,19 @@ from .cuda_build import INT, LONG, PTR, CudaLibrary, check_launch, \
 LIB = CudaLibrary('gather_rows.cu', {
     'gather_rows_grouped': [PTR, INT, LONG, PTR],
     'scatter_rows_grouped': [PTR, INT, LONG, PTR, LONG, PTR],
-    'sample_rows_bilinear': [PTR, PTR, PTR, PTR, LONG, INT, INT, LONG, INT,
-                             INT, PTR],
+    'sample_rows_bilinear': [PTR, PTR, PTR, PTR, PTR, LONG, INT, INT, LONG,
+                             INT, INT, PTR],
     'sample_rows_bilinear_backward': [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR,
                                       LONG, INT, INT, LONG, INT, INT, PTR]})
 
 # Kernel launches since the last reset: the gather, its adjoint, the fused
-# sampler and its backward; the main path's run reads them.
+# sampler (masked or not) and its backward, and of the sampler's launches
+# those with a mask; the main path's run reads them.
 launches = 0
 backward_launches = 0
 sampler_launches = 0
 sampler_backward_launches = 0
+sampler_masked_launches = 0
 
 MAX_SEGMENTS = 8
 _IDX_TYPES = (torch.int32, torch.int64)
@@ -429,9 +433,10 @@ def sample_rows_bilinear_backward_plain(grad: torch.Tensor,
 
 
 def _check_sample(flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
-                  H: int, W: int):
+                  H: int, W: int, mask: Optional[torch.Tensor] = None):
     """Raise unless the sampler's kernels take ``flat`` (N, H*W, C) f32 or
-    bf16 and ``x``, ``y`` (N, P) f32, all contiguous on one CUDA device."""
+    bf16, ``x``, ``y`` (N, P) f32 and ``mask`` (N, P) in the image's type
+    or None, all contiguous on one CUDA device."""
     if flat.dtype not in _TABLE_TYPES:
         raise TypeError(f'the kernel takes f32 or bf16 images '
                         f'(got {flat.dtype})')
@@ -449,27 +454,38 @@ def _check_sample(flat: torch.Tensor, x: torch.Tensor, y: torch.Tensor,
     if not (flat.is_contiguous() and x.is_contiguous()
             and y.is_contiguous()):
         raise ValueError('flat, x and y must be contiguous')
+    if mask is not None and (
+            mask.dtype != flat.dtype or mask.shape != x.shape
+            or mask.device != dev or not mask.is_contiguous()):
+        raise ValueError(f'mask must be a contiguous {tuple(x.shape)} '
+                         f'{flat.dtype} tensor on {dev}, got '
+                         f'{tuple(mask.shape)} {mask.dtype} on {mask.device}')
     if dev.type != 'cuda':
         raise ValueError(f'the kernel runs on a CUDA device (got {dev})')
 
 
 def sample_rows_bilinear_cuda(flat: torch.Tensor, x: torch.Tensor,
-                              y: torch.Tensor, H: int, W: int
+                              y: torch.Tensor, H: int, W: int,
+                              mask: Optional[torch.Tensor] = None
                               ) -> torch.Tensor:
-    """Launch the fused sampler kernel."""
-    global sampler_launches
-    _check_sample(flat, x, y, H, W)
+    """Launch the fused sampler kernel, with ``mask`` its masked
+    instance."""
+    global sampler_launches, sampler_masked_launches
+    _check_sample(flat, x, y, H, W, mask)
     dev = flat.device
     N, _, C = flat.shape
     P = x.shape[1]
     out = flat.new_empty((N, P, C))
     lib = LIB.load()
-    args = (flat.data_ptr(), x.data_ptr(), y.data_ptr(), out.data_ptr(), N,
-            H, W, P, C, int(flat.dtype == torch.bfloat16))
+    args = (flat.data_ptr(), x.data_ptr(), y.data_ptr(),
+            0 if mask is None else mask.data_ptr(), out.data_ptr(), N, H, W,
+            P, C, int(flat.dtype == torch.bfloat16))
     with on_device(dev):
         err = lib.sample_rows_bilinear(*args, raw_stream(dev))
     check_launch('sample_rows_bilinear', err)
     sampler_launches += 1
+    if mask is not None:
+        sampler_masked_launches += 1
     return out
 
 
@@ -533,9 +549,11 @@ class SampleRowsBilinear(torch.autograd.Function):
         return dflat, dx, dy, None, None, None, None
 
 
-def _sample_plain(flat, x, y, H, W):
-    return sample_rows_bilinear_plain(flat, x, y, H, W,
-                                      gather=gather_rows_plain)
+def _sample_plain(flat, x, y, H, W, mask=None):
+    """The plain sampler; with ``mask`` (N, P), then its product."""
+    out = sample_rows_bilinear_plain(flat, x, y, H, W,
+                                     gather=gather_rows_plain)
+    return out if mask is None else out * mask[..., None]
 
 
 def _sampler_launchers(device: torch.device):
@@ -548,7 +566,9 @@ def _sampler_launchers(device: torch.device):
 
 
 def sample_rows_bilinear(flat: torch.Tensor, x: torch.Tensor,
-                         y: torch.Tensor, H: int, W: int) -> torch.Tensor:
+                         y: torch.Tensor, H: int, W: int,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Zero-padded bilinear sample of the flat image ``flat`` (N, H*W, C),
     contiguous, at ``x``, ``y`` (N, P) f32 -> (N, P, C).
 
@@ -556,11 +576,25 @@ def sample_rows_bilinear(flat: torch.Tensor, x: torch.Tensor,
     composition bit for bit; where autograd records (the image or a
     coordinate requires a gradient) the backward is one launch of the
     sampler's backward kernel. CPU tensors run the plain composition and
-    the closed-form backward."""
+    the closed-form backward.
+
+    With ``mask`` (N, P) in the image's type, each point's sample times its
+    value, equal bit for bit to the sample times ``mask[..., None]``, in
+    the same one launch. The masked sample has no backward: it raises
+    where autograd would record it."""
     fwd, bwd = _sampler_launchers(flat.device)
     if flat.device.type == 'cuda':
         x, y = x.contiguous(), y.contiguous()
-    if torch.is_grad_enabled() and (
-            flat.requires_grad or x.requires_grad or y.requires_grad):
+    records = torch.is_grad_enabled() and (
+        flat.requires_grad or x.requires_grad or y.requires_grad)
+    if mask is not None:
+        if records or (torch.is_grad_enabled() and mask.requires_grad):
+            raise RuntimeError('the masked sample has no backward: sample '
+                               'unmasked and multiply where autograd '
+                               'records')
+        if flat.device.type == 'cuda':
+            mask = mask.contiguous()
+        return fwd(flat, x, y, H, W, mask)
+    if records:
         return SampleRowsBilinear.apply(flat, x, y, H, W, fwd, bwd)
     return fwd(flat, x, y, H, W)

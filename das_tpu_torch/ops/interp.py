@@ -17,6 +17,7 @@ channels_last map permuted to NHWC already is.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +26,8 @@ from .gather import sample_rows_bilinear
 
 
 def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
-                        y: torch.Tensor) -> torch.Tensor:
+                        y: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bilinear sample ``img`` (N,H,W,C) at absolute pixel coords.
 
     ``x``/``y`` have shape (N, ...). Out-of-bounds corners contribute zero
@@ -39,13 +41,16 @@ def sample_bilinear_abs(img: torch.Tensor, x: torch.Tensor,
     the CPU the plain composition of one row gather of all four corners of
     the flat (N, H*W, C) image, as the JAX function's ``'clip'`` row
     gathers, with the weights around it, and its closed-form backward.
+    ``mask`` (x's shape, ``img.dtype``), where autograd does not record:
+    each point's sample times its value, in the same launch.
 
     Returns (N, *x.shape[1:], C).
     """
     N, H, W, C = img.shape
     flat = img.reshape(N, H * W, C).contiguous()
-    out = sample_rows_bilinear(flat, x.reshape(N, -1).float(),
-                               y.reshape(N, -1).float(), H, W)
+    out = sample_rows_bilinear(
+        flat, x.reshape(N, -1).float(), y.reshape(N, -1).float(), H, W,
+        None if mask is None else mask.reshape(N, -1))
     return out.reshape(*x.shape, C)
 
 

@@ -16,7 +16,8 @@ import torch
 
 from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.models import build_trainable_model
-from das_tpu_torch.ops import conv_gn, dcn_shift, gather, oks_nms
+from das_tpu_torch.ops import (conv_gn, dcn_shift, deform_conv, gather,
+                               oks_nms)
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
 from das_tpu_torch.ops.interp import sample_bilinear_abs as interp_sample
 from das_tpu_torch.parallel import (TrainState, frozen_mask, make_lr_fn,
@@ -753,6 +754,83 @@ def test_fused_sampler_kernel_matches_plain_bit_for_bit(cuda, shape, dt):
     assert (gather.sampler_launches, gather.launches) == \
         (before[0] + 2, before[1])
     assert torch.equal(out, want)
+
+
+# (N, H, W, C, P): exp_panoptic's level-0 DCN of a served B=4 640x1152
+# request (nine taps of 160x288 pixels) and a ragged one (odd sizes, 40
+# channels, a point count that is no multiple of nine)
+MASKED_SHAPES = [(4, 160, 288, 256, 9 * 46080), (3, 13, 21, 40, 2459)]
+
+
+@pytest.mark.parametrize('shape', MASKED_SHAPES)
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_masked_sampler_kernel_is_the_unmasked_kernel_times_mask(cuda, shape,
+                                                                 dt):
+    """The masked instance of the fused sampler == the unmasked kernel then
+    ``* mask[..., None]``, bit for bit, with points outside the image and
+    on its border; one launch, counted as a sample and as a masked one."""
+    N, H, W, C, P = shape
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(N, P, generator=g) * (W + 3) - 2
+    y = torch.rand(N, P, generator=g) * (H + 3) - 2
+    x[:, :36] = torch.tensor([-1.0, 0.0, W - 1.0, float(W), -0.5, W - 0.5]) \
+        .repeat_interleave(6)
+    y[:, :36] = torch.tensor([-1.0, 0.0, H - 1.0, float(H), -0.5, H - 0.5]) \
+        .repeat(6)
+    x, y = x.to(cuda), y.to(cuda)
+    flat = torch.randn(N, H * W, C, generator=g).to(cuda, dt)
+    mask = torch.sigmoid(torch.randn(N, P, generator=g)).to(cuda, dt)
+    before = gather.sampler_launches, gather.sampler_masked_launches
+    got = gather.sample_rows_bilinear(flat, x, y, H, W, mask)
+    torch.cuda.synchronize()
+    assert (gather.sampler_launches, gather.sampler_masked_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = gather.sample_rows_bilinear(flat, x, y, H, W) * mask[..., None]
+    assert torch.equal(got, want)
+
+
+def test_eval_dcn_im2col_no_less_precise_than_per_tap(cuda):
+    """The eval DCN on the card in bf16 (one masked sample, one matmul that
+    sums in f32) against the f64 DCN of the same bf16 inputs: its relative
+    L2 error is no larger than the per-tap route's (nine bf16 products,
+    contractions and sums), with and without bias, at exp_panoptic's
+    level-2 width and an odd size."""
+    x, off, mask, wt, b = _inputs(2, 41, 73, 256, 256, torch.bfloat16, cuda,
+                                  seed=3)
+    for bias in (b, None):
+        args = (x, off, mask, wt, bias)
+        with torch.inference_mode():
+            before = gather.sampler_masked_launches
+            got = modulated_deform_conv(*args, gather_mode='patch')
+            assert gather.sampler_masked_launches == before + 1
+            per_tap = deform_conv._deform_conv_per_tap(*args, 3, 1)
+        ref = deform_conv._deform_conv_per_tap(
+            *[None if a is None else a.cpu().double() for a in args], 3, 1)
+
+        def rel(out):
+            return float((out.cpu().double() - ref).norm() / ref.norm())
+        assert rel(got) <= rel(per_tap), (rel(got), rel(per_tap))
+
+
+@pytest.mark.parametrize('cfg, hw, samples, masked', [
+    ('configs/das/exp_panoptic.py', (640, 1152), 24, 16),
+    ('configs/das/exp_mupots.py', (736, 1280), 36, 20)])
+def test_full_width_eval_request_masked_samples(cuda, cfg, hw, samples,
+                                                masked):
+    """One full-width B=4 bf16 eval request of the recipe: every DCN call
+    (three towers and each RU layer's update conv at four levels) one
+    masked sample, the RU's own samples unmasked."""
+    from das_tpu_torch.config import Config
+    from das_tpu_torch.models import build_model
+    model = build_model(dict(Config.fromfile(cfg).model),
+                        dtype=torch.bfloat16, device=cuda)
+    img = torch.randn(4, *hw, 3, device=cuda)
+    before = gather.sampler_launches, gather.sampler_masked_launches
+    with torch.inference_mode():
+        model(img)
+    torch.cuda.synchronize()
+    assert (gather.sampler_launches - before[0],
+            gather.sampler_masked_launches - before[1]) == (samples, masked)
 
 
 def test_fused_sampler_kernel_refuses_what_it_does_not_take(cuda):

@@ -266,6 +266,105 @@ def test_deform_conv_nine_taps_in_one_sample_matches_jax(mode, with_bias):
     np.testing.assert_allclose(got.numpy(), np.asarray(exact), atol=3e-5)
 
 
+def _masked_inputs(dt, N=2, H=6, W=5, C=4, P=40, seed=3):
+    """An image, points with corners outside it and on its border, and a
+    mask of the image's type."""
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(N, H * W, C, generator=g).to(dt)
+    x = torch.rand(N, P, generator=g) * (W + 3) - 2
+    y = torch.rand(N, P, generator=g) * (H + 3) - 2
+    x[:, :6] = torch.tensor([-1.0, 0.0, W - 1.0, float(W), -0.5, W - 0.5])
+    y[:, :6] = torch.tensor([-0.5, H - 0.5, float(H), -1.0, 0.0, H - 1.0])
+    mask = torch.sigmoid(torch.randn(N, P, generator=g)).to(dt)
+    return flat, x, y, H, W, mask
+
+
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_masked_plain_sampler_is_the_sample_times_the_mask(dt):
+    """The masked sample on the CPU (the plain sampler, then the product)
+    == the unmasked sample times ``mask[..., None]``, bit for bit, with
+    corners outside the image; it launches nothing."""
+    flat, x, y, H, W, mask = _masked_inputs(dt)
+    before = gather.sampler_launches, gather.sampler_masked_launches
+    got = gather.sample_rows_bilinear(flat, x, y, H, W, mask)
+    assert (gather.sampler_launches, gather.sampler_masked_launches) == \
+        before
+    want = gather.sample_rows_bilinear(flat, x, y, H, W) * mask[..., None]
+    assert got.dtype == dt and torch.equal(got, want)
+    img = flat.reshape(2, H, W, -1)
+    assert torch.equal(interp.sample_bilinear_abs(img, x, y, mask), want)
+
+
+@pytest.mark.parametrize('leaf', ['flat', 'x', 'mask'])
+def test_masked_sample_raises_where_autograd_records(leaf):
+    """The masked sample has no backward: where the image, a coordinate
+    or the mask requires a gradient and grad is on it raises; under
+    no_grad the same call runs."""
+    flat, x, y, H, W, mask = _masked_inputs(torch.float32)
+    args = dict(flat=flat, x=x, mask=mask)
+    args[leaf] = args[leaf].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match='no backward'):
+        gather.sample_rows_bilinear(args['flat'], args['x'], y, H, W,
+                                    args['mask'])
+    with torch.no_grad():
+        out = gather.sample_rows_bilinear(args['flat'], args['x'], y, H, W,
+                                          args['mask'])
+    assert torch.equal(out, gather.sample_rows_bilinear(
+        flat, x, y, H, W) * mask[..., None])
+
+
+def _dcn_f64(with_bias, n=2, h=7, w=9, cin=5, cout=6):
+    args = [None if a is None else _t(a).double()
+            for a in _dcn_inputs(n, h, w, cin, cout, seed=11)]
+    if not with_bias:
+        args[4] = None
+    return args
+
+
+@pytest.mark.parametrize('with_bias', [True, False])
+def test_deform_conv_im2col_route_matches_per_tap_f64(with_bias):
+    """Where autograd does not record, the exact DCN takes the im2col
+    route (one masked sample, one matmul); in f64 it equals the per-tap
+    route to 1e-12, with and without bias, at an odd H x W."""
+    args = _dcn_f64(with_bias)
+    with torch.no_grad():
+        got = tdc.modulated_deform_conv(*args, gather_mode='patch')
+    route = tdc._deform_conv_im2col(*args, 3, 1)
+    want = tdc._deform_conv_per_tap(*args, 3, 1)
+    assert torch.equal(got, route)
+    assert got.shape == want.shape == (2, 7, 9, 6)
+    assert (got - want).abs().max().item() <= 1e-12
+
+
+@pytest.mark.parametrize('dt', [torch.float32, torch.bfloat16])
+def test_deform_conv_under_autograd_takes_the_per_tap_route(dt,
+                                                            monkeypatch):
+    """Where autograd records (the 'clip' training lowering), the exact DCN
+    runs the per-tap loop: its output and the gradients of x, offset,
+    mask, weight and bias equal bit for bit those of a direct call of
+    ``_deform_conv_per_tap``, and the im2col route is never called."""
+    base = [None if a is None else _t(a) for a in _dcn_inputs(h=7, w=9)]
+
+    def leaves():
+        return [a.to(dt if i != 1 else torch.float32).requires_grad_()
+                for i, a in enumerate(base)]
+
+    def im2col(*a, **k):
+        raise AssertionError('the im2col route ran under autograd')
+    monkeypatch.setattr(tdc, '_deform_conv_im2col', im2col)
+    got_in = leaves()
+    got = tdc.modulated_deform_conv(*got_in, gather_mode='clip')
+    want_in = leaves()
+    want = tdc._deform_conv_per_tap(*want_in, 3, 1)
+    assert torch.equal(got, want)
+    ct = torch.randn(got.shape, generator=torch.Generator().manual_seed(5)) \
+        .to(dt)
+    (got * ct).sum().backward()
+    (want * ct).sum().backward()
+    for a, b in zip(got_in, want_in):
+        assert a.grad is not None and torch.equal(a.grad, b.grad)
+
+
 def test_fused_sampler_wrapper_refuses_what_the_kernel_does_not_take():
     """The kernel's wrapper raises on a type, a stride or a shape that the
     kernel does not take, and never falls back: without a card it cannot
@@ -293,3 +392,17 @@ def test_fused_sampler_wrapper_refuses_what_the_kernel_does_not_take():
     out = gather.sample_rows_bilinear(flat, x, y, 6, 5)
     assert out.shape == (2, 9, 4)
     assert gather.sampler_launches == before    # the plain version
+
+
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'strided'])
+def test_fused_sampler_wrapper_refuses_a_mask_it_does_not_take(bad):
+    """The masked kernel takes a contiguous (N, P) mask of the image's
+    type; anything else raises before any launch."""
+    flat = torch.randn(2, 6 * 5, 4)
+    x = torch.rand(2, 9) * 4
+    y = torch.rand(2, 9) * 5
+    mask = {'dtype': torch.rand(2, 9).double(),
+            'shape': torch.rand(2, 10),
+            'strided': torch.rand(9, 2).t()}[bad]
+    with pytest.raises(ValueError, match='mask'):
+        gather.sample_rows_bilinear_cuda(flat, x, y, 6, 5, mask)

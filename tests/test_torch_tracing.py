@@ -234,8 +234,12 @@ def test_helpers_read_nothing_without_spans():
 
 @pytest.fixture(scope='module')
 def root(tmp_path_factory):
+    # two threads for this module only: a later module in the same process
+    # (a CLI against an in-process run) must see the default again
+    threads = torch.get_num_threads()
     torch.set_num_threads(2)
-    return tiny.make_root(tmp_path_factory.mktemp('bench'))
+    yield tiny.make_root(tmp_path_factory.mktemp('bench'))
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope='module')
