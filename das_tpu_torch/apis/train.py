@@ -29,7 +29,7 @@ import json
 import os
 import time
 from collections import deque
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +41,7 @@ from ..config import Config
 from ..datasets import build_dataset
 from ..datasets.loader import TrainLoader, train_pad_hw_from_cfg
 from ..models import MSPN2, build_model, build_trainable_model
-from ..parallel.mesh import replicate, shard_args
+from ..parallel.mesh import replicate, shard_args, world_size
 from ..parallel.train_step import (TrainState, make_lr_fn, make_optimizer,
                                    make_train_step)
 from ..utils.device import resolve_device
@@ -148,6 +148,54 @@ def load_pretrained_backbone(model, path: str) -> Dict:
     return load_mspn_pretrained(model, path)
 
 
+def make_trainer(cfg: Config, model, pad_hw: Sequence[int], batch: int,
+                 steps_per_epoch: int = 1000, img_norm=None, group=None):
+    """(state, step_fn, lr_fn, max_pos): the recipe's optimizer and step
+    for ``model`` (built by ``build_trainable_model``), as ``train_model``
+    sets them up. The schedule of ``cfg.optimizer`` and ``cfg.lr_config``
+    at ``steps_per_epoch`` (the loader's count; 1000 for a synthetic pool),
+    SGD with the gradient clip, ``paramwise_cfg``'s bias multipliers and
+    the backbone's frozen prefixes; the step at the train bucket
+    ``pad_hw`` with ``train_cfg.max_pos`` or 128 positives an image of the
+    global batch (``batch`` is this rank's; with ``group`` the step is
+    data-parallel) and ``img_norm`` applied on the device (None: the batch
+    comes normalised)."""
+    opt_cfg = cfg.get('optimizer', {})
+    lr_cfg = cfg.get('lr_config', {})
+    clip_cfg = (cfg.get('optimizer_config') or {}).get('grad_clip') or {}
+    lr_fn = make_lr_fn(
+        base_lr=float(opt_cfg.get('lr', 2e-3)),
+        warmup_iters=int(lr_cfg.get('warmup_iters', 250)),
+        warmup_ratio=float(lr_cfg.get('warmup_ratio', 1 / 3)),
+        step_epochs=tuple(lr_cfg.get('step', [16, 20])),
+        steps_per_epoch=steps_per_epoch)
+    pw = opt_cfg.get('paramwise_cfg', {}) or {}
+    tx_init, tx_update = make_optimizer(
+        model, lr_fn,
+        momentum=float(opt_cfg.get('momentum', 0.9)),
+        weight_decay=float(opt_cfg.get('weight_decay', 1e-4)),
+        grad_clip=float(clip_cfg.get('max_norm', 35.0)),
+        bias_lr_mult=float(pw.get('bias_lr_mult', 2.0)),
+        bias_decay_mult=float(pw.get('bias_decay_mult', 0.0)),
+        frozen_prefixes=model.backbone.frozen_prefixes())
+    state = TrainState(0, model, tx_init(dict(model.named_parameters())))
+    head = cfg.model.bbox_head
+    featmap_sizes = [(pad_hw[0] // (4 * 2 ** i), pad_hw[1] // (4 * 2 ** i))
+                     for i in range(4)]
+    # positive budget: ~9 center-sampled points per person per level;
+    # generous default scaled by the global batch, overridable via
+    # train_cfg.max_pos; with a group each rank takes it from its own points
+    max_pos = int((cfg.model.get('train_cfg') or {}).get(
+        'max_pos', 128 * batch * world_size(group)))
+    step_fn = make_train_step(
+        tx_update, featmap_sizes, tuple(head.strides),
+        tuple(tuple(r) for r in head.regress_ranges),
+        int(head.num_joints),
+        center_sample_radius=float(head.get('center_sample_radius', 1.5)),
+        max_pos=max_pos, img_norm=img_norm, group=group)
+    return state, step_fn, lr_fn, max_pos
+
+
 def train_model(cfg: Config,
                 work_dir: str = 'work_dirs/exp',
                 resume_from: Optional[str] = None,
@@ -204,26 +252,9 @@ def train_model(cfg: Config,
         logger.text(f'loaded pretrained backbone {ckpt_path}; '
                     f'{len(report["missing"])} leaves left at init')
 
-    opt_cfg = cfg.get('optimizer', {})
-    lr_cfg = cfg.get('lr_config', {})
+    state, step_fn, _, _ = make_trainer(cfg, model, pad_hw, batch_size,
+                                        steps_per_epoch, img_norm, group)
     runner_cfg = cfg.get('runner', {})
-    clip_cfg = (cfg.get('optimizer_config') or {}).get('grad_clip') or {}
-    lr_fn = make_lr_fn(
-        base_lr=float(opt_cfg.get('lr', 2e-3)),
-        warmup_iters=int(lr_cfg.get('warmup_iters', 250)),
-        warmup_ratio=float(lr_cfg.get('warmup_ratio', 1 / 3)),
-        step_epochs=tuple(lr_cfg.get('step', [16, 20])),
-        steps_per_epoch=steps_per_epoch)
-    pw = opt_cfg.get('paramwise_cfg', {}) or {}
-    tx_init, tx_update = make_optimizer(
-        model, lr_fn,
-        momentum=float(opt_cfg.get('momentum', 0.9)),
-        weight_decay=float(opt_cfg.get('weight_decay', 1e-4)),
-        grad_clip=float(clip_cfg.get('max_norm', 35.0)),
-        bias_lr_mult=float(pw.get('bias_lr_mult', 2.0)),
-        bias_decay_mult=float(pw.get('bias_decay_mult', 0.0)),
-        frozen_prefixes=model.backbone.frozen_prefixes())
-    state = TrainState(0, model, tx_init(dict(model.named_parameters())))
 
     manager = CheckpointManager(
         os.path.join(work_dir, 'ckpts'),
@@ -244,20 +275,6 @@ def train_model(cfg: Config,
         logger.text(f'resumed from {resume_from} at step {state.step}')
     if group is not None:
         replicate(model, group)
-
-    head = cfg.model.bbox_head
-    featmap_sizes = [(pad_hw[0] // (4 * 2 ** i), pad_hw[1] // (4 * 2 ** i))
-                     for i in range(4)]
-    # positive budget: ~9 center-sampled points per person per level;
-    # generous default scaled by the global batch, overridable via
-    # train_cfg.max_pos; with a group each rank takes it from its own points
-    max_pos = int((cfg.model.get('train_cfg') or {}).get(
-        'max_pos', 128 * global_batch))
-    step_fn = make_train_step(
-        tx_update, featmap_sizes, tuple(head.strides),
-        tuple(tuple(r) for r in head.regress_ranges), J,
-        center_sample_radius=float(head.get('center_sample_radius', 1.5)),
-        max_pos=max_pos, img_norm=img_norm, group=group)
 
     total_epochs = int(runner_cfg.get('max_epochs', 22))
     total_steps = max_steps or total_epochs * steps_per_epoch

@@ -244,39 +244,6 @@ def scatter_grouped_cuda(grads: Sequence[Optional[torch.Tensor]],
     return outs
 
 
-def gather_rows_cuda(table: torch.Tensor, idx: torch.Tensor
-                     ) -> torch.Tensor:
-    """Launch the gather kernel for one segment."""
-    return gather_grouped_cuda([table], [idx])[0]
-
-
-def scatter_rows_cuda(grad: torch.Tensor, idx: torch.Tensor, rows: int,
-                      dtype: torch.dtype) -> torch.Tensor:
-    """Launch the adjoint kernel for one segment into a zero f32 buffer;
-    cast to ``dtype``."""
-    return scatter_grouped_cuda([grad], [idx], [0], [rows], [dtype])[0]
-
-
-class GatherRows(torch.autograd.Function):
-    """``forward(table, idx)`` with the gradient
-    ``backward(grad, idx, rows, dtype)``; both are arguments, so the plain
-    pair can be checked with ``gradcheck`` in f64."""
-
-    @staticmethod
-    def forward(ctx, table, idx, forward, backward):
-        ctx.save_for_backward(idx)
-        ctx.rows, ctx.dtype, ctx.scatter = table.shape[1], table.dtype, \
-            backward
-        return forward(table, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        idx, = ctx.saved_tensors
-        g = ctx.scatter(grad.contiguous(), idx, ctx.rows, ctx.dtype) \
-            if ctx.needs_input_grad[0] else None
-        return g, None, None, None
-
-
 class GatherRowsGrouped(torch.autograd.Function):
     """``forward(tables, idxs)`` over the distinct tables ``*uniq`` with
     the gradient ``backward(grads, idxs, which, rows, dtypes)``; segment
@@ -304,30 +271,23 @@ class GatherRowsGrouped(torch.autograd.Function):
 
 
 def _launchers(device: torch.device):
-    """(single forward, single backward, grouped forward, grouped backward)
-    for tensors on ``device``."""
+    """(grouped forward, grouped backward) for tensors on ``device``."""
     if device.type == 'cpu':
-        return (gather_rows_plain, scatter_rows_plain, gather_grouped_plain,
-                scatter_grouped_plain)
+        return gather_grouped_plain, scatter_grouped_plain
     if device.type == 'cuda':
-        return (gather_rows_cuda, scatter_rows_cuda, gather_grouped_cuda,
-                scatter_grouped_cuda)
+        return gather_grouped_cuda, scatter_grouped_cuda
     raise ValueError(f'no row gather kernel for device {device}')
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``out[n, p] = table[n, clamp(idx[n, p], 0, R - 1)]``.
+    """``out[n, p] = table[n, clamp(idx[n, p], 0, R - 1)]``: the grouped
+    gather of one segment.
 
     table (N, R, C), idx (N, P) int32 or int64 -> (N, P, C). CPU tensors
     run the plain versions; CUDA tensors launch the kernels, which take f32
     or bf16 contiguous tables. Differentiable in ``table``.
     """
-    fwd, bwd, _, _ = _launchers(table.device)
-    if table.device.type == 'cuda':
-        idx = idx.contiguous()
-    if torch.is_grad_enabled() and table.requires_grad:
-        return GatherRows.apply(table, idx, fwd, bwd)
-    return fwd(table, idx)
+    return gather_rows_grouped([table], [idx])[0]
 
 
 def gather_rows_grouped(tables: Sequence[torch.Tensor],
@@ -340,7 +300,7 @@ def gather_rows_grouped(tables: Sequence[torch.Tensor],
     appear in several segments (the same tensor object): its gradient is
     then the sum over them, accumulated in one f32 buffer.
     """
-    _, _, fwd, bwd = _launchers(tables[0].device)
+    fwd, bwd = _launchers(tables[0].device)
     if tables[0].device.type == 'cuda':
         idxs = [i.contiguous() for i in idxs]
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):

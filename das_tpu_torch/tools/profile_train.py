@@ -16,8 +16,9 @@ time), the kernels with the most device time, and PyTorch's elementwise
 kernels' launches and device ms. The profiler's table and trace go to ``--out`` (default
 ``build/profile_train``).
 
-``make_trainer`` and ``synthetic_batch`` are what ``chip_smoke.py`` trains
-with too.
+The trainer is ``apis/train.py``'s ``make_trainer``, as ``train_model``
+sets it up, at 1000 steps an epoch; ``synthetic_batch`` is what the card
+tests train on too.
 """
 
 from __future__ import annotations
@@ -26,18 +27,17 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
 
+from ..apis.train import make_trainer
 from ..config import Config
 from ..datasets.loader import train_pad_hw_from_cfg
 from ..models import build_trainable_model
 from ..ops import dcn_shift, gather
-from ..parallel import (TrainState, make_lr_fn, make_optimizer,
-                        make_train_step, replicate, world_size)
 
 CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'configs', 'das', 'exp_panoptic_tpu.py')
@@ -97,46 +97,6 @@ def synthetic_batch(B: int, H: int, W: int, num_joints: int,
         gt_valid=np.ones((B, G), bool))
 
 
-def make_trainer(cfg: Config, dtype: torch.dtype, device, batch: int,
-                 hw: Sequence[int], seed: int = 0, group=None):
-    """(state, step_fn, lr_fn, max_pos) for ``cfg`` as ``train_model`` would
-    set it up: the schedule of ``cfg.optimizer`` and ``cfg.lr_config`` with
-    1000 steps per epoch, the backbone's frozen prefixes,
-    ``train_cfg.max_pos`` or 128 per image of the global batch, and the
-    config's image normalisation on the device. With ``group``, ``batch``
-    is this rank's share: the model is replicated over the group and the
-    step is data-parallel."""
-    model = build_trainable_model(cfg.model, dtype=dtype, device=device,
-                                  seed=seed)
-    if group is not None:
-        replicate(model, group)
-    head = cfg.model.bbox_head
-    opt = dict(cfg.get('optimizer') or {})
-    lr_cfg = dict(cfg.get('lr_config') or {})
-    clip = (cfg.get('optimizer_config') or {}).get('grad_clip') or {}
-    lr_fn = make_lr_fn(float(opt.get('lr', 2e-3)),
-                       warmup_iters=int(lr_cfg.get('warmup_iters', 250)),
-                       warmup_ratio=float(lr_cfg.get('warmup_ratio', 1 / 3)),
-                       step_epochs=tuple(lr_cfg.get('step', (16, 20))))
-    tx_init, tx_update = make_optimizer(
-        model, lr_fn, momentum=float(opt.get('momentum', 0.9)),
-        weight_decay=float(opt.get('weight_decay', 1e-4)),
-        grad_clip=float(clip.get('max_norm', 35.0)),
-        frozen_prefixes=model.backbone.frozen_prefixes())
-    H, W = hw
-    featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i))
-                for i in range(len(head.strides))]
-    max_pos = int((cfg.model.get('train_cfg') or {}).get(
-        'max_pos', 128 * batch * (1 if group is None else world_size(group))))
-    step = make_train_step(
-        tx_update, featmaps, tuple(head.strides),
-        tuple(tuple(r) for r in head.regress_ranges), int(head.num_joints),
-        center_sample_radius=float(head.get('center_sample_radius', 1.5)),
-        max_pos=max_pos, img_norm=cfg.get('img_norm_cfg'), group=group)
-    state = TrainState(0, model, tx_init(dict(model.named_parameters())))
-    return state, step, lr_fn, max_pos
-
-
 def k4_launches():
     """K4's launches so far: (row gathers, their adjoints, samples, sample
     backwards)."""
@@ -155,8 +115,10 @@ def main():
     cfg = Config.fromfile(args.config)
     H, W = train_pad_hw(cfg.train_pipeline)
     head = cfg.model.bbox_head
-    state, step, _, max_pos = make_trainer(cfg, torch.bfloat16, 'cuda',
-                                           args.batch, (H, W))
+    model = build_trainable_model(cfg.model, dtype=torch.bfloat16,
+                                  device='cuda')
+    state, step, _, max_pos = make_trainer(
+        cfg, model, (H, W), args.batch, img_norm=cfg.get('img_norm_cfg'))
     batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
         args.batch, H, W, int(head.num_joints), int(head.root_idx)).items()}
     state, _ = step(state, batch)                             # warm-up

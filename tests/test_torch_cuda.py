@@ -80,15 +80,27 @@ def test_dcn_shift_kernel_matches_plain_bf16_serving_shape(cuda):
     assert ((got - want).abs().max() / want.abs().max()).item() <= 1e-2
 
 
-@pytest.mark.parametrize('hw,radius', [
-    ((160, 288), 1), ((80, 144), 1), ((40, 72), 1), ((20, 36), 1),
-    ((80, 144), 2), ((13, 21), 1), ((13, 21), 2)])
-def test_dcn_shift_wgmma_pass_matches_plain(cuda, hw, radius):
+# the serving levels of a B=4 640x1152 request
+LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]
+# (N, H, W, Cin, Cout, radius, takes the wgmma pass)
+WGMMA_CASES = [(4, h, w, 256, 256, 1, 1) for h, w in LEVELS] + [
+    (4, 80, 144, 256, 256, 2, 1), (4, 13, 21, 256, 256, 1, 1),
+    (4, 13, 21, 256, 256, 2, 1), (2, 9, 7, 8, 16, 1, 0),
+    (2, 13, 21, 72, 136, 2, 0), (1, 8, 16, 64, 64, 1, 1),
+    (2, 13, 21, 128, 192, 1, 1), (2, 13, 21, 128, 192, 2, 1),
+    (3, 5, 40, 192, 320, 1, 1), (2, 20, 36, 256, 128, 2, 1)]
+
+
+@pytest.mark.parametrize('case', WGMMA_CASES)
+def test_dcn_shift_wgmma_pass_matches_plain(cuda, case):
     """The wgmma pass at the four serving levels (B=4, 256 channels, r=1),
-    at level 1 at r=2 and on a ragged patch: it is the pass the call takes
-    (the wgmma count moves with the launch count), max error <= 1e-2 x
-    max|ref|, and two runs are equal bit for bit."""
-    a = list(_inputs(4, *hw, 256, 256, torch.bfloat16, cuda,
+    at level 1 at r=2, on ragged patches, Cin of one to four 64-channel
+    slices and Cout below, at and across a column block; and the WMMA pass
+    where Cin is no multiple of 64: each call takes the pass its shapes
+    name (the wgmma count moves with the launch count, or stays), max
+    error <= 1e-2 x max|ref|, and two runs are equal bit for bit."""
+    n, h, w, cin, cout, radius, takes = case
+    a = list(_inputs(n, h, w, cin, cout, torch.bfloat16, cuda,
                      spread=0.8 * radius))
     a[3] = a[3] * 0.25
     before = dcn_shift.launches, dcn_shift.wgmma_launches
@@ -96,10 +108,30 @@ def test_dcn_shift_wgmma_pass_matches_plain(cuda, hw, radius):
     again = dcn_shift.deform_conv_shift(*a, radius=radius)
     torch.cuda.synchronize()
     assert (dcn_shift.launches, dcn_shift.wgmma_launches) == \
-        (before[0] + 2, before[1] + 2)
+        (before[0] + 2, before[1] + 2 * takes)
     assert torch.equal(got, again)
     want = dcn_shift.deform_conv_shift_plain(*a, radius=radius).float()
     assert ((got.float() - want).abs().max() / want.abs().max()).item() \
+        <= 1e-2
+
+
+@pytest.mark.parametrize('hw,radius', [(hw, 1) for hw in LEVELS]
+                         + [((80, 144), 2)])
+def test_dcn_shift_wmma_pass_at_the_serving_levels(cuda, hw, radius):
+    """The WMMA pass, which the serving shapes took before the wgmma pass,
+    called by name on the same inputs (the library's
+    ``dcn_shift_forward_pass``): max error <= 1e-2 x max|ref|."""
+    x, off, mask, wt, b = _inputs(4, *hw, 256, 256, torch.bfloat16, cuda,
+                                  spread=0.8 * radius)
+    wt = wt * 0.25
+    out = torch.empty_like(x)
+    assert dcn_shift.LIB.load().dcn_shift_forward_pass(
+        x.data_ptr(), off.data_ptr(), mask.data_ptr(), wt.data_ptr(),
+        b.data_ptr(), out.data_ptr(), *x.shape, 256, radius, 1, 1,
+        torch.cuda.current_stream().cuda_stream) == 0
+    want = dcn_shift.deform_conv_shift_plain(x, off, mask, wt, b,
+                                             radius=radius).float()
+    assert ((out.float() - want).abs().max() / want.abs().max()).item() \
         <= 1e-2
 
 
@@ -173,7 +205,8 @@ def test_dcn_shift_kernel_refuses_what_it_does_not_take(cuda):
 # the same bound.
 # Cin 8 and 128 take the kernels' 16-byte loads; Cin 6 (no multiple of 8
 # for bf16 nor of 4 for f32) takes one element a lane
-BWD_SHAPES = [(2, 9, 7, 8, 16), (2, 13, 21, 128, 192), (2, 9, 7, 6, 16)]
+BWD_SHAPES = [(2, 9, 7, 8, 16), (2, 13, 21, 128, 192), (2, 9, 7, 6, 16),
+              (2, 13, 21, 64, 64)]
 BWD_BF16_TOL = 2.0 ** -7
 BWD_NAMES = ('dx', 'doffset', 'dmask', 'dweight', 'dbias')
 
@@ -258,6 +291,10 @@ def test_dcn_shift_backward_kernel_unaligned_x(cuda, radius, dt):
 # passes share. H and W are no multiples of the 8 x 16 patch, so blocks
 # hold partial patches.
 TILED_SHAPES = [(2, 13, 21, 64, 64), (2, 9, 20, 128, 192)]
+BWD_CASES = ['zero', 'at +-r', 'next to the kinks', 'generic']
+# the four levels of a B=4 640x1344 train step, Cin = Cout = 256, r=1
+TRAIN_LEVELS = [(4, h, w, 256, 256) for h, w in
+                [(160, 336), (80, 168), (40, 84), (20, 42)]]
 
 
 def _tiled_call(x, off, mask, u, radius, lanes):
@@ -281,15 +318,15 @@ def _tiled_call(x, off, mask, u, radius, lanes):
     return tile, doff, dmask, dx
 
 
-@pytest.mark.parametrize('shape', TILED_SHAPES)
-@pytest.mark.parametrize('case', ['zero', 'at +-r', 'next to the kinks',
-                                  'generic'])
-@pytest.mark.parametrize('radius', [1, 2])
+@pytest.mark.parametrize('shape,case,radius', [
+    (s, c, r) for s in TILED_SHAPES for c in BWD_CASES for r in (1, 2)]
+    + [(s, 'generic', 1) for s in TRAIN_LEVELS])
 def test_dcn_shift_backward_tiled_pass_matches_closed_form(cuda, shape, case,
                                                            radius):
     """The tiled pass (it is the pass the call takes: the tiled count moves
     with the backward count) against the closed form: each output within
-    2^-7 of max|ref|, as the lane pass is held."""
+    2^-7 of max|ref|, as the lane pass is held; also at the four levels of
+    a train step."""
     x, off, mask, wt, g = _bwd_inputs(shape, torch.bfloat16, cuda, radius,
                                       case)
     before = dcn_shift.backward_launches, dcn_shift.backward_tiled_launches
@@ -303,17 +340,18 @@ def test_dcn_shift_backward_tiled_pass_matches_closed_form(cuda, shape, case,
     _bwd_close(got, want, torch.bfloat16, (shape, case, radius))
 
 
-@pytest.mark.parametrize('case', ['zero', 'at +-r', 'next to the kinks',
-                                  'generic'])
-@pytest.mark.parametrize('radius', [1, 2])
-def test_dcn_shift_backward_tiled_tile_and_dx_against_lanes(cuda, case,
-                                                            radius):
+@pytest.mark.parametrize('shape,case,radius', [
+    (s, c, r) for s in [(2, 13, 21, 64, 64), (2, 13, 21, 128, 192)]
+    for c in BWD_CASES for r in (1, 2)]
+    + [(s, 'generic', 1) for s in TRAIN_LEVELS])
+def test_dcn_shift_backward_tiled_tile_and_dx_against_lanes(cuda, shape,
+                                                            case, radius):
     """The tiled pass's tile equals the lane pass's value for value (the
     forward's rounding; TMA's zeros can only flip the sign of a zero); its
     dx is the same bits run after run, and the lane pass's bits (one dx
     kernel); dmask and doffset agree within 2^-7 and 1e-5 of max|lanes|
     (f32 sums in another order)."""
-    n, h, w, cin, cout = TILED_SHAPES[0]
+    n, h, w, cin, cout = shape
     x, off, mask, wt, g = _bwd_inputs((n, h, w, cin, cout), torch.bfloat16,
                                       cuda, radius, case)
     u = (g.reshape(-1, cout) @ wt.reshape(9 * cin, cout).t()).contiguous()
@@ -448,7 +486,8 @@ def _convgn_inputs(n, h, w, cin, cout, dt, dev, seed=0):
 CONVGN_SHAPES = [(2, 8, 16, 8, 8, 4), (2, 10, 18, 32, 64, 8),
                  (2, 20, 36, 64, 64, 32), (1, 9, 7, 3, 6, 3),
                  (2, 5, 11, 12, 130, 13), (2, 13, 21, 72, 136, 17),
-                 (1, 7, 40, 128, 264, 33)]
+                 (1, 7, 40, 128, 264, 33), (2, 7, 40, 128, 256, 32),
+                 (2, 9, 7, 3, 6, 3)]
 
 
 @pytest.mark.parametrize('shape', CONVGN_SHAPES)
@@ -515,7 +554,7 @@ def _nms_inputs(B, M, J, dev, seed=0):
 
 
 @pytest.mark.parametrize('B,M,J', [(1, 48, 15), (1, 16, 4), (2, 130, 17),
-                                   (4, 3720, 15)])
+                                   (4, 3720, 15), (2, 777, 17), (3, 64, 15)])
 def test_oks_nms_kernel_matches_plain(cuda, B, M, J):
     """The keep mask equals the plain version's bit for bit (the same
     expression order for sim, no fused multiply-add)."""
@@ -531,7 +570,7 @@ def test_oks_nms_kernel_matches_plain(cuda, B, M, J):
 
 
 @pytest.mark.parametrize('B,M,J', [(1, 16, 4), (3, 64, 15), (2, 777, 17),
-                                   (4, 3720, 15)])
+                                   (4, 3720, 15), (1, 48, 15)])
 def test_oks_nms_kernel_max_keep_and_ragged_m(cuda, B, M, J):
     """M below 64, one block exactly, no multiple of 64 and a request's M:
     with max_keep=k the mask is the first k kept of the plain version's
@@ -611,9 +650,13 @@ def test_oks_nms_sorted_on_the_card_refuses_past_its_cap(cuda):
                                valid, 0.9, np.full(33, 0.05), max_dets=10)
 
 
-# (N, R, C, P, index type): chip_smoke.py's K4 shapes, the probe's, the
-# RU's at level 1 of a served request and of a train step, the repair's at
-# level 1, and indices past both ends
+# (N, R, C, P, index type): the probe's shape
+# (tools/analysis_tools/pallas_gather_probe.py:26-28); the RU's at levels 0
+# and 1 of a served B=4 640x1152 request (60 = B x J tables: take_at of uvd
+# C=3 and of the offsets C=8 at K=1000 points, the [uvd, conf] corners C=6
+# at 8000) and of a B=4 640x1344 train step (K = max_pos = 512, and all
+# four corners at once); the repair's at budget 2048 on 256-channel maps;
+# and indices past both ends
 GATHER_SHAPES = [(1, 11520, 128, 11520, torch.int32),
                  (60, 11520, 3, 1000, torch.int64),
                  (60, 11520, 8, 1000, torch.int64),
@@ -623,7 +666,16 @@ GATHER_SHAPES = [(1, 11520, 128, 11520, torch.int32),
                  (60, 13440, 6, 4096, torch.int64),
                  (4, 11520, 256, 2048, torch.int64),
                  (2, 1000, 8, 3000, torch.int32),
-                 (2, 1000, 6, 3000, torch.int64)]
+                 (2, 1000, 6, 3000, torch.int64),
+                 (60, 46080, 3, 1000, torch.int64),
+                 (60, 46080, 8, 1000, torch.int64),
+                 (60, 46080, 6, 8000, torch.int64),
+                 (60, 53760, 3, 512, torch.int64),
+                 (60, 53760, 8, 512, torch.int64),
+                 (60, 53760, 6, 4096, torch.int64),
+                 (60, 53760, 8, 4 * 512, torch.int64),
+                 (60, 53760, 6, 4 * 4096, torch.int64),
+                 (4, 46080, 256, 2048, torch.int64)]
 
 
 @pytest.mark.parametrize('shape', GATHER_SHAPES)
@@ -666,12 +718,16 @@ def test_gather_rows_kernel_refuses_what_it_does_not_take(cuda):
         gather.gather_rows(table, idx[:1])
 
 
-# (N, [(R, C, P)]): the RU's take_at at level 1 of a served request and of a
-# train step, and four segments of which the first and third are one table
+# (N, [(R, C, P)]): the RU's take_at at levels 1 and 0 of a served request
+# and of a train step, four segments of which the first and third are one
+# table, and two segments of small tables (indices past both ends)
 GROUPED_SHAPES = [(60, [(11520, 3, 1000), (11520, 8, 1000)]),
                   (60, [(13440, 3, 512), (13440, 8, 512)]),
                   (4, [(11520, 256, 2048), (2880, 6, 300), (11520, 256, 700),
-                       (720, 7, 5000)])]
+                       (720, 7, 5000)]),
+                  (60, [(46080, 3, 1000), (46080, 8, 1000)]),
+                  (60, [(53760, 3, 512), (53760, 8, 512)]),
+                  (2, [(1000, 8, 3000), (1000, 6, 3000)])]
 
 
 @pytest.mark.parametrize('shape', GROUPED_SHAPES)
@@ -716,11 +772,14 @@ def test_grouped_gather_kernel_matches_plain(cuda, shape, dt):
             <= tol * w.float().abs().max()
 
 
-# (N, H, W, C, P): the RU's samples at level 1 of a served request and its
-# dense level 3, the uvd field alone, and the hybrid repair's nine taps
+# (N, H, W, C, P): the RU's samples at levels 1 and 0 of a served request
+# and its dense level 3, the uvd field alone, and the hybrid repair's nine
+# taps at levels 1 and 0
 SAMPLER_SHAPES = [(60, 80, 144, 8, 1000), (60, 80, 144, 6, 8000),
                   (60, 20, 36, 6, 5760), (60, 80, 144, 3, 1000),
-                  (4, 80, 144, 256, 9 * 2048)]
+                  (4, 80, 144, 256, 9 * 2048), (60, 160, 288, 8, 1000),
+                  (60, 160, 288, 6, 8000), (60, 20, 36, 8, 720),
+                  (4, 160, 288, 256, 9 * 2048)]
 
 
 @pytest.mark.parametrize('shape', SAMPLER_SHAPES)
@@ -767,8 +826,9 @@ MASKED_SHAPES = [(4, 160, 288, 256, 9 * 46080), (3, 13, 21, 40, 2459)]
 def test_masked_sampler_kernel_is_the_unmasked_kernel_times_mask(cuda, shape,
                                                                  dt):
     """The masked instance of the fused sampler == the unmasked kernel then
-    ``* mask[..., None]``, bit for bit, with points outside the image and
-    on its border; one launch, counted as a sample and as a masked one."""
+    ``* mask[..., None]``, and == the plain sampler then the product, bit
+    for bit, with points outside the image and on its border; one launch,
+    counted as a sample and as a masked one."""
     N, H, W, C, P = shape
     g = torch.Generator().manual_seed(1)
     x = torch.rand(N, P, generator=g) * (W + 3) - 2
@@ -787,6 +847,8 @@ def test_masked_sampler_kernel_is_the_unmasked_kernel_times_mask(cuda, shape,
         (before[0] + 1, before[1] + 1)
     want = gather.sample_rows_bilinear(flat, x, y, H, W) * mask[..., None]
     assert torch.equal(got, want)
+    del want
+    assert torch.equal(got, gather._sample_plain(flat, x, y, H, W, mask))
 
 
 def test_eval_dcn_im2col_no_less_precise_than_per_tap(cuda):
@@ -887,11 +949,25 @@ def _sample_points(N, H, W, P, grid, g):
 
 
 # (N, H, W, C, P, grid): the RU's rows (C = 3, 6, 8), an odd C, and the
-# DCN's nine taps of every pixel on 256- and 64-channel maps
+# DCN's nine taps of every pixel on 256- and 64-channel maps; then the
+# training shapes: the 'clip' DCN's nine taps of every level-0 pixel of
+# exp_panoptic's B=4 640x1344 bucket and of exp_mupots' B=4 800x1280, and
+# the RU's samples of a train step at its sparse level 0 (offsets C=8 at
+# max_pos=512 points, [uvd, conf] C=6 at 512 x 8) and at a dense level 3
+# (every point, and x 8), for exp_panoptic_tpu (N = 4 x 15) and exp_mupots
+# (4 x 21)
 SAMPLER_BWD_SHAPES = [(4, 9, 13, 3, 300, None), (4, 9, 13, 6, 700, None),
                       (4, 9, 13, 8, 300, None), (2, 9, 13, 5, 300, None),
                       (2, 12, 40, 256, 9 * 480, (9, 12, 40)),
-                      (2, 11, 37, 64, 9 * 407, (9, 11, 37))]
+                      (2, 11, 37, 64, 9 * 407, (9, 11, 37)),
+                      (4, 160, 336, 256, 9 * 53760, (9, 160, 336)),
+                      (4, 200, 320, 256, 9 * 64000, (9, 200, 320)),
+                      (60, 160, 336, 8, 512, None),
+                      (60, 160, 336, 6, 4096, None),
+                      (60, 20, 42, 8, 840, None), (60, 20, 42, 6, 6720, None),
+                      (84, 200, 320, 8, 512, None),
+                      (84, 200, 320, 6, 4096, None),
+                      (84, 25, 40, 6, 8000, None)]
 NEEDS = [(True, False, False), (False, True, True), (True, True, True)]
 
 
@@ -966,7 +1042,7 @@ def test_sampler_backward_kernel_refuses_what_it_does_not_take(cuda,
     with pytest.raises(RuntimeError, match='launch failed'):
         bwd(ct, flat, x, y, 6, 5)
     with pytest.raises(RuntimeError, match='launch failed'):
-        gather.scatter_rows_cuda(ct, idx, 30, torch.float32)
+        gather.scatter_grouped_cuda([ct], [idx], [0], [30], [torch.float32])
 
     def no_build():
         raise RuntimeError('nvcc failed on gather_rows.cu')
@@ -1068,9 +1144,10 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     and batch: loss terms rtol 1e-4, grad_norm rtol 1e-3, each update
     -lr * lr_mult * trainable * momentum within 2e-2 of its leaf's largest
     CPU update (a random-init train-mode step is ill-conditioned; see
-    chip_smoke.py's train_kernel_vs_plain), a leaf whose CPU update is zero
-    to rounding (below 1e-6 of the largest of all: a conv bias before a
-    norm) within 1e-5 of that largest, frozen parameters unchanged."""
+    tests/test_torch_card_paths.py::test_cut_train_step_card_vs_cpu), a
+    leaf whose CPU update is zero to rounding (below 1e-6 of the largest of
+    all: a conv bias before a norm) within 1e-5 of that largest, frozen
+    parameters unchanged."""
     H, W = 64, 96
     featmaps = [(H // (4 * 2 ** i), W // (4 * 2 ** i)) for i in range(4)]
     head = TRAIN_MODEL['bbox_head']

@@ -458,12 +458,19 @@ def test_init_model_switches_and_missing_key_report(tmp_path, capsys):
         init_model(cfg, checkpoint=path, device='cpu')
 
 
+# torch's intra-op threads on both sides of test_cli_evaluates_on_the_cpu
+CLI_THREADS = 1
+
+
 def test_cli_evaluates_on_the_cpu(tiny, data, tmp_path):
     """python -m das_tpu_torch.tools.test on a config file of the tiny
     model, --device cpu, --device-preprocess and --fuse-conv-bn, with a
     .pth of the seeded weights (cls bias 0): exit 0, the fused pair count
     and an MPJPE line equal to that of the port's own run_test on the
-    fused model in bf16 (the CLI's dtype)."""
+    fused model in bf16 (the CLI's dtype). Both sides run torch on
+    CLI_THREADS intra-op threads: a bf16 reduction on the CPU rounds by its
+    split over threads, and the count this process inherits is whatever
+    the modules run before it left."""
     _, _, _, model = tiny
     root, ann = data
     ckpt = str(tmp_path / 'tiny.pth')
@@ -480,7 +487,8 @@ def test_cli_evaluates_on_the_cpu(tiny, data, tmp_path):
         [sys.executable, '-m', 'das_tpu_torch.tools.test', cfg_path, ckpt,
          '--device', 'cpu', '--device-preprocess', '--fuse-conv-bn',
          '--batch-size', '2', '--res-folder', res, '--eval', 'mpjpe'],
-        cwd=ROOT, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS=str(CLI_THREADS)))
     assert proc.returncode == 0, proc.stderr[-3000:]
     lines = proc.stdout.splitlines()
     assert f'[das_tpu_torch] fused {n} conv+bn pairs' in lines
@@ -489,7 +497,12 @@ def test_cli_evaluates_on_the_cpu(tiny, data, tmp_path):
     assert os.path.exists(os.path.join(res, 'result_keypoints.json'))
     cfg = Config(_cfg_dict(root, ann))
     ds = build_dataset(cfg.data['test'])
-    want = ds.evaluate(run_test(fused, ds, cfg, batch_size=2,
-                                progress=False, device_preprocess=True))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(CLI_THREADS)
+    try:
+        want = ds.evaluate(run_test(fused, ds, cfg, batch_size=2,
+                                    progress=False, device_preprocess=True))
+    finally:
+        torch.set_num_threads(threads)
     assert f"MPJPE: {want['MPJPE:']}" in lines
     assert abs(mpjpe[0] - want['mpjpe_mm']) <= 1e-6 * max(1.0, mpjpe[0])

@@ -136,8 +136,9 @@ def test_gather_rows_gradcheck_and_jax_vjp():
     table = torch.from_numpy(rng.randn(2, 7, 3)).requires_grad_()
     idx = torch.from_numpy(rng.randint(0, 10, (2, 11)))
     assert torch.autograd.gradcheck(
-        lambda t: gather.GatherRows.apply(t, idx, gather.gather_rows_plain,
-                                          gather.scatter_rows_plain),
+        lambda t: gather.GatherRowsGrouped.apply(
+            gather.gather_grouped_plain, gather.scatter_grouped_plain, [0],
+            [idx], t)[0],
         (table,))
     t32 = table.detach().float().requires_grad_()
     ct = rng.randn(2, 11, 3).astype(np.float32)
