@@ -82,9 +82,9 @@ def build():
     """Phase 2: the host library (g++, ``datasets/native.py``), then every
     CUDA source (one nvcc each, started together)."""
     from das_tpu_torch.datasets import native
-    from das_tpu_torch.ops import (conv_gn, cuda_build, dcn_shift, gather,
-                                   oks_nms)
-    libs = [dcn_shift.LIB, conv_gn.LIB, oks_nms.LIB, gather.LIB]
+    from das_tpu_torch.ops import (bn_act, conv_gn, cuda_build, dcn_shift,
+                                   gather, oks_nms)
+    libs = [dcn_shift.LIB, conv_gn.LIB, oks_nms.LIB, gather.LIB, bn_act.LIB]
     t = time.perf_counter()
     so = native.build()
     if not native.available():

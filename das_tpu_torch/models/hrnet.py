@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from ..config.registry import BACKBONES
 from ..ops.interp import upsample_nearest
 from ..utils.profiling import span
-from .layers import BatchNorm, conv2d, remat
+from .layers import BatchNorm, conv2d, norm_act, remat
 
 
 class ConvBN(nn.Sequential):
@@ -57,8 +57,7 @@ class ConvBN(nn.Sequential):
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self[1](conv2d(self[0], x))
-        return F.relu(x) if self.relu else x
+        return norm_act(self[1], conv2d(self[0], x), relu=self.relu)
 
 
 class BasicBlock(nn.Module):
@@ -77,9 +76,9 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(conv2d(self.conv1, x)))
-        out = self.bn2(conv2d(self.conv2, out))
-        return F.relu(out + identity)
+        out = norm_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        return norm_act(self.bn2, conv2d(self.conv2, out), identity,
+                        relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -100,10 +99,10 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(conv2d(self.conv1, x)))
-        out = F.relu(self.bn2(conv2d(self.conv2, out)))
-        out = self.bn3(conv2d(self.conv3, out))
-        return F.relu(out + identity)
+        out = norm_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        out = norm_act(self.bn2, conv2d(self.conv2, out), relu=True)
+        return norm_act(self.bn3, conv2d(self.conv3, out), identity,
+                        relu=True)
 
 
 BLOCKS = {'BASIC': BasicBlock, 'BOTTLENECK': Bottleneck}
@@ -255,8 +254,8 @@ class HRNet(nn.Module):
 
     def _stem_stage1(self, x: torch.Tensor) -> torch.Tensor:
         with span('das.hrnet.stem'):
-            x = F.relu(self.bn1(conv2d(self.conv1, x)))
-            x = F.relu(self.bn2(conv2d(self.conv2, x)))
+            x = norm_act(self.bn1, conv2d(self.conv1, x), relu=True)
+            x = norm_act(self.bn2, conv2d(self.conv2, x), relu=True)
         with span('das.hrnet.stage1'):
             return self.layer1(x)
 

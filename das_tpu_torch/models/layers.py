@@ -25,7 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import conv_gn
+from ..ops import bn_act, conv_gn
 from ..ops.deform_conv import modulated_deform_conv
 from ..utils.profiling import span
 
@@ -101,6 +101,11 @@ class BatchNorm(nn.Module):
     without one, this process's batch's. Its keys are those the reference
     checkpoints carry, less ``num_batches_tracked``.
 
+    ``act`` is the call sites' form: the norm, a residual add and a ReLU
+    together, in one pass (``ops.bn_act``) where ``fused`` holds, which
+    rounds as ``bn_act_plain`` defines: the f32 affine rounded to the
+    input's dtype, and after a residual once more.
+
     ``recomputing`` (set by ``remat`` while it recomputes a region in the
     backward) skips the running update: the forward already made it."""
 
@@ -118,7 +123,35 @@ class BatchNorm(nn.Module):
             self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
             self.running_var.mul_(0.9).add_(var, alpha=0.1)
 
+    def fused(self, x: torch.Tensor,
+              residual: Optional[torch.Tensor] = None) -> bool:
+        """Whether ``act`` takes ``ops.bn_act``'s one pass: in eval, where
+        autograd does not record the call, on the CPU (its plain version)
+        or for a bf16 tensor on the card (its kernel). Training, the frozen
+        eval-mode stems of a recorded train step, and an f32 model on the
+        card take the chain of PyTorch calls."""
+        return (not self.training
+                and not bn_act.records(x, residual, self.weight, self.bias)
+                and (x.device.type == 'cpu' or x.dtype == torch.bfloat16))
+
+    def act(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+            relu: bool = False) -> torch.Tensor:
+        """This BatchNorm of ``x``, plus ``residual`` where given (rounded
+        to ``x.dtype`` in between), then ReLU where ``relu``: one
+        ``ops.bn_act`` call where ``fused`` holds, else the chain."""
+        if self.fused(x, residual):
+            return bn_act.bn_act(x, self.weight, self.bias,
+                                 self.running_mean, self.running_var,
+                                 residual=residual, relu=relu)
+        y = self._chain(x)
+        if residual is not None:
+            y = y + residual
+        return F.relu(y) if relu else y
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(x)
+
+    def _chain(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if not self.training:
             return F.batch_norm(xf, self.running_mean, self.running_var,
@@ -139,6 +172,20 @@ class BatchNorm(nn.Module):
                 var, mean = torch.var_mean(xf, dim=(0, 2, 3), unbiased=False)
                 self._update(mean, var)
         return y.to(x.dtype)
+
+
+def norm_act(norm: nn.Module, x: torch.Tensor,
+             residual: Optional[torch.Tensor] = None,
+             relu: bool = False) -> torch.Tensor:
+    """``norm(x)``, plus ``residual`` where given, then ReLU where ``relu``:
+    ``BatchNorm.act`` for a BatchNorm; for any other norm (a GroupNorm, or
+    the ``nn.Identity`` that ``fuse_conv_bn`` leaves) the three in turn."""
+    if isinstance(norm, BatchNorm):
+        return norm.act(x, residual, relu)
+    x = norm(x)
+    if residual is not None:
+        x = x + residual
+    return F.relu(x) if relu else x
 
 
 def remat(module: nn.Module, fn, *args):
@@ -353,10 +400,9 @@ class ConvModule(nn.Module):
         else:
             x = conv2d(self.conv, x)
         if self.norm_name is not None:
-            x = getattr(self, self.norm_name)(x)
-        if self.act == 'relu':
-            x = F.relu(x)
-        return x
+            return norm_act(getattr(self, self.norm_name), x,
+                            relu=self.act == 'relu')
+        return F.relu(x) if self.act == 'relu' else x
 
 
 class Scale(nn.Module):

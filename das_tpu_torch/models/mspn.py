@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from ..config.registry import BACKBONES
 from ..ops.interp import interpolate_bilinear_ac
-from .layers import BatchNorm, ConvModule, conv2d, max_pool_3x3_s2, remat
+from .layers import (BatchNorm, ConvModule, conv2d, max_pool_3x3_s2,
+                     norm_act, remat)
 
 
 def mspn_frozen_prefixes(frozen_stages: int, prefix: str = 'backbone.'
@@ -64,10 +65,10 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(conv2d(self.conv1, x)))
-        out = F.relu(self.bn2(conv2d(self.conv2, out)))
-        out = self.bn3(conv2d(self.conv3, out))
-        return F.relu(out + identity)
+        out = norm_act(self.bn1, conv2d(self.conv1, x), relu=True)
+        out = norm_act(self.bn2, conv2d(self.conv2, out), relu=True)
+        return norm_act(self.bn3, conv2d(self.conv3, out), identity,
+                        relu=True)
 
 
 class DownsampleModule(nn.Module):

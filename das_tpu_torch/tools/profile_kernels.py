@@ -1,13 +1,14 @@
 """Where the time of the port's kernels goes, on the card: each kernel
 alone, under ``torch.profiler`` (the device time of each of its launches
 per call), beside its bound where the formula lives here (K1, K2, the row
-gather: the larger of operations over the peak rate and bytes over the
-peak bandwidth of an H100 SXM). The bounds of K3 and of K4's sampler are
-the benchmark's (``dasbench/roofline``); those cases print times only.
+gather, the one-pass BatchNorm: the larger of operations over the peak
+rate and bytes over the peak bandwidth of an H100 SXM). The bounds of K3
+and of K4's sampler are the benchmark's (``dasbench/roofline``); those
+cases print times only.
 
     python -m das_tpu_torch.tools.profile_kernels
         [--what dcn dcn_backward oks_nms conv_gn wrapper gather sampler
-                sampler_backward dcn_im2col]
+                sampler_backward dcn_im2col bn_act]
 
 ``dcn``: the DCNv2 shift kernel (K1) at the four levels of a B=4 640x1152
 bf16 request (Cin = Cout = 256, r=1), and at level 1 at r=2: its wgmma
@@ -65,6 +66,12 @@ buckets and the RU's train shapes: all gradients, the image's alone and
 the coordinates' alone, beside ``aten.grid_sampler_2d_backward``. One JSON
 line per shape.
 
+``bn_act``: the one-pass BatchNorm with its residual and ReLU at
+exp_panoptic's largest served BN (4x256x160x288 bf16) and at HRNet-W48's
+first and fourth branches, beside the chain it replaced (cast, cuDNN's
+f32 eval BN, cast, add, ReLU), under ``torch.profiler``, with the bytes
+bound. One JSON line per shape.
+
 ``dcn_im2col``: one served bf16 DCN call at exp_panoptic's level 0
 (4x160x288x256; offsets, mask and bias as the layer passes them) by the
 per-tap route (nine samples, products and matmuls) and by the im2col
@@ -86,7 +93,7 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from ..ops import conv_gn, dcn_shift, deform_conv, gather, oks_nms
+from ..ops import bn_act, conv_gn, dcn_shift, deform_conv, gather, oks_nms
 
 LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]
 # an H100 SXM's data-sheet peaks (dense, 700 W): bf16 on the tensor cores,
@@ -175,6 +182,14 @@ def convgn_bound_ms(N, H, W, Cin, Cout, elt_bytes, peak_flops):
     flops = 2.0 * px * 9 * Cin * Cout + 6.0 * px * Cout
     nbytes = elt_bytes * (px * Cin + 9 * Cin * Cout + px * Cout) + 8 * Cout
     return bound_ms(flops, peak_flops, nbytes)
+
+
+def bn_act_bound_ms(N, C, H, W, residual):
+    """Least time for one one-pass BatchNorm call on bf16: read x (and the
+    residual), write the output, read the four f32 (C,) buffers."""
+    px = N * H * W
+    return bound_ms(0.0, PEAK_BF16_FLOPS,
+                    2 * px * C * (3 if residual else 2) + 16 * C)
 
 
 def gather_bound_ms(N, R, P, C, elt, idx_bytes, backward=False):
@@ -595,6 +610,39 @@ def sampler_backward_passes():
         torch.cuda.empty_cache()
 
 
+def bn_act_passes():
+    """The one-pass BatchNorm at exp_panoptic's largest served BN and at
+    HRNet-W48's branches, with the residual and ReLU, beside the chain it
+    replaced."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(31)
+    shapes = [('mspn layer1 bn3', 256, 160, 288),
+              ('hrnet branch 1 bn2', 48, 160, 288),
+              ('hrnet branch 4 bn2', 384, 20, 36)]
+    for name, C, H, W in shapes:
+        x = (torch.randn(4, H, W, C, generator=gen) * 2).cuda().bfloat16() \
+            .permute(0, 3, 1, 2)
+        r = torch.randn(4, H, W, C, generator=gen).cuda().bfloat16() \
+            .permute(0, 3, 1, 2)
+        wt, b, m = (torch.randn(C, generator=gen).cuda() for _ in range(3))
+        v = (torch.rand(C, generator=gen) + 0.5).cuda()
+        with torch.inference_mode():
+            kernel = kernel_ms(lambda: bn_act.bn_act(
+                x, wt, b, m, v, residual=r, relu=True), 20)
+            # the chain it replaced: cast, cuDNN's f32 eval BN, cast, add,
+            # ReLU
+            chain = kernel_ms(lambda: F.relu(F.batch_norm(
+                x.float(), m, v, wt, b, False, 0.0, 1e-5).to(x.dtype) + r),
+                20)
+        bound, by = bn_act_bound_ms(4, C, H, W, True)
+        total = sum(kernel.values())
+        print(json.dumps(dict(
+            what='bn_act', at=name, shape=f'4x{C}x{H}x{W} bf16 +res +relu',
+            ms_per_call=kernel, sum_ms=total, chain_ms_per_call=chain,
+            chain_sum_ms=sum(chain.values()), bound_ms=bound, bound_by=by,
+            share_of_bound=bound / total)), flush=True)
+
+
 def dcn_im2col_routes():
     """One served DCN call at exp_panoptic's level 0, by each route."""
     gen = torch.Generator().manual_seed(29)
@@ -624,7 +672,7 @@ def main():
                     default=['dcn', 'oks_nms', 'conv_gn', 'wrapper'],
                     choices=['dcn', 'dcn_backward', 'oks_nms', 'conv_gn',
                              'wrapper', 'gather', 'sampler',
-                             'sampler_backward', 'dcn_im2col'])
+                             'sampler_backward', 'dcn_im2col', 'bn_act'])
     args = ap.parse_args()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -647,6 +695,8 @@ def main():
         sampler_backward_passes()
     if 'dcn_im2col' in args.what:
         dcn_im2col_routes()
+    if 'bn_act' in args.what:
+        bn_act_passes()
 
 
 if __name__ == '__main__':

@@ -50,8 +50,10 @@ from das_tpu_torch.config import Config
 from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.datasets import build_dataset
 from das_tpu_torch.models import build_trainable_model
-from das_tpu_torch.models.layers import DeformConv2d, keep_master_weights
-from das_tpu_torch.ops import conv_gn, dcn_shift, deform_conv, gather, oks_nms
+from das_tpu_torch.models.layers import (BatchNorm, DeformConv2d,
+                                         keep_master_weights)
+from das_tpu_torch.ops import (bn_act, conv_gn, dcn_shift, deform_conv,
+                               gather, oks_nms)
 from das_tpu_torch.parallel import (frozen_mask, mspn_frozen_prefixes,
                                     param_groups, replicate)
 from das_tpu_torch.tools.profile_kernels import (pose_template,
@@ -66,6 +68,7 @@ SERVING_CFG = os.path.join(CFG_DIR, 'exp_panoptic_tpu.py')
 FUSED_CFG = os.path.join(CFG_DIR, 'exp_panoptic_tpu_fused_gn.py')
 PANOPTIC_CFG = os.path.join(CFG_DIR, 'exp_panoptic.py')
 MUPOTS_CFG = os.path.join(CFG_DIR, 'exp_mupots.py')
+HRNET_CFG = os.path.join(CFG_DIR, 'exp_panoptic_hrnet48.py')
 BF16_STEP = 2.0 ** -7         # bf16's spacing relative to a value in [1, 2)
 # a gradient leaf that is zero to rounding: its largest value below this
 # fraction of the largest of all leaves (a conv bias before a norm)
@@ -180,9 +183,9 @@ STEP_COUNTS = ('gather.launches', 'gather.backward_launches',
 KERNEL_COUNTS = ('dcn_shift.launches', 'dcn_shift.backward_launches',
                  'conv_gn.launches', 'oks_nms.launches', 'gather.launches',
                  'gather.backward_launches', 'gather.sampler_launches',
-                 'gather.sampler_backward_launches')
+                 'gather.sampler_backward_launches', 'bn_act.launches')
 _MODULES = dict(dcn_shift=dcn_shift, conv_gn=conv_gn, oks_nms=oks_nms,
-                gather=gather)
+                gather=gather, bn_act=bn_act)
 
 
 def counts(names):
@@ -226,11 +229,24 @@ def serve_launches(cfg, hw):
     return gathers, dcn + 8 * layers, dcn
 
 
+def batchnorms(cfg):
+    """The BatchNorms of ``cfg``'s model (the backbone's and the FPN's),
+    built on the meta device: a served bf16 request launches the one-pass
+    BatchNorm (``ops.bn_act``) once for each."""
+    from das_tpu_torch.config import wrap_cfg
+    from das_tpu_torch.config.registry import MODELS, build_from_cfg
+    with torch.device('meta'):
+        model = build_from_cfg(dict(wrap_cfg(cfg.model)), MODELS)
+    return sum(isinstance(m, BatchNorm) for m in model.modules())
+
+
 def shift_expect(convs):
     """The launches of one served request of exp_panoptic_tpu (``convs``
     K2 launches: 36 on its fused-GN twin): 16 K1, all on the wgmma pass,
-    one K3 (the decode's), 3 grouped gathers and K4_SAMPLES fused samples."""
-    return {(dcn_shift, 'launches'): 16, (dcn_shift, 'wgmma_launches'): 16,
+    one K3 (the decode's), 3 grouped gathers and K4_SAMPLES fused samples,
+    one one-pass BatchNorm a BatchNorm."""
+    return {(bn_act, 'launches'): batchnorms(Config.fromfile(SERVING_CFG)),
+            (dcn_shift, 'launches'): 16, (dcn_shift, 'wgmma_launches'): 16,
             (dcn_shift, 'backward_launches'): 0,
             (conv_gn, 'launches'): convs, (oks_nms, 'launches'): 1,
             (gather, 'launches'): 3, (gather, 'backward_launches'): 0,
@@ -240,9 +256,12 @@ def shift_expect(convs):
 
 def recipe_expect(cfg, hw):
     """The launches of one served request of a 'patch' config: no K1 or
-    K2, one K3 (the decode's), ``serve_launches``'s K4."""
+    K2, one K3 (the decode's), ``serve_launches``'s K4, one one-pass
+    BatchNorm a BatchNorm (136 exp_panoptic, 204 exp_mupots, 313
+    exp_panoptic_hrnet48: 128, 196 and 305 the backbone's, 8 the FPN's)."""
     gathers, samples, masked = serve_launches(cfg, hw)
-    return {(dcn_shift, 'launches'): 0, (dcn_shift, 'wgmma_launches'): 0,
+    return {(bn_act, 'launches'): batchnorms(cfg),
+            (dcn_shift, 'launches'): 0, (dcn_shift, 'wgmma_launches'): 0,
             (dcn_shift, 'backward_launches'): 0, (conv_gn, 'launches'): 0,
             (oks_nms, 'launches'): 1, (gather, 'launches'): gathers,
             (gather, 'backward_launches'): 0,
@@ -751,7 +770,8 @@ def leaves_close(got, want, what, rtol=CARD_CPU_RTOL):
 # -------------------------------------------------------- serving paths
 
 SERVED = [(SERVING_CFG, 2, (640, 1152)), (FUSED_CFG, 3, (640, 1152)),
-          (PANOPTIC_CFG, 3, (640, 1152)), (MUPOTS_CFG, 3, MUPOTS_HW)]
+          (PANOPTIC_CFG, 3, (640, 1152)), (MUPOTS_CFG, 3, MUPOTS_HW),
+          (HRNET_CFG, 3, (640, 1152))]
 
 
 def served_expect(cfg_path, cfg, hw):
@@ -1316,7 +1336,8 @@ def full_width_run(cfg_path, steps):
     compute on f32 master weights, on a synthetic TrainLoader batch (8
     people an image, one per regress range in turn), K1's backward and the
     plain shift expansion counted: each step's launches (STEP_COUNTS), K1
-    backward calls on the tiled pass, plain shift calls and metrics; the
+    backward calls on the tiled pass, plain shift calls, one-pass
+    BatchNorm launches (``bn``) and metrics; the
     frozen parameters before and after. Returns the run."""
     cfg = Config.fromfile(cfg_path)
     head = cfg.model.bbox_head
@@ -1339,14 +1360,16 @@ def full_width_run(cfg_path, steps):
     run = dict(model=model, cfg=cfg, batch=host_batch,
                featmaps=featmaps_of((H, W)), max_pos=max_pos,
                per_step=train_step_launches(cfg, (H, W), max_pos),
-               launches=[], tiled=[], plain_calls=[], metrics=[])
+               launches=[], tiled=[], plain_calls=[], metrics=[], bn=[])
     deform_conv._deform_conv_shift = counted_plain
     try:
         for _ in range(steps):
             c0, kt0, p0 = (step_counts(), dcn_shift.backward_tiled_launches,
                            plain_calls[0])
+            b0 = bn_act.launches
             state, metrics = step(state, batch)
             torch.cuda.synchronize()
+            run['bn'].append(bn_act.launches - b0)
             run['launches'].append(tuple(
                 b - a for a, b in zip(c0, step_counts())))
             run['tiled'].append(dcn_shift.backward_tiled_launches - kt0)
@@ -1366,17 +1389,48 @@ def full_width_run(cfg_path, steps):
 
 def hold_steps(run, k1):
     """A full-width run's steps: every metric finite, each step's launches
-    ``train_step_launches``'s and no plain shift expansion; with ``k1``
+    ``train_step_launches``'s, no one-pass BatchNorm (autograd records every
+    BatchNorm of a step, the frozen stem's too) and no plain shift
+    expansion; with ``k1``
     every K1 backward call on the tiled pass; the frozen parameters
     unchanged bit for bit and most trainable ones moved."""
     for i, (got, m) in enumerate(zip(run['launches'], run['metrics'])):
         assert all(math.isfinite(v) for v in m.values()), (i, m)
         assert got == run['per_step'], (i, got, run['per_step'])
         assert run['plain_calls'][i] == 0, i
+        assert run['bn'][i] == 0, (i, run['bn'])
         if k1:
             assert run['tiled'][i] == run['per_step'][5], (i, run['tiled'])
     assert run['frozen_same'], 'a frozen parameter moved'
     assert run['moved'] > 0.5 * run['trainable'], run['moved']
+
+
+@pytest.mark.parametrize('cfg_path', [PANOPTIC_CFG, MUPOTS_CFG, HRNET_CFG],
+                         ids=['exp_panoptic', 'exp_mupots',
+                              'exp_panoptic_hrnet48'])
+def test_train_step_takes_no_one_pass_batchnorm(cuda, cfg_path):
+    """Two B=2 train steps of each recipe at 256x384 (bf16 on f32 masters,
+    its frozen stem in eval mode) launch no one-pass BatchNorm: autograd
+    records every BatchNorm of a step. The model in eval under
+    ``inference_mode`` then launches one a BatchNorm."""
+    cfg = Config.fromfile(cfg_path)
+    head = cfg.model.bbox_head
+    state, step, _, _ = trainer(cfg, torch.bfloat16, 'cuda', 2, (256, 384))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in synthetic_batch(
+        2, 256, 384, int(head.num_joints), int(head.root_idx)).items()}
+    assert any(not m.training for m in state.model.modules()
+               if isinstance(m, BatchNorm))
+    before = bn_act.launches
+    for _ in range(2):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    assert bn_act.launches == before
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    model = state.model.eval()
+    with torch.inference_mode():
+        model.extract_feat(batch['img'])
+    torch.cuda.synchronize()
+    assert bn_act.launches - before == batchnorms(cfg)
 
 
 def k4_gradient_pass(run, dtype):

@@ -9,6 +9,7 @@ installed; there, skip the JAX test harness:
 """
 
 import ctypes
+import os
 
 import numpy as np
 import pytest
@@ -16,8 +17,8 @@ import torch
 
 from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.models import build_trainable_model
-from das_tpu_torch.ops import (conv_gn, dcn_shift, deform_conv, gather,
-                               oks_nms)
+from das_tpu_torch.ops import (bn_act, conv_gn, dcn_shift, deform_conv,
+                               gather, oks_nms)
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
 from das_tpu_torch.ops.interp import sample_bilinear_abs as interp_sample
 from das_tpu_torch.parallel import (TrainState, frozen_mask, make_lr_fn,
@@ -537,6 +538,137 @@ def test_conv_gn_kernel_refuses_what_it_does_not_take(cuda):
         conv_gn.conv_gn_relu(*a, groups=3)
     with pytest.raises(ValueError):
         conv_gn.conv_gn_relu(a[0], a[1][:2], *a[2:], groups=4)
+
+
+# Every BatchNorm shape (C, H, W) of a served B=4 request of exp_panoptic
+# (640x1152), exp_mupots (736x1280) and exp_panoptic_hrnet48 (640x1152):
+# backbone and FPN, C 48 to 2048, the stems at half resolution
+BN_SHAPES = sorted({
+    (64, 320, 576), (64, 160, 288), (128, 160, 288), (256, 160, 288),
+    (128, 80, 144), (256, 80, 144), (512, 80, 144), (256, 40, 72),
+    (512, 40, 72), (1024, 40, 72), (256, 20, 36), (512, 20, 36),
+    (2048, 20, 36),
+    (64, 368, 640), (64, 184, 320), (128, 184, 320), (256, 184, 320),
+    (128, 92, 160), (256, 92, 160), (512, 92, 160), (256, 46, 80),
+    (512, 46, 80), (1024, 46, 80), (256, 23, 40), (512, 23, 40),
+    (2048, 23, 40),
+    (48, 160, 288), (48, 80, 144), (48, 40, 72), (48, 20, 36),
+    (96, 80, 144), (96, 40, 72), (96, 20, 36), (192, 40, 72),
+    (192, 20, 36), (384, 20, 36)})
+# C not a multiple of 8, and a tiny one: the kernel's 2-byte slices
+BN_ODD_SHAPES = [(44, 7, 9), (3, 5, 6), (8, 1, 1)]
+
+
+def _bn_inputs(n, c, h, w, dev, seed=0):
+    """A channels-last bf16 x and residual like a conv's output, and the f32
+    weight, bias, running mean and running variance of a trained norm."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=g, device=dev) * 2 + 0.3
+    r = torch.randn(n, h, w, c, generator=g, device=dev)
+    wt = torch.randn(c, generator=g, device=dev) * 0.5 + 1
+    b = torch.randn(c, generator=g, device=dev) * 0.5
+    m = torch.randn(c, generator=g, device=dev) * 0.5
+    v = torch.rand(c, generator=g, device=dev) * 2 + 0.05
+    return (x.bfloat16().permute(0, 3, 1, 2), wt, b, m, v,
+            r.bfloat16().permute(0, 3, 1, 2))
+
+
+@pytest.mark.parametrize('shape', BN_SHAPES + BN_ODD_SHAPES,
+                         ids=lambda s: 'x'.join(map(str, s)))
+@pytest.mark.parametrize('residual,relu', [(False, False), (False, True),
+                                           (True, False), (True, True)],
+                         ids=['bn', 'bn+relu', 'bn+residual',
+                              'bn+residual+relu'])
+def test_bn_act_kernel_matches_plain_bit_for_bit(cuda, shape, residual,
+                                                 relu):
+    """The one-pass BatchNorm at every served shape (B=4) and at C that
+    is not a multiple of 8: equal to ``bn_act_plain`` on the same card
+    tensors (``torch.equal``), one launch, channels-last bf16 out."""
+    n = 4 if shape in BN_SHAPES else 2
+    x, wt, b, m, v, r = _bn_inputs(n, *shape, cuda)
+    res = r if residual else None
+    with torch.inference_mode():
+        before = bn_act.launches
+        got = bn_act.bn_act(x, wt, b, m, v, residual=res, relu=relu)
+        torch.cuda.synchronize()
+        assert bn_act.launches == before + 1
+        want = bn_act.bn_act_plain(x, wt, b, m, v, residual=res, relu=relu)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+def test_bn_act_kernel_unaligned_base(cuda):
+    """A channels-last x whose base is not on 16 bytes (C = 64) takes the
+    2-byte slices and equals the plain version; so does a residual that is
+    not."""
+    n, c, h, w = 2, 64, 10, 12
+    x, wt, b, m, v, r = _bn_inputs(n, c, h, w, cuda, seed=3)
+    flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous(
+        memory_format=torch.channels_last)
+    with torch.inference_mode():
+        for args in ((shifted, r), (x, shifted)):
+            got = bn_act.bn_act(args[0], wt, b, m, v, residual=args[1],
+                                relu=True)
+            want = bn_act.bn_act_plain(args[0], wt, b, m, v,
+                                       residual=args[1], relu=True)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize('cfg', ['exp_panoptic', 'exp_mupots',
+                                 'exp_panoptic_hrnet48'])
+def test_bn_act_kernel_at_every_served_batchnorm(cuda, monkeypatch, cfg):
+    """A served B=4 bf16 request at the config's bucket: every BatchNorm of
+    the backbone and the FPN is one kernel launch, and each launch's output
+    equals ``bn_act_plain`` on its own inputs."""
+    from das_tpu_torch.apis import init_model
+    from das_tpu_torch.models.layers import BatchNorm
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    hw = (736, 1280) if cfg == 'exp_mupots' else (640, 1152)
+    model, _ = init_model(os.path.join(root, 'configs', 'das', f'{cfg}.py'),
+                          dtype=torch.bfloat16, device='cuda')
+    norms = sum(isinstance(m, BatchNorm) for m in model.modules())
+    real, calls = bn_act.bn_act, []
+
+    def checked(x, *a, **k):
+        got = real(x, *a, **k)
+        calls.append(torch.equal(got, bn_act.bn_act_plain(x, *a, **k)))
+        return got
+    img = torch.randn(4, *hw, 3, device='cuda')
+    monkeypatch.setattr(bn_act, 'bn_act', checked)
+    with torch.inference_mode():
+        before = bn_act.launches
+        model.extract_feat(img)
+        torch.cuda.synchronize()
+    assert bn_act.launches - before == len(calls) == norms
+    assert all(calls), calls.count(False)
+
+
+def test_bn_act_kernel_refuses_what_it_does_not_take(cuda):
+    """An NCHW-contiguous x or residual, an f32 x, a residual of another
+    type or shape, f16 statistics, and a call where autograd would record
+    each raise; nothing launches."""
+    x, wt, b, m, v, r = _bn_inputs(1, 16, 4, 6, cuda)
+    before = bn_act.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match='channels-last'):
+            bn_act.bn_act(x.contiguous(), wt, b, m, v)
+        with pytest.raises(ValueError, match='channels-last'):
+            bn_act.bn_act(x, wt, b, m, v, residual=r.contiguous())
+        with pytest.raises(TypeError):
+            bn_act.bn_act(x.float(), wt, b, m, v)
+        with pytest.raises(TypeError):
+            bn_act.bn_act(x, wt, b, m, v, residual=r.float())
+        with pytest.raises(ValueError):
+            bn_act.bn_act(x, wt, b, m, v, residual=r[:, :8])
+        with pytest.raises(ValueError):
+            bn_act.bn_act(x, wt.half(), b, m, v)
+    with pytest.raises(RuntimeError, match='no backward'):
+        bn_act.bn_act(x, wt.requires_grad_(), b, m, v)
+    assert bn_act.launches == before
 
 
 def _nms_inputs(B, M, J, dev, seed=0):
@@ -1286,6 +1418,11 @@ def _launches_with_plain(name, dev):
         return (lambda: conv_gn.conv_gn_relu(*a, groups=32),
                 lambda: conv_gn.conv_gn_relu_plain(*a, groups=32),
                 lambda: conv_gn.launches)
+    if name == 'bn_act':
+        x, *a, r = _bn_inputs(2, 64, 20, 36, dev)
+        return (lambda: bn_act.bn_act(x, *a, residual=r, relu=True),
+                lambda: bn_act.bn_act_plain(x, *a, residual=r, relu=True),
+                lambda: bn_act.launches)
     if name == 'oks_nms':
         kpts, areas, valid = _nms_inputs(2, 130, 17, dev)
         sig = oks_nms.default_sigmas(17)
@@ -1302,7 +1439,7 @@ def _launches_with_plain(name, dev):
 
 
 @pytest.mark.parametrize('name', ['dcn_shift', 'conv_gn', 'oks_nms',
-                                  'gather_rows'])
+                                  'gather_rows', 'bn_act'])
 def test_kernel_launches_on_its_tensors_card(cuda, monkeypatch, name):
     """A wrapper called while another card is the current device launches
     on its tensors' card (``cuda_build.on_device``) and agrees with the
