@@ -53,7 +53,7 @@ import torch
 import torch.nn as nn
 from torch.nn.modules import module as _module
 
-from ..ops import bn_act, conv_gn, dcn_shift, gather
+from ..ops import bn_act, conv_gn, dcn_shift, gather, window_attn
 from .layers import DeformConv2d
 
 captures: Counter = Counter()
@@ -66,7 +66,8 @@ HOST_SYNC = ('hybrid', 'hybrid_pallas')
 KERNEL_COUNTERS = ((gather, 'launches'), (gather, 'sampler_launches'),
                    (gather, 'sampler_masked_launches'),
                    (dcn_shift, 'launches'), (dcn_shift, 'wgmma_launches'),
-                   (conv_gn, 'launches'), (bn_act, 'launches'))
+                   (conv_gn, 'launches'), (bn_act, 'launches'),
+                   (window_attn, 'launches'), (window_attn, 'pairs'))
 
 
 def _scan(modules: Sequence[nn.Module]) -> Tuple[Optional[str], tuple]:

@@ -11,7 +11,9 @@ parameters. A serving model casts its conv weights to the compute dtype
 (``cast_compute``); a trainable one keeps f32 master weights and casts them
 at each call (``keep_master_weights``). Either way a conv computes in
 ``compute_dtype(conv)``; norms take their statistics and affine in f32 and
-return the input's dtype.
+return the input's dtype. A transformer backbone's ``Linear`` layers are
+cast as the convs are, and its ``LayerNorm``'s weight and bias too: PyTorch's
+layer norm takes them in the input's dtype and computes in f32 inside.
 """
 
 from __future__ import annotations
@@ -238,6 +240,33 @@ class GroupNorm(nn.Module):
                             self.bias, 1e-5).to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm over the last dimension, eps 1e-5 (mmcv's ``LN``): its
+    mean, variance and affine in f32 inside PyTorch's layer norm, with the
+    weight and bias in the input's compute dtype (``compute_dtype``), the
+    result in that dtype. Told apart as a norm by the optimizer's groups."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self)
+        return F.layer_norm(x.to(dt), self.weight.shape, self.weight.to(dt),
+                            self.bias.to(dt), 1e-5)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (keys ``weight`` (out, in), ``bias``) that computes in
+    its compute dtype, as ``conv2d`` runs a conv."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(self)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
 def make_norm(norm_cfg: Optional[dict], channels: int):
     """(name, module) for an mmcv-style norm_cfg: BN/SyncBN -> 'bn',
     GN -> 'gn'; (None, None) without a norm."""
@@ -422,13 +451,17 @@ def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 3, 2, 1)
 
 
+# the modules whose parameters are cast to the compute dtype
+COMPUTE = (nn.Conv2d, DeformConv2d, Linear, LayerNorm)
+
+
 def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Set the compute dtype of a serving model: every conv's (and deform
-    conv's) weight and bias take ``dtype``; norms, ``Scale`` and the flows
-    stay f32, as the JAX modules keep f32 parameters and compute norms in
-    f32."""
+    conv's), ``Linear``'s and ``LayerNorm``'s weight and bias take
+    ``dtype``; BatchNorms, GroupNorms, ``Scale`` and the flows stay f32, as
+    the JAX modules keep f32 parameters and compute norms in f32."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, DeformConv2d)):
+        if isinstance(m, COMPUTE):
             for name, p in m.named_parameters(recurse=False):
                 p.data = p.data.to(dtype)
     return model
@@ -436,10 +469,10 @@ def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def keep_master_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Set the compute dtype of a trainable model: every parameter stays
-    f32 (SGD on bf16 weights would lose the updates) and each conv casts its
-    weight and bias to ``dtype`` at the call, as flax's ``dtype`` against
-    ``param_dtype``."""
+    f32 (SGD on bf16 weights would lose the updates) and each conv (and
+    ``Linear``, ``LayerNorm``) casts its weight and bias to ``dtype`` at the
+    call, as flax's ``dtype`` against ``param_dtype``."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, DeformConv2d)):
+        if isinstance(m, COMPUTE):
             m.compute_dtype = dtype
     return model

@@ -36,7 +36,7 @@ import torch
 import torch.nn as nn
 
 from ..core.targets import get_targets
-from ..models.layers import BatchNorm, GroupNorm
+from ..models.layers import BatchNorm, GroupNorm, LayerNorm
 from ..models.mspn import mspn_frozen_prefixes  # noqa: F401 (exported)
 from ..utils.profiling import span
 from .mesh import all_reduce_grads, sum_over
@@ -79,7 +79,7 @@ def param_groups(model: nn.Module, bias_lr_mult: float = 2.0,
     type (the reference's names ``bn1``..``bn3`` say it too)."""
     lr_mult, wd_mult = {}, {}
     for mod_name, mod in model.named_modules():
-        is_norm = isinstance(mod, (BatchNorm, GroupNorm))
+        is_norm = isinstance(mod, (BatchNorm, GroupNorm, LayerNorm))
         for name, _ in mod.named_parameters(recurse=False):
             key = f'{mod_name}.{name}' if mod_name else name
             bias = name == 'bias' and not is_norm

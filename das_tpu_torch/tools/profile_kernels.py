@@ -8,7 +8,7 @@ cases print times only.
 
     python -m das_tpu_torch.tools.profile_kernels
         [--what dcn dcn_backward oks_nms conv_gn wrapper gather sampler
-                sampler_backward dcn_im2col bn_act]
+                sampler_backward dcn_im2col bn_act window_attn]
 
 ``dcn``: the DCNv2 shift kernel (K1) at the four levels of a B=4 640x1152
 bf16 request (Cin = Cout = 256, r=1), and at level 1 at r=2: its wgmma
@@ -72,6 +72,17 @@ first and fourth branches, beside the chain it replaced (cast, cuDNN's
 f32 eval BN, cast, add, ReLU), under ``torch.profiler``, with the bytes
 bound. One JSON line per shape.
 
+``window_attn``: Swin-L's shifted-window attention at its stage-1 and
+stage-3 shapes of a B=4 640x1152 request (12 heads on 4 x 7 x 12 windows,
+48 heads on 4 x 2 x 3), shifted, from the qkv projection to the output
+projection's input: the kernel, the plain chain it replaces
+(``window_attention_plain``: permute, matmuls, the bias gathered, the
+mask, softmax) and ``F.scaled_dot_product_attention`` with the bias and
+the mask as one bf16 ``attn_mask`` (PyTorch's memory-efficient path; the
+permutes into its layout and back are timed with it, the mask built
+beforehand is not), under ``torch.profiler``, with the bound of
+``dasbench/roofline/window_attention.py``. One JSON line per shape.
+
 ``dcn_im2col``: one served bf16 DCN call at exp_panoptic's level 0
 (4x160x288x256; offsets, mask and bias as the layer passes them) by the
 per-tap route (nine samples, products and matmuls) and by the im2col
@@ -93,7 +104,8 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-from ..ops import bn_act, conv_gn, dcn_shift, deform_conv, gather, oks_nms
+from ..ops import (bn_act, conv_gn, dcn_shift, deform_conv, gather, oks_nms,
+                   window_attn)
 
 LEVELS = [(160, 288), (80, 144), (40, 72), (20, 36)]
 # an H100 SXM's data-sheet peaks (dense, 700 W): bf16 on the tensor cores,
@@ -643,6 +655,49 @@ def bn_act_passes():
             share_of_bound=bound / total)), flush=True)
 
 
+def window_attn_passes():
+    """Swin-L's window attention at stages 1 and 3, shifted, three ways."""
+    import torch.nn.functional as F
+    from dasbench.roofline import window_attention as roof
+    gen = torch.Generator().manual_seed(37)
+    idx = window_attn.relative_position_index(12).cuda()
+    for stage, heads, grid in [(1, 12, (7, 12)), (3, 48, (2, 3))]:
+        nw = grid[0] * grid[1]
+        B_, C = 4 * nw, heads * 32
+        qkv = torch.randn(B_, 144, 3 * C, generator=gen).cuda().bfloat16()
+        table = (torch.randn(529, heads, generator=gen) / heads ** 0.5) \
+            .cuda()
+        bias = table[idx.reshape(-1)].view(144, 144, heads).permute(2, 0, 1)
+        mask = window_attn.shift_mask(grid, 12, 6, 'cuda')
+        # (1, nW * heads, N, N): the images are SDPA's batch
+        attn_mask = (bias[None] + mask[:, None]).reshape(
+            1, nw * heads, 144, 144).bfloat16()
+
+        def sdpa():
+            q, k, v = qkv.view(4, nw, 144, 3, heads, 32).permute(
+                3, 0, 1, 4, 2, 5).reshape(3, 4, nw * heads, 144, 32)
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+            return o.view(4, nw, heads, 144, 32).permute(0, 1, 3, 2, 4) \
+                .reshape(B_, 144, C)
+        args = (qkv, table, idx, heads, grid, 6)
+        with torch.inference_mode():
+            kernel = kernel_ms(lambda: window_attn.window_attention(*args),
+                               20)
+            chain = kernel_ms(
+                lambda: window_attn.window_attention_plain(*args), 20)
+            lib = kernel_ms(sdpa, 20)
+        flops, nbytes = roof.layer_work(B_ * heads, 144, 32, heads, 12)
+        bound, by = bound_ms(flops, PEAK_BF16_FLOPS, nbytes)
+        total = sum(kernel.values())
+        print(json.dumps(dict(
+            what='window_attn', at=f'stage {stage} shifted',
+            shape=f'{B_} windows x {heads} heads x 144 x 32 bf16',
+            ms_per_call=kernel, sum_ms=total, chain_ms_per_call=chain,
+            chain_sum_ms=sum(chain.values()), sdpa_ms_per_call=lib,
+            sdpa_sum_ms=sum(lib.values()), bound_ms=bound, bound_by=by,
+            share_of_bound=bound / total)), flush=True)
+
+
 def dcn_im2col_routes():
     """One served DCN call at exp_panoptic's level 0, by each route."""
     gen = torch.Generator().manual_seed(29)
@@ -672,7 +727,8 @@ def main():
                     default=['dcn', 'oks_nms', 'conv_gn', 'wrapper'],
                     choices=['dcn', 'dcn_backward', 'oks_nms', 'conv_gn',
                              'wrapper', 'gather', 'sampler',
-                             'sampler_backward', 'dcn_im2col', 'bn_act'])
+                             'sampler_backward', 'dcn_im2col', 'bn_act',
+                             'window_attn'])
     args = ap.parse_args()
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -697,6 +753,8 @@ def main():
         dcn_im2col_routes()
     if 'bn_act' in args.what:
         bn_act_passes()
+    if 'window_attn' in args.what:
+        window_attn_passes()
 
 
 if __name__ == '__main__':

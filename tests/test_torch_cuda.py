@@ -18,7 +18,7 @@ import torch
 from das_tpu_torch.core.targets import get_targets
 from das_tpu_torch.models import build_trainable_model
 from das_tpu_torch.ops import (bn_act, conv_gn, dcn_shift, deform_conv,
-                               gather, oks_nms)
+                               gather, oks_nms, window_attn)
 from das_tpu_torch.ops.deform_conv import modulated_deform_conv
 from das_tpu_torch.ops.interp import sample_bilinear_abs as interp_sample
 from das_tpu_torch.parallel import (TrainState, frozen_mask, make_lr_fn,
@@ -1588,3 +1588,160 @@ def test_k4_counts_of_a_patch_request_and_a_clip_step(cuda):
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_k4_counts(), before)) == \
         (2, 2, 36, 36)
+
+
+# the four stages of Swin-L at a B=4 640x1152 request: (heads, windows of an
+# image (rows, columns) after padding to whole 12 x 12 windows)
+SWIN_STAGES = [(6, (14, 24)), (12, (7, 12)), (24, (4, 6)), (48, (2, 3))]
+
+
+def _window_inputs(heads, grid, dev, seed=0):
+    """A layer's qkv projection (4 images of windows) and bias table at
+    the scale a LayerNorm'd token and LeCun-normal weights give: q, k and
+    v entries ~ N(0, 1), the table N(0, 1 / heads)."""
+    gen = torch.Generator().manual_seed(seed)
+    B_ = 4 * grid[0] * grid[1]
+    qkv = torch.randn(B_, 144, 3 * heads * 32, generator=gen)
+    table = torch.randn(529, heads, generator=gen) / heads ** 0.5
+    return qkv.to(dev).bfloat16(), table.to(dev)
+
+
+@pytest.mark.parametrize('shift', [0, 6], ids=['plain', 'shifted'])
+@pytest.mark.parametrize('stage', range(4))
+def test_window_attn_kernel_matches_plain(cuda, stage, shift):
+    """The fused window attention at each Swin-L stage's served shape,
+    shifted and not, against an f64 oracle (the plain version on the
+    kernel's own bf16 inputs, in f64) and against the plain bf16 chain.
+    Tolerances: the kernel rounds the softmax's numerators to bf16 (a
+    relative 2^-9 each, averaging out over 144 keys) and its output once
+    (2^-9), so its relative L2 gap to the oracle is a few 1e-3 at most; the
+    chain rounds the logits themselves to bf16 before the softmax, so the
+    kernel must be no further from the oracle than the chain."""
+    heads, grid = SWIN_STAGES[stage]
+    qkv, table = _window_inputs(heads, grid, cuda, seed=stage)
+    idx = window_attn.relative_position_index(12).to(cuda)
+    with torch.inference_mode():
+        before = window_attn.launches, window_attn.pairs
+        got = window_attn.window_attention(qkv, table, idx, heads, grid,
+                                           shift)
+        torch.cuda.synchronize()
+        assert (window_attn.launches - before[0],
+                window_attn.pairs - before[1]) == (1, qkv.shape[0] * heads)
+        chain = window_attn.window_attention_plain(qkv, table, idx, heads,
+                                                   grid, shift)
+        oracle = window_attn.window_attention_plain(
+            qkv.double(), table.double(), idx, heads, grid, shift)
+
+    def rel(out):
+        return float((out.double() - oracle).norm() / oracle.norm())
+    assert got.dtype == torch.bfloat16 and got.shape == chain.shape
+    assert rel(got) < 4e-3, rel(got)
+    assert rel(got) <= rel(chain), (rel(got), rel(chain))
+
+
+def test_window_attn_kernel_refuses_what_it_does_not_take(cuda):
+    qkv, table = _window_inputs(6, (2, 3), cuda)
+    idx = window_attn.relative_position_index(12).to(cuda)
+    before = window_attn.launches
+    for args, err in [
+            ((qkv.float(), table, idx, 6, (2, 3), 0), ValueError),
+            ((qkv[:, :100], table, idx, 6, (2, 3), 0), ValueError),
+            ((qkv, table, idx, 4, (2, 3), 0), ValueError),
+            ((qkv, table.bfloat16(), idx, 6, (2, 3), 0), ValueError),
+            ((qkv, table, idx, 6, (5, 5), 0), ValueError),
+            ((qkv, table, idx, 6, (2, 3), 3), ValueError),
+            ((qkv, table.clone().requires_grad_(), idx, 6, (2, 3), 0),
+             RuntimeError)]:
+        with pytest.raises(err):
+            window_attn.window_attention(*args)
+    assert window_attn.launches == before
+
+
+def test_swin_attention_on_the_card_takes_the_kernel_or_raises(cuda):
+    """``WindowMSA`` on the card outside autograd calls the kernel, which
+    raises for an f32 model or a window of 7 (Swin-T/B) rather than falling
+    back to the plain chain; under autograd it takes the plain chain."""
+    from das_tpu_torch.models.swin import WindowMSA
+    x = torch.randn(6, 144, 192, device=cuda)
+    for window, dtype in [(12, torch.float32), (7, torch.bfloat16)]:
+        msa = WindowMSA(192, 6, window, True).to(cuda).to(dtype)
+        n = window * window
+        with torch.inference_mode(), pytest.raises(ValueError):
+            msa(x[:, :n].to(dtype), (2, 3), 0)
+    msa = WindowMSA(192, 6, 12, True).to(cuda)
+    before = window_attn.launches
+    msa(x, (2, 3), 6).sum().backward()
+    assert window_attn.launches == before
+    assert msa.relative_position_bias_table.grad is not None
+    from das_tpu_torch.models.layers import cast_compute
+    with torch.inference_mode():
+        cast_compute(msa, torch.bfloat16)(x.bfloat16(), (2, 3), 6)
+    assert window_attn.launches == before + 1
+
+
+def _swin_served(cuda):
+    """The served exp_panoptic_swinl model in bf16 with the benchmark's
+    seeded weights (seed 3), and its dasbench configuration."""
+    import json
+    from das_tpu_torch.apis import init_model
+    from dasbench import weights
+    cfg = json.load(open('dasbench/configs/exp_panoptic_swinl.json'))
+    model, _ = init_model('configs/das/exp_panoptic_swinl.py',
+                          dtype=torch.bfloat16, device=cuda)
+    state = weights.make_state(cfg['model'], cfg['assumed']['weights'], 3,
+                               cuda)
+    model.load_state_dict(state, strict=True)
+    return model, cfg, state
+
+
+def test_swin_l_request_launches_the_kernel_24_times(cuda):
+    """A served B=4 640x1152 request of exp_panoptic_swinl: one window
+    attention launch a block (24) over 67,968 (window, head) pairs, as
+    ``dasbench/roofline/window_attention.py`` counts them."""
+    from dasbench.roofline.window_attention import pairs
+    model, cfg, _ = _swin_served(cuda)
+    img = torch.randn(4, 640, 1152, 3, device=cuda)
+    with torch.inference_mode():
+        before = window_attn.launches, window_attn.pairs
+        model(img)
+        torch.cuda.synchronize()
+    got = (window_attn.launches - before[0], window_attn.pairs - before[1])
+    assert got == (24, 67968) == (24, pairs(cfg['model']['backbone'], 4,
+                                            (640, 1152)))
+
+
+def test_swin_l_served_backbone_matches_the_reference(cuda):
+    """Swin-L's four maps at B=2 640x1152, the served bf16 backbone (the
+    kernel at every block) against the f32 reference
+    (``dasbench/reference/backbones/SwinTransformer.py``, TF32 off) on the
+    benchmark's seeded weights: nearer to it, map by map, than the same
+    reference one precision lower (fp8 e4m3 operands, the benchmark's
+    control) is, and within 4% relative L2 (bf16's 2^-9 a rounding,
+    through 24 residual blocks of random weights)."""
+    from dasbench.reference import backbones, precision
+    model, cfg, state = _swin_served(cuda)
+    b = cfg['model']['backbone']
+    ref = backbones.find(b).build(b).to(cuda).eval()
+    ref.load_state_dict({k[len('backbone.'):]: v for k, v in state.items()
+                         if k.startswith('backbone.')}, strict=True)
+    mean = torch.tensor(cfg['model']['img_norm']['mean'], device=cuda)
+    std = torch.tensor(cfg['model']['img_norm']['std'], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    img = (torch.rand(2, 3, 640, 1152, generator=gen, device=cuda) * 255
+           - mean[:, None, None]) / std[:, None, None]
+    with torch.inference_mode():
+        before = window_attn.launches
+        got = model.backbone(img.contiguous(
+            memory_format=torch.channels_last))
+        assert window_attn.launches - before == 24
+        with precision.use(precision.EXACT):
+            want = ref(img)
+        with precision.use(precision.CONTROL):
+            control = ref(img)
+
+    def rel(a, w):
+        return float((a.double() - w.double()).norm() / w.double().norm())
+    gaps = [rel(g, w) for g, w in zip(got, want)]
+    lower = [rel(c, w) for c, w in zip(control, want)]
+    assert all(g < c for g, c in zip(gaps, lower)), (gaps, lower)
+    assert max(gaps) < 0.04, (gaps, lower)
